@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of :mod:`cse_tpu` for NVIDIA Hopper (H100).
+
+The JAX package stays the reference. This package imports ``torch`` only:
+never ``jax``, ``flax`` or anything of ``cse_tpu``. Its entry points run on
+``cuda`` unless the caller asks for ``device="cpu"``; when CUDA is asked for
+and absent they raise.
+
+It carries the serving path (:class:`cse_tpu_torch.serving.ServingEngine`)
+with a hand-written CUDA port of ``cse_tpu/ops/fused_stack.py::_stack_kernel``
+(``csrc/fused_stack.cu``); training is not ported yet.
+"""
+
+from cse_tpu_torch.core.device import resolve_device
+
+__all__ = ["resolve_device"]

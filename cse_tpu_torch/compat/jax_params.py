@@ -1,0 +1,74 @@
+"""Carry ``cse_tpu`` flax Sepformer parameters into the port's modules.
+
+The port keeps its own copy of the layout rules (it imports nothing of
+``cse_tpu``):
+
+* flax ``Dense`` kernels are ``[din, dout]``; ``nn.Linear`` weights are
+  ``[dout, din]`` -> transposed;
+* the encoder ``Conv`` kernel is HIO ``[k, 1, N]``; ``nn.Conv1d`` wants
+  ``[N, 1, k]``;
+* the decoder is ``jax.lax.conv_transpose`` with an HIO ``[k, N, 1]`` kernel
+  and no flip, so ``F.conv_transpose1d`` needs the kernel reversed along k
+  (``[N, 1, k]``);
+* LayerNorm / GroupNorm ``scale`` -> ``weight``; ``dual_mdl_{i}`` ->
+  ``dual_mdl.{i}``; ``layer_{j}`` -> ``layers.{j}``; the packed attention's
+  ``in_proj_kernel`` / ``out_proj_kernel`` -> ``in_proj`` / ``out_proj``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _leaves(tree: Mapping, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+
+
+def _module_path(path: tuple) -> list[str]:
+    out = []
+    for seg in path:
+        m = re.fullmatch(r"(dual_mdl|layer)_(\d+)", seg)
+        if m:
+            out += ["dual_mdl" if m.group(1) == "dual_mdl" else "layers", m.group(2)]
+        else:
+            out.append(seg)
+    return out
+
+
+def jax_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax Sepformer params (``{"params": ...}`` or the bare tree, leaves
+    array-like) -> the port's ``state_dict`` (fp32 CPU tensors)."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    for path, a in _leaves(p):
+        *mods, leaf = _module_path(path)
+        if mods == ["encoder"] and leaf == "kernel":
+            t = a.transpose(2, 1, 0)
+        elif mods == ["decoder"] and leaf == "kernel":
+            t = a[::-1].transpose(1, 2, 0)
+        elif leaf in ("kernel", "in_proj_kernel", "out_proj_kernel"):
+            t = a.T
+        else:
+            t = a
+        if leaf in ("in_proj_kernel", "out_proj_kernel", "in_proj_bias", "out_proj_bias"):
+            proj, kind = leaf.rsplit("_", 1)
+            mods, leaf = mods + [proj], "bias" if kind == "bias" else "kernel"
+        name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        sd[".".join(mods + [name])] = torch.from_numpy(np.array(t))  # a writable copy
+    return sd
+
+
+def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Load flax params into ``model`` strictly: a missing or unexpected key,
+    or a shape mismatch, raises."""
+    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return model

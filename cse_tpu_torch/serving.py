@@ -1,0 +1,140 @@
+"""Serving engine: fused-stack inference for the Sepformer family.
+
+Port of ``cse_tpu/serving.py``. Runs the parameters of a
+:class:`cse_tpu_torch.models.sepformer.Sepformer` but executes each
+intra/inter transformer stack through :func:`fused_stack_apply` (the CUDA
+kernels on the card, the plain version on the CPU). The remaining
+projections (1x1 convs, context mappers, mask heads, encoder and decoder)
+stay ordinary PyTorch ops. Inference only.
+
+Usage:
+    engine = ServingEngine(cfg, params_or_model)   # device defaults to cuda
+    est = engine(mix, ctx)                          # same outputs as Sepformer
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig, add_pe, dense, mask_head
+from cse_tpu_torch.ops.fused_stack import fused_stack_apply, stack_weights
+from cse_tpu_torch.ops.segmentation import segment
+
+
+def stacked_weights(model: Sepformer) -> dict[str, dict[str, torch.Tensor]]:
+    """Every stack's :func:`stack_weights`, keyed ``"{block}.intra"`` /
+    ``"{block}.inter"``."""
+    cd = model.cfg.compute_dtype
+    out = {}
+    for i, blk in enumerate(model.masknet.dual_mdl):
+        out[f"{i}.intra"] = stack_weights(blk.intra_mdl, cd)
+        out[f"{i}.inter"] = stack_weights(blk.inter_mdl, cd)
+    return out
+
+
+def _stack(x, w, cfg: SepformerConfig):
+    """PE + fused transformer stack. x: [G, L, D]."""
+    x = add_pe(x, cfg.pe_max_len)
+    return fused_stack_apply(x, w, nhead=cfg.nhead, compute_dtype=cfg.compute_dtype)
+
+
+@torch.no_grad()
+def sepformer_fused_forward(
+    model: Sepformer,
+    mix: torch.Tensor,
+    ctx: torch.Tensor | None = None,
+    se: torch.Tensor | None = None,
+    cue_index=None,
+    stacks: dict | None = None,
+):
+    """Mirror of ``Sepformer.forward`` with fused stacks; same returns.
+
+    ``stacks`` are the model's :func:`stacked_weights` (made here when not
+    given).
+    """
+    cfg, cd = model.cfg, model.cfg.compute_dtype
+    stacks = stacked_weights(model) if stacks is None else stacks
+    B, T = mix.shape
+    w = model.encode(mix)  # [B, L, N] in cd
+    L = w.shape[1]
+    if cfg.add_se and ctx is not None:
+        ctx = model.fuse_cues(ctx, se, cue_index)
+
+    mn = model.masknet
+    x = dense(mn.norm(w), mn.conv1d, cd)
+    x, gap = segment(x, cfg.chunk_size)  # [B, S, K, D]
+    _, S, K, N = x.shape
+    Tc = 0 if (ctx is None or not cfg.add_ctx) else ctx.shape[1]
+
+    pred_head = None
+    for i, blk in enumerate(mn.dual_mdl):
+        intra = x.reshape(B * S, K, N)
+        if Tc:
+            c = dense(ctx, blk.intra_context_mapper, cd)
+            c = c[:, None].expand(B, S, Tc, N).reshape(B * S, Tc, N)
+            intra = torch.cat([c, intra.to(c.dtype)], dim=1)
+        intra = _stack(intra, stacks[f"{i}.intra"], cfg)
+        intra = intra[:, Tc:].reshape(B, S, K, N)
+        intra = blk.intra_norm(intra) + x
+
+        inter = intra.transpose(1, 2).reshape(B * K, S, N)
+        if Tc:
+            c = dense(ctx, blk.inter_context_mapper, cd)
+            c = c[:, None].expand(B, K, Tc, N).reshape(B * K, Tc, N)
+            inter = torch.cat([c, inter.to(c.dtype)], dim=1)
+        inter = _stack(inter, stacks[f"{i}.inter"], cfg)
+        pred_head = inter[:, 0].reshape(B, K, N).mean(dim=1)
+        inter = inter[:, Tc:].reshape(B, K, S, N).transpose(1, 2)
+        x = blk.inter_norm(inter) + intra
+
+    masks = mask_head(mn, x, gap, B, L)
+    est = model.decode(w, masks, T)
+    if cfg.variant == "contsep":
+        return est, model.select(pred_head)
+    return est
+
+
+class ServingEngine:
+    """Fused-inference wrapper with the ``Sepformer`` call signature.
+
+    ``params_or_model`` is a port :class:`Sepformer` or a ``cse_tpu`` flax
+    param tree (nested mappings of arrays), which is loaded strictly through
+    :func:`cse_tpu_torch.compat.jax_params.load_jax_params`. ``device``
+    defaults to ``cuda`` and raises when CUDA is absent; the stacked kernel
+    weights are made once here.
+    """
+
+    def __init__(self, cfg: SepformerConfig, params_or_model, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if isinstance(params_or_model, Sepformer):
+            if params_or_model.cfg != cfg:
+                raise ValueError("model.cfg differs from cfg")
+            model = params_or_model
+        elif isinstance(params_or_model, Mapping):
+            from cse_tpu_torch.compat.jax_params import load_jax_params
+
+            model = Sepformer(cfg)
+            load_jax_params(model, params_or_model)
+        else:
+            raise TypeError(f"expected a Sepformer or a param mapping, got {type(params_or_model)}")
+        self.model = model.to(self.device).eval()
+        self.stacks = stacked_weights(self.model)
+
+    def _in(self, a):
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def __call__(self, mix, ctx=None, se=None, cue_index=None):
+        cue = cue_index if cue_index is None or isinstance(cue_index, int) else self._in(cue_index)
+        return sepformer_fused_forward(
+            self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
+            cue_index=cue, stacks=self.stacks,
+        )

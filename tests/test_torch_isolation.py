@@ -1,0 +1,55 @@
+"""cse_tpu_torch imports torch only: never jax, flax, optax or cse_tpu."""
+
+import json
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import cse_tpu_torch
+
+PKG_DIR = Path(cse_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG_DIR)], prefix="cse_tpu_torch.")
+    )
+
+
+def test_every_module_imports_without_jax_or_cse_tpu():
+    mods = ["cse_tpu_torch"] + _modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=str(PKG_DIR.parent),
+    )
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [
+        m for m in loaded
+        if m.split(".")[0] in FORBIDDEN or m == "cse_tpu" or m.startswith("cse_tpu.")
+    ]
+    assert not bad, bad
+    assert "cse_tpu_torch.serving" in loaded and "torch" in loaded
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG_DIR).as_posix() for p in PKG_DIR.rglob("*.py")))
+def test_sources_have_no_forbidden_imports(path):
+    src = (PKG_DIR / path).read_text()
+    pat = re.compile(
+        r"^\s*(?:import|from)\s+(?:" + "|".join(FORBIDDEN) + r"|cse_tpu)(?:\.|\s|$)", re.M
+    )
+    assert not pat.findall(src), pat.findall(src)
+
+
+def test_package_has_kernel_sources():
+    assert (PKG_DIR / "csrc" / "fused_stack.cu").exists()
