@@ -1,4 +1,4 @@
-"""Smoke run of the cse_tpu_torch serving path on one NVIDIA GPU.
+"""Smoke run of the cse_tpu_torch serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,21 @@ Phases (any failure exits non-zero and prints no result line):
      layer-by-layer Sepformer on the card; the launch counts of the bf16 run;
      the median forward time and realtime factor;
   5. each kernel's time beside its plain version, a library call that computes
-     the same function (timed only; the port never calls it) and its bound.
+     the same function (timed only; the port never calls it) and its bound;
+  6. the training kernels (attention with row stats, attention backward, weight
+     gradient, ReLU-gradient GEMM, LayerNorm backward) and the whole 8-layer
+     fused_stack_train forward and backward against their plain versions at
+     the training shapes (intra, inter, and L=300 for the attention backward's
+     several tiles) in fp32 and bf16;
+  7. the training path: (a) loss and every gradient of make_loss_fn(fused=True)
+     against the plain Sepformer under autograd, fp32, full width, B=2,
+     T=125000; (b) 20 bf16 steps on one batch, fused against plain; (c) the
+     bench recipe, make_train_step(fused=True), B=16, bf16: launch counts of
+     one step against the formula, median step time, mixtures/s, peak memory,
+     one step split into forward, backward and optimizer, and one step under
+     torch.profiler (device time by kernel, the device's busy share); (d) each
+     training kernel's time beside its plain version, a library call and its
+     bound.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -48,6 +62,23 @@ TOL_SERVE_FP32 = 1e-4
 # serving bar (tests/test_serving.py::test_w8a8_engine_close_to_exact) ->
 # relative L2 <= 5e-2.
 TOL_SERVE_BF16 = 5e-2
+# The whole 8-layer training stack, kernels against plain. Its output keeps
+# the per-kernel bars. Its gradients do not: a ReLU whose input lies within
+# a rounding of 0 flips its mask between two summation orders, a jump of the
+# full gradient on that element, so max_rel is no measure; in fp32 the
+# gradients are held at relative L2 <= 5e-3 (the training-parity bar below).
+# In bf16 such flips are common, so both bf16 versions are held against the
+# plain fp32 run of the same stack, and the kernels' error may exceed the
+# plain version's by at most 25% (+1e-3).
+TOL_STACK_GRAD_FP32 = 5e-3
+STACK_GRAD_BF16_RATIO = 1.25
+# Training parity, fp32, fused against the plain Sepformer (TF32 off): the
+# JAX suite's fused-vs-XLA bar (tests/test_fused_train.py) -> relative L2
+# <= 5e-3 for the loss and each parameter's gradient.
+TOL_TRAIN_FP32 = 5e-3
+# The bf16 trajectory: the JAX suite's bar -> max |fused - plain| / (1 + |plain|)
+# < 5e-2 over the steps, and both curves descend.
+TOL_TRAJ = 5e-2
 
 # NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16 = 989e12
@@ -58,6 +89,9 @@ INTRA = (2016, 251)  # B*S sequences of K + 1 tokens at B=16, T=125000
 INTER = (4000, 127)  # B*K sequences of S + 1 tokens
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
 SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
+REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
+REPLACES_BWD = "cse_tpu/ops/fused_train.py:168"  # _bwd_kernel
+SOURCE_TRAIN = "cse_tpu_torch/csrc/fused_train.cu"
 
 
 def fail(msg: str):
@@ -78,11 +112,12 @@ def errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, float]:
     ).item()
 
 
-def check(name: str, got: torch.Tensor, ref: torch.Tensor, cd: torch.dtype, failures: list) -> float:
+def check(name: str, got: torch.Tensor, ref: torch.Tensor, cd: torch.dtype, failures: list,
+          tol_bf16: float = TOL_BF16) -> float:
     if not torch.isfinite(got.float()).all():
         failures.append(f"{name}: non-finite output")
     mx, rmax, rl2 = errs(got, ref)
-    ok = rmax <= TOL_FP32 if cd == torch.float32 else rl2 <= TOL_BF16
+    ok = rmax <= TOL_FP32 if cd == torch.float32 else rl2 <= tol_bf16
     log(f"  {name:<44s} max_abs {mx:.3e}  max_rel {rmax:.3e}  rel_l2 {rl2:.3e}  {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(name)
@@ -116,6 +151,404 @@ def random_stack(D, F_, n_layers, cd, gen):
     w["fn_s"] = (1 + 0.1 * r(D)).to(cd).float().contiguous()
     w["fn_b"] = (0.1 * r(D)).to(cd).float().contiguous()
     return w
+
+
+def stack_module(n_layers, gen):
+    """A full-width TransformerStack on the card with seeded random weights,
+    biases and LN parameters (none at their init values)."""
+    from cse_tpu_torch.models.sepformer import SepformerConfig, TransformerStack
+
+    stack = TransformerStack(SepformerConfig(num_tf_layers=n_layers)).cuda()
+    with torch.no_grad():
+        for name, p in stack.named_parameters():
+            if p.ndim == 2:
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) / math.sqrt(p.shape[1]))
+            else:
+                base = 1.0 if name.endswith("weight") else 0.0
+                p.copy_(base + 0.1 * torch.randn(p.shape, device="cuda", generator=gen))
+    return stack
+
+
+def stack_grads(stack, x, gy, cd, ops):
+    """y and the gradients (x and every parameter) of fused_stack_train."""
+    from cse_tpu_torch.ops import fused_train as ft
+
+    stack.zero_grad(set_to_none=True)
+    xg = x.detach().clone().requires_grad_(True)
+    y = ft.fused_stack_train(xg, stack, nhead=8, compute_dtype=cd, ops=ops)
+    y.backward(gy)
+    grads = {"x": xg.grad}
+    for k, p in stack.named_parameters():
+        grads[k] = ft.qv_part(p.grad) if k.endswith("in_proj.bias") else p.grad
+    return y.detach(), grads
+
+
+def phase6(gen, failures, H, F_, NL):
+    """Training kernels and the whole training stack against their plain versions."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+
+    D = 256
+    log("[6] training kernels vs plain versions (fp32: max_rel <= %.0e; bf16: rel_l2 <= %.0e; whole-stack "
+        "gradients: fp32 rel_l2 <= %.0e, bf16 error vs fp32 <= %.2fx plain's + 1e-3)"
+        % (TOL_FP32, TOL_BF16, TOL_STACK_GRAD_FP32, STACK_GRAD_BF16_RATIO))
+    err = dict.fromkeys(("attention_stats", "attention_backward", "weight_grad", "linear_relu_grad",
+                         "layer_norm_backward", "fused_stack_train"), 0.0)
+    for cd in (torch.float32, torch.bfloat16):
+        tag = "fp32" if cd == torch.float32 else "bf16"
+        for shape_name, (G, L) in (("intra", INTRA), ("inter", INTER), ("L=300", (64, 300))):
+            M = G * L
+            qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
+            sk, sp = (torch.empty(2, M, H, device="cuda") for _ in range(2))
+            e = check(f"attention+stats {tag} {shape_name} out", fs.attention(qkv, L, H, cd, sk),
+                      fs.attention_plain(qkv, L, H, cd, sp), cd, failures)
+            e = max(e, check(f"attention+stats {tag} {shape_name} stats", sk, sp, torch.float32, failures))
+            err["attention_stats"] = max(err["attention_stats"], e)
+            dattn = torch.randn(M, D, device="cuda", generator=gen)
+            got, gb = ft.attention_backward(qkv, dattn, sp, L, H, cd)
+            want, wb = ft.attention_backward_plain(qkv, dattn, sp, L, H, cd)
+            e = check(f"attention_backward {tag} {shape_name} G={G} L={L} dqkv", got, want, cd, failures)
+            e = max(e, check(f"attention_backward {tag} {shape_name} dbias (q, v)", ft.qv_part(gb),
+                             ft.qv_part(wb), cd, failures))
+            err["attention_backward"] = max(err["attention_backward"], e)
+            del qkv, sk, sp, dattn, got, want
+            if shape_name == "L=300":
+                continue
+            for K, N in ((D, 3 * D), (D, D), (D, F_), (F_, D)):
+                a = torch.randn(M, K, device="cuda", generator=gen).to(cd)
+                dy = torch.randn(M, N, device="cuda", generator=gen).to(cd)
+                e = check(f"weight_grad {tag} {shape_name} [{M},{K}]^T x [{M},{N}]", ft.weight_grad(a, dy),
+                          ft.weight_grad_plain(a, dy), cd, failures)
+                err["weight_grad"] = max(err["weight_grad"], e)
+                del a, dy
+            dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
+            wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
+            mask = torch.relu(torch.randn(M, F_, device="cuda", generator=gen)).to(cd)
+            (o, cs), (ro, rcs) = ft.linear_relu_grad(dy, wt, mask), ft.linear_relu_grad_plain(dy, wt, mask)
+            e = check(f"linear_relu_grad {tag} {shape_name} [{M},{D}]x[{D},{F_}]", o, ro, cd, failures)
+            e = max(e, check(f"linear_relu_grad {tag} {shape_name} colsum", cs, rcs, cd, failures))
+            err["linear_relu_grad"] = max(err["linear_relu_grad"], e)
+            del dy, wt, mask, o, ro
+            x = 3 * torch.randn(M, D, device="cuda", generator=gen)
+            dh = torch.randn(M, D, device="cuda", generator=gen)
+            sc = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+            g = torch.randn(M, D, device="cuda", generator=gen).to(cd)
+            k32, kcd, ks = ft.layer_norm_backward(dh, x, sc, g, torch.empty(M, D, device="cuda"), cd)
+            p32, pcd, ps = ft.layer_norm_backward_plain(dh, x, sc, g, torch.empty(M, D, device="cuda"), cd)
+            e = max(check(f"layer_norm_backward {tag} {shape_name} g_out fp32", k32, p32, torch.float32, failures),
+                    check(f"layer_norm_backward {tag} {shape_name} g_out {tag}", kcd, pcd, cd, failures),
+                    check(f"layer_norm_backward {tag} {shape_name} sums", ks, ps, torch.float32, failures))
+            err["layer_norm_backward"] = max(err["layer_norm_backward"], e)
+            del x, dh, g, k32, kcd, p32, pcd
+            stack = stack_module(NL, gen)
+            xs = torch.randn(G, L, D, device="cuda", generator=gen)
+            gy = torch.randn(G, L, D, device="cuda", generator=gen)
+            yk, gk = stack_grads(stack, xs, gy, cd, None)
+            yp, gp = stack_grads(stack, xs, gy, cd, ft.PLAIN_OPS)
+            e = check(f"fused_stack_train {tag} {shape_name} {NL} layers: y", yk, yp, cd, failures)
+            name = f"fused_stack_train {tag} {shape_name} grads"
+            if cd == torch.float32:
+                rl = {k: errs(gk[k], gp[k])[2] for k in gp}
+                worst = max(rl, key=rl.get)
+                bad = [k for k, v in rl.items() if not v <= TOL_STACK_GRAD_FP32]
+                log(f"  {name}: {len(rl)} tensors, dx rel_l2 {rl['x']:.3e}, worst {worst} {rl[worst]:.3e}  "
+                    f"{'ok' if not bad else 'FAIL'}")
+            else:
+                _, gr = stack_grads(stack, xs, gy, torch.float32, ft.PLAIN_OPS)
+                ek = {k: errs(gk[k], gr[k])[2] for k in gr}
+                ep = {k: errs(gp[k], gr[k])[2] for k in gr}
+                bad = [k for k in gr if not ek[k] <= STACK_GRAD_BF16_RATIO * ep[k] + 1e-3]
+                worst = max(gr, key=lambda k: ek[k] / max(ep[k], 1e-30))
+                log(f"  {name} vs the plain fp32 run: dx kernels {ek['x']:.3e} plain {ep['x']:.3e}; worst ratio "
+                    f"{worst} kernels {ek[worst]:.3e} plain {ep[worst]:.3e}; kernels vs plain bf16 dx rel_l2 "
+                    f"{errs(gk['x'], gp['x'])[2]:.3e}  {'ok' if not bad else 'FAIL'}")
+                del gr
+            failures.extend(f"{name}: {k}" for k in bad)
+            err["fused_stack_train"] = max(err["fused_stack_train"], e, errs(gk["x"], gp["x"])[0])
+            del stack, xs, gy, yk, gk, yp, gp
+            torch.cuda.empty_cache()
+    if failures:
+        fail(f"training kernel checks failed: {failures}")
+    return err
+
+
+def phase7_parity(gen, failures):
+    """(a) fp32 loss and gradients, fused against the plain Sepformer; (b) the
+    bf16 trajectory."""
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+    from cse_tpu_torch.train.step import TrainConfig, make_loss_fn, make_train_step
+
+    B, T = 2, aligned_bucket(128000)
+    log(f"[7a] training parity, fp32, full width, B={B}, T={T}: make_loss_fn(fused=True) vs the plain "
+        f"Sepformer under autograd (rel_l2 <= {TOL_TRAIN_FP32:.0e})")
+    mix = torch.randn(B, T, device="cuda", generator=gen)
+    ctx = torch.randn(B, 1, 4096, device="cuda", generator=gen)
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.float32)
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        est0 = model(mix, ctx)[:, :, 0]
+    # gt = the model's own estimate plus noise: SI-SNR near +6 dB, so the loss
+    # is not a near-cancellation that magnifies summation-order differences
+    gt = est0 + 0.5 * est0.std() * torch.randn(B, T, device="cuda", generator=gen)
+    batch = {"mixed": mix, "gt": gt, "ctx_feat": ctx}
+    res = {}
+    for fused in (True, False):
+        model.zero_grad(set_to_none=True)
+        loss, _ = make_loss_fn(model, TrainConfig(variant="context"), fused=fused)(batch)
+        loss.backward()
+        grads = {k: (ft.qv_part(p.grad) if k.endswith("in_proj.bias") else p.grad).clone()
+                 for k, p in model.named_parameters()}
+        res[fused] = (loss.item(), grads)
+        torch.cuda.empty_cache()
+    (lf, gf), (lp, gp) = res[True], res[False]
+    rl = abs(lf - lp) / abs(lp)
+    log(f"  loss fused {lf:.6f} plain {lp:.6f} rel {rl:.3e}")
+    if rl > TOL_TRAIN_FP32:
+        failures.append("train parity loss")
+    worst = sorted(((errs(gf[k], gp[k])[2], k) for k in gp), reverse=True)
+    for r, k in worst[:5]:
+        log(f"  grad {k:<62s} rel_l2 {r:.3e}")
+    bad = [k for r, k in worst if not r <= TOL_TRAIN_FP32]
+    log(f"  {len(gp)} gradients, worst rel_l2 {worst[0][0]:.3e}: {'ok' if not bad else 'FAIL ' + str(bad)}")
+    failures.extend(f"train parity grad {k}" for k in bad)
+    del model, res, gf, gp, est0
+    torch.cuda.empty_cache()
+
+    n_steps = 20
+    log(f"[7b] bf16 trajectory, {n_steps} steps on one batch (B={B}), fused vs plain "
+        f"(max dev < {TOL_TRAJ:.0e}, both descend)")
+    # gt again from the initial model's own fp32 estimate: against a random gt
+    # at T=125000 the SI-SNR sits near -50 dB, where bf16 roundings alone move
+    # the loss by tenths of a dB
+    with torch.no_grad():
+        est0 = Sepformer(cfg, generator=torch.Generator().manual_seed(2)).cuda()(mix, ctx)[:, :, 0]
+    gt = est0 + 0.5 * est0.std() * torch.randn(B, T, device="cuda", generator=gen)
+    batch = {"mixed": mix, "gt": gt, "ctx_feat": ctx}
+    del est0
+    curves = {}
+    for fused in (True, False):
+        cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+        model = Sepformer(cfg, generator=torch.Generator().manual_seed(2))
+        step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 1000, 5)),
+                               TrainConfig(variant="context"), fused=fused)
+        curves[fused] = [step(batch)["loss"] for _ in range(n_steps)]
+        del model, step
+        torch.cuda.empty_cache()
+    fus, pla = curves[True], curves[False]
+    dev = max(abs(f - p) / (1 + abs(p)) for f, p in zip(fus, pla))
+    desc = all(sum(c[-5:]) < sum(c[:5]) for c in (fus, pla))
+    log(f"  fused {[round(v, 4) for v in fus]}")
+    log(f"  plain {[round(v, 4) for v in pla]}")
+    log(f"  max dev {dev:.3e}; both descend: {desc}  {'ok' if dev < TOL_TRAJ and desc else 'FAIL'}")
+    if not (dev < TOL_TRAJ and desc):
+        failures.append("bf16 trajectory")
+    if failures:
+        fail(f"training checks failed: {failures}")
+
+
+def profile_step(step, batch):
+    """One train step under torch.profiler: device time by kernel name, and
+    the kernels' summed time over the step's wall time (the busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - h0)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            agg = by_name.setdefault(e.name, [0, 0.0])
+            agg[0] += 1
+            agg[1] += us
+    busy = sum(v[1] for v in by_name.values())
+    log(f"  profiled step: wall {wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms, busy share "
+        f"{busy / wall_us:.4f}; device time by kernel:")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:30]:
+        log(f"    {us / 1e3:10.3f} ms {n:6d}x  {name[:110]}")
+    return {"wall_ms": wall_us / 1e3, "kernel_ms": busy / 1e3,
+            "by_kernel_ms": {k: v[1] / 1e3 for k, v in by_name.items()}}
+
+
+def phase7_bench(gen, card):
+    """(c) the bench recipe through make_train_step: launches, step time, memory."""
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+    from cse_tpu_torch.train.step import TrainConfig, make_loss_fn, make_train_step
+
+    B, T = 16, aligned_bucket(128000)
+    log(f"[7c] bench recipe: make_train_step(fused=True), ContExt full width, bf16, B={B}, T={T} [{card}]")
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(0))
+    opt = build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000))
+    step = make_train_step(model, opt, TrainConfig(variant="context"), fused=True)
+    batch = {"mixed": torch.randn(B, T, device="cuda", generator=gen),
+             "gt": torch.randn(B, T, device="cuda", generator=gen),
+             "ctx_feat": torch.randn(B, 1, 4096, device="cuda", generator=gen)}
+    ft.reset_launches()
+    m = step(batch)
+    torch.cuda.synchronize()
+    counts = ft.launch_counts()
+    per_stack = ft.launches_per_train_stack(cfg.num_tf_layers)
+    want = {k: v * 2 * cfg.num_dp_layers for k, v in per_stack.items()}
+    log(f"  launches in one step: {counts} (want {want}, total {sum(want.values())})")
+    if counts != want:
+        fail(f"train launch counts {counts} != {want}")
+    if not math.isfinite(m["loss"]):
+        fail(f"non-finite loss {m}")
+    step(batch)  # second warmup
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for _ in range(5):
+        t_s, t_e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        t_s.record()
+        m = step(batch)
+        t_e.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - h0))
+        times.append(t_s.elapsed_time(t_e))
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  step: median {step_ms:.3f} ms over 5 ({[round(t, 3) for t in times]}; host clock "
+        f"{[round(t, 3) for t in host]}); {B / (step_ms / 1e3):.3f} mixtures/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}  [{card}]")
+    # one step split into forward (loss), backward and optimizer, by CUDA events
+    loss_fn = make_loss_fn(model, TrainConfig(variant="context"), fused=True)
+    params = list(model.parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in params:
+        p.grad = None
+    ev[0].record()
+    loss, _ = loss_fn(batch)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step(params, [p.grad for p in params], step.opt_state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(("forward", "backward", "optimizer"))}
+    log(f"  one step split: " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    prof = profile_step(step, batch)
+    del model, step, batch, loss, loss_fn, params
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_times_ms": times, "host_ms": host, "mixtures_per_s": B / (step_ms / 1e3),
+            "peak_bytes": peak, "split_ms": split, "launches": counts, "profile": prof}
+
+
+def phase7_times(gen, card, H, F_, NL):
+    """(d) each training kernel's time, plain time, library time and bound (bf16)."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+
+    D, cd, hd = 256, torch.bfloat16, 32
+    log(f"[7d] training kernel times, bf16 [{card}]")
+
+    def bound(nbytes, flops):
+        tb, to = 1e3 * nbytes / HBM_BYTES_S, 1e3 * flops / PEAK_BF16
+        return dict(bound_ms=max(tb, to), bound_by="operations" if to >= tb else "bytes")
+
+    times = {}
+    for shape_name, (G, L) in (("intra", INTRA), ("inter", INTER)):
+        M = G * L
+        t = {}
+        qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
+        stats = torch.empty(2, M, H, device="cuda")
+        att_flops = 4 * G * H * L * L * hd
+        t["attention[train]"] = dict(
+            ms=time_ms(lambda: fs.attention(qkv, L, H, cd, stats)),
+            plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, cd, stats), reps=3),
+            library_ms=None, **bound(M * 3 * D * 4 + M * D * 2 + 2 * M * H * 4, att_flops))
+        dattn = torch.randn(M, D, device="cuda", generator=gen)
+        q, k, v = (x.to(cd).detach().requires_grad_(True)
+                   for x in qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4))
+        do = dattn.reshape(G, L, H, hd).transpose(1, 2).to(cd)
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(q, k, v)
+                torch.autograd.grad(o, (q, k, v), do)
+
+        t["attention_backward"] = dict(
+            ms=time_ms(lambda: ft.attention_backward(qkv, dattn, stats, L, H, cd)),
+            plain_ms=time_ms(lambda: ft.attention_backward_plain(qkv, dattn, stats, L, H, cd), reps=3),
+            library_ms=time_ms(sdpa_fwd_bwd),
+            **bound(M * 3 * D * 4 + M * D * 4 + 2 * M * H * 4 + M * 3 * D * 2 + 3 * D * 4,
+                    5 * 2 * G * H * L * L * hd))
+        del qkv, stats, dattn, q, k, v, do
+        wshapes = ((D, 3 * D), (D, D), (D, F_), (F_, D))
+        ops_ = [(torch.randn(M, K, device="cuda", generator=gen).to(cd),
+                 torch.randn(M, N, device="cuda", generator=gen).to(cd)) for K, N in wshapes]
+        t["weight_grad"] = dict(
+            ms=sum(time_ms(lambda o=o: ft.weight_grad(*o)) for o in ops_),
+            plain_ms=time_ms(lambda: [ft.weight_grad_plain(*o) for o in ops_], reps=3),
+            library_ms=time_ms(lambda: [torch.matmul(a.t(), dy) for a, dy in ops_]),
+            **bound(sum(M * K * 2 + M * N * 2 + K * N * 4 for K, N in wshapes),
+                    sum(2 * M * K * N for K, N in wshapes)))
+        del ops_
+        # the backward's three bias-free dX GEMMs on the serving GEMM kernel (fp32 out)
+        dshapes = ((D, D), (F_, D), (3 * D, D))
+        ops_ = [(torch.randn(M, K, device="cuda", generator=gen).to(cd),
+                 (torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)).to(cd),
+                 torch.zeros(N, device="cuda")) for K, N in dshapes]
+        t["linear[dgrad]"] = dict(
+            ms=sum(time_ms(lambda o=o: fs.linear(*o, "bias")) for o in ops_),
+            plain_ms=time_ms(lambda: [fs.linear_plain(*o, "bias") for o in ops_], reps=3),
+            library_ms=time_ms(lambda: [torch.matmul(a, w) for a, w, _ in ops_]),
+            **bound(sum(M * K * 2 + K * N * 2 + N * 4 + M * N * 4 for K, N in dshapes),
+                    sum(2 * M * K * N for K, N in dshapes)))
+        del ops_
+        dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
+        wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
+        mask = torch.relu(torch.randn(M, F_, device="cuda", generator=gen)).to(cd)
+        t["linear_relu_grad"] = dict(
+            ms=time_ms(lambda: ft.linear_relu_grad(dy, wt, mask)),
+            plain_ms=time_ms(lambda: ft.linear_relu_grad_plain(dy, wt, mask), reps=3),
+            library_ms=time_ms(lambda: torch.matmul(dy, wt)),
+            **bound(M * D * 2 + D * F_ * 2 + 2 * M * F_ * 2 + F_ * 4, 2 * M * D * F_))
+        del dy, wt, mask
+        x = torch.randn(M, D, device="cuda", generator=gen)
+        dh = torch.randn(M, D, device="cuda", generator=gen)
+        sc, g = torch.ones(D, device="cuda"), torch.randn(M, D, device="cuda", generator=gen).to(cd)
+        out32 = torch.empty(M, D, device="cuda")
+        xr, wr, br = (x.clone().requires_grad_(True), torch.ones(D, device="cuda", requires_grad=True),
+                      torch.zeros(D, device="cuda", requires_grad=True))
+        with torch.enable_grad():
+            y_ln = F.layer_norm(xr, (D,), wr, br, 1e-6)
+        t["layer_norm_backward"] = dict(
+            ms=time_ms(lambda: ft.layer_norm_backward(dh, x, sc, g, out32, cd)),
+            plain_ms=time_ms(lambda: ft.layer_norm_backward_plain(dh, x, sc, g, out32, cd), reps=3),
+            library_ms=time_ms(lambda: torch.autograd.grad(y_ln, (xr, wr, br), dh, retain_graph=True)),
+            **bound(M * D * (4 + 4 + 2 + 4 + 2) + D * 4 + 4 * D * 4, 0))
+        del x, dh, g, out32, xr, y_ln
+        stack = stack_module(NL, gen)
+        xs = torch.randn(G, L, D, device="cuda", generator=gen)
+        gy = torch.randn(G, L, D, device="cuda", generator=gen)
+        lin_flops = 2 * M * D * (3 * D + D + 2 * F_)
+        t["fused_stack_train"] = dict(
+            ms=time_ms(lambda: stack_grads(stack, xs, gy, cd, None), reps=3, warmup=1),
+            plain_ms=time_ms(lambda: stack_grads(stack, xs, gy, cd, ft.PLAIN_OPS), reps=2, warmup=1),
+            library_ms=None, **bound(0, NL * (4 * lin_flops + 4 * att_flops)))
+        del stack, xs, gy
+        torch.cuda.empty_cache()
+        times[shape_name] = t
+        for kname, v in t.items():
+            lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+            log(f"  {shape_name} G={G} L={L} {kname:<20s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms  "
+                f"library {lib}  bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return times
 
 
 def main() -> int:
@@ -315,6 +748,12 @@ def main() -> int:
             log(f"  {shape_name} G={G} L={L} {kname:<11s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
                 f"library {t.get('library_ms', float('nan')):.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
 
+    with torch.enable_grad():
+        train_err = phase6(gen, failures, H, F_, NL)
+        phase7_parity(gen, failures)
+        bench = phase7_bench(gen, card)
+        ttimes = phase7_times(gen, card, H, F_, NL)
+
     parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
              "linear": ("the four projections (:92-110), one layer's 4 launches", "linear_bf16_kernel"),
              "attention": ("_attention (:39), one launch", "attention_bf16_kernel")}
@@ -329,10 +768,44 @@ def main() -> int:
             "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}",
             "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # the training path (launches of one bench step): the serving kernels in the
+    # forward, replay and dX GEMMs, and the backward's own kernels
+    train_parts = (
+        ("layer_norm[train]", "layer_norm", SOURCE, REPLACES_FWD, "layer_norm_kernel",
+         times, "layer_norm", "layer_norm", "forward and replay LNs; one launch"),
+        ("linear[train]", "linear", SOURCE, REPLACES_FWD, "linear_bf16_kernel",
+         times, "linear", "linear", "forward and replay projections (one layer's 4 launches); "
+         "the backward's 3 dX GEMMs per layer are linear[dgrad] in 'train_times'"),
+        ("attention[train]", "attention", SOURCE, REPLACES_FWD, "attention_bf16_kernel",
+         ttimes, "attention[train]", "attention_stats", "attention writing row max and 1/z; one launch"),
+        ("weight_grad", "weight_grad", SOURCE_TRAIN, REPLACES_BWD, "wgrad_bf16_kernel + sum_rows_kernel",
+         ttimes, "weight_grad", "weight_grad", "one layer's 4 weight gradients"),
+        ("linear_relu_grad", "linear_relu_grad", SOURCE, REPLACES_BWD,
+         "linear_bf16_kernel<EPI_RELU_GRAD> + sum_rows_kernel", ttimes, "linear_relu_grad", "linear_relu_grad",
+         "dpre = relu'(h) * (dy W2^T) and its column sums; one call"),
+        ("layer_norm_backward", "layer_norm_backward", SOURCE_TRAIN, REPLACES_BWD,
+         "layer_norm_bwd_kernel + sum_rows_kernel", ttimes, "layer_norm_backward", "layer_norm_backward",
+         "one LN backward with its dscale, dbias and bias sums; one call"),
+        ("attention_backward", "attention_backward", SOURCE_TRAIN, REPLACES_BWD,
+         "attention_bwd_dq_bf16_kernel + attention_bwd_dkdv_bf16_kernel + sum_rows_kernel",
+         ttimes, "attention_backward", "attention_backward", "dq | dk | dv and their column sums; one call"),
+    )
+    all_err = {**max_err, **train_err}
+    for name, counter, source, replaces, symbol, tset, tkey, ekey, part in train_parts:
+        ti, tn = tset["intra"][tkey], tset["inter"][tkey]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "symbol": symbol, "replaces": replaces,
+            "launches": bench["launches"][counter], "max_abs_err": all_err[ekey],
+            "ms": ti["ms"], "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
+            "bound_by": ti["bound_by"], "library_ms": ti["library_ms"],
+            "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}; launches per bf16 train step",
+            "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
     log(f"  whole run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "fused_stack": {k: {kk: vv for kk, vv in v["fused_stack"].items()} for k, v in times.items()},
-                      "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3)}), flush=True)
+                      "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3),
+                      "train_step": bench, "train_times": ttimes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,10 @@ and absent they raise.
 
 It carries the serving path (:class:`cse_tpu_torch.serving.ServingEngine`)
 with a hand-written CUDA port of ``cse_tpu/ops/fused_stack.py::_stack_kernel``
-(``csrc/fused_stack.cu``); training is not ported yet.
+(``csrc/fused_stack.cu``), and the fused training step
+(:func:`cse_tpu_torch.train.step.make_train_step`) with a port of
+``cse_tpu/ops/fused_train.py``'s ``_fwd_kernel`` and ``_bwd_kernel``
+(``ops/fused_train.py``, ``csrc/fused_train.cu``).
 """
 
 from cse_tpu_torch.core.device import resolve_device

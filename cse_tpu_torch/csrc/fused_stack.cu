@@ -8,12 +8,18 @@
 // 8 x (LN, QKV, attention, out-proj, LN, FFN1, FFN2) + final LN = 57 times
 // per stack call, keeping the residual stream fp32 in device memory:
 //
+// The training path (fused_train.cu, ops/fused_train.py) runs its forward
+// and replay on these kernels too: the attention optionally writes each
+// row's max and 1/z, and the GEMM has a fourth epilogue for the backward's
+// dX product through the ReLU.
+//
 //   (a) layer_norm_kernel: one warp per row, fp32 stats (eps passed in),
 //       writes LN(x) in the compute dtype (or the output dtype for the
 //       final LN). Bound by bytes: reads 4 B and writes 2-4 B per element.
 //   (b) linear_*_kernel: C = A[M,K] . W[K,N] with cd operands and fp32
 //       accumulation, epilogue +bias (fp32 out), +bias+relu (cd out), or
-//       +bias added into the fp32 residual in place. bf16 runs on the tensor
+//       +bias added into the fp32 residual in place (and EPI_RELU_GRAD,
+//       below). bf16 runs on the tensor
 //       cores through mma.sync (128x128x32 tiles, a 4-stage cp.async ring,
 //       ldmatrix) with the epilogue applied from registers; fp32 runs on
 //       CUDA-core FMAs (64x64 tiles), never TF32. At M ~ 5e5 rows and
@@ -33,31 +39,9 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-// round to nearest even, as jnp.astype(bfloat16) and torch.to(bfloat16)
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
 
 // ---------------------------------------------------------------- (a) LN
 template <typename TO>
@@ -83,44 +67,17 @@ layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------- (b) GEMM
-enum Epilogue { EPI_BIAS = 0, EPI_RELU = 1, EPI_RESIDUAL = 2 };
+// EPI_RELU_GRAD (the training backward's dX GEMM through the FFN's ReLU):
+// C (cd) = where(mask > 0, acc + bias, 0) with mask the forward's relu output
+// (cd), and the fp32 column sums of that value over the block's rows written
+// to colsum[blockIdx.x / nN][N] -- the bias gradient's per-block partials.
+enum Epilogue { EPI_BIAS = 0, EPI_RELU = 1, EPI_RESIDUAL = 2, EPI_RELU_GRAD = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
 constexpr int LDA_S = BK + 8;   // bf16 elements: 80-byte rows, ldmatrix conflict-free
 constexpr int LDB_S = BN + 8;   // 272-byte rows, likewise
 constexpr int A_STAGE = BM * LDA_S, B_STAGE = BK * LDB_S;
 constexpr size_t LINEAR_BF16_SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const int n = pred ? 16 : 0;  // 0 bytes read -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8. With .trans each thread gets a column pair instead.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-// d += a[16x16] . b[16x8], bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                               unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Store two neighbouring columns (c, c + 1) of one output row (bias and
 // residual already added).
@@ -129,6 +86,8 @@ __device__ __forceinline__ void store2(float v0, float v1, long long idx, void* 
   if (EPI == EPI_RELU)
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + idx) =
         __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+  else if (EPI == EPI_RELU_GRAD)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + idx) = __floats2bfloat162_rn(v0, v1);
   else
     *reinterpret_cast<float2*>(static_cast<float*>(C) + idx) = make_float2(v0, v1);
 }
@@ -142,7 +101,8 @@ __device__ __forceinline__ void store2(float v0, float v1, long long idx, void* 
 template <int EPI>
 __global__ void __launch_bounds__(256, 2)
 linear_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                   const float* __restrict__ bias, void* __restrict__ C, int M, int N, int K) {
+                   const float* __restrict__ bias, void* __restrict__ C, int M, int N, int K,
+                   const bf16* __restrict__ mask, float* __restrict__ colsum) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][LDA_S]
   bf16* Bs = As + STAGES * A_STAGE;          // [STAGES][BK][LDB_S]
@@ -230,7 +190,42 @@ linear_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
       acc[i][j][1] = (acc[i][j][1] + b1) + x0.y;
       acc[i][j][2] = (acc[i][j][2] + b0) + x1.x;
       acc[i][j][3] = (acc[i][j][3] + b1) + x1.y;
+      if (EPI == EPI_RELU_GRAD) {  // rows past M get mask 0, so they add nothing below
+        float2 m0 = make_float2(0.f, 0.f), m1 = m0;
+        if (r < M) m0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mask + (long long)r * N + c));
+        if (r + 8 < M) m1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mask + (long long)(r + 8) * N + c));
+        acc[i][j][0] = m0.x > 0.f ? acc[i][j][0] : 0.f;
+        acc[i][j][1] = m0.y > 0.f ? acc[i][j][1] : 0.f;
+        acc[i][j][2] = m1.x > 0.f ? acc[i][j][2] : 0.f;
+        acc[i][j][3] = m1.y > 0.f ? acc[i][j][3] : 0.f;
+      }
     }
+  if (EPI == EPI_RELU_GRAD) {
+    // column sums of this block's 128 rows: over the thread's 8 rows, over
+    // the 8 lanes that share a column (lane / 4), then over the 2 warps in M
+    float cs[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float t = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) t += acc[i][j][e] + acc[i][j][2 + e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) t += __shfl_xor_sync(FULL, t, o);
+        cs[j][e] = t;
+      }
+    __syncthreads();  // every warp is done reading the operand ring
+    float* red = reinterpret_cast<float*>(smem);  // [2][BN]
+    if (lane < 4)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        red[(warp >> 2) * BN + wn + j * 8 + lane * 2] = cs[j][0];
+        red[(warp >> 2) * BN + wn + j * 8 + lane * 2 + 1] = cs[j][1];
+      }
+    __syncthreads();
+    if (tid < BN && bn + tid < N) colsum[(long long)(blockIdx.x / nN) * N + bn + tid] = red[tid] + red[BN + tid];
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -244,11 +239,16 @@ linear_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 
 // acc + bias -> C | relu(acc + bias) -> C | added into the residual C, all fp32
 template <int EPI>
-__device__ __forceinline__ void epilogue_f32(float acc, int r, int c, int N,
-                                             const float* __restrict__ bias, float* C) {
+__device__ __forceinline__ float epilogue_f32(float acc, int r, int c, int N,
+                                              const float* __restrict__ bias, float* C,
+                                              const float* __restrict__ mask) {
   const float v = acc + bias[c];
-  float* p = C + (long long)r * N + c;
-  *p = EPI == EPI_BIAS ? v : EPI == EPI_RELU ? fmaxf(v, 0.f) : *p + v;
+  const long long idx = (long long)r * N + c;
+  float* p = C + idx;
+  const float o = EPI == EPI_BIAS ? v : EPI == EPI_RELU ? fmaxf(v, 0.f)
+                  : EPI == EPI_RELU_GRAD ? (mask[idx] > 0.f ? v : 0.f) : *p + v;
+  *p = o;
+  return o;
 }
 
 // fp32 x fp32 -> fp32 on CUDA-core FMAs (the parity path; no TF32).
@@ -256,7 +256,8 @@ __device__ __forceinline__ void epilogue_f32(float acc, int r, int c, int N,
 template <int EPI>
 __global__ void __launch_bounds__(256)
 linear_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                  const float* __restrict__ bias, void* C, int M, int N, int K) {
+                  const float* __restrict__ bias, void* C, int M, int N, int K,
+                  const float* __restrict__ mask, float* __restrict__ colsum) {
   __shared__ float As[16][64 + 4];  // transposed: As[k][m]
   __shared__ float Bs[16][64];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -296,20 +297,34 @@ linear_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
     }
     __syncthreads();
   }
+  float cs[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = bm + ty * 4 + i, c = bn + tx * 4 + j;
-      if (r < M && c < N) epilogue_f32<EPI>(acc[i][j], r, c, N, bias, static_cast<float*>(C));
+      if (r < M && c < N) cs[j] += epilogue_f32<EPI>(acc[i][j], r, c, N, bias, static_cast<float*>(C), mask);
     }
+  if (EPI == EPI_RELU_GRAD) {  // column sums of the block's 64 rows, in row-group order
+    __shared__ float red[16][64];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty][tx * 4 + j] = cs[j];
+    __syncthreads();
+    if (tid < 64 && bn + tid < N) {
+      float t = 0.f;
+      for (int i = 0; i < 16; ++i) t += red[i][tid];
+      colsum[(long long)(blockIdx.x / nN) * N + bn + tid] = t;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- (c) attention
 // Both kernels: block b handles sequence b / H, head b % H of qkv [G*L, 3*D]
 // fp32 (q | k | v, head h at columns h*HD of each third) and writes
 // out [G*L, D] in cd. Two passes over the keys in tiles of KT; keys past L
-// are zero in shared memory and masked (p = 0).
+// are zero in shared memory and masked (p = 0). With ``stats`` (training's
+// replay; serving passes null) each row's max m and 1/z go to stats[0][row][h]
+// and stats[1][row][h] ([2, G*L, H] fp32) for the backward to recompute p.
 constexpr int HD = 32;                  // head width
 constexpr int KT = 256;                 // keys per shared-memory tile
 
@@ -322,7 +337,7 @@ constexpr size_t ATT_F32_SMEM = sizeof(float) * (KT * LDK32 + KT * HD + QT32 * H
 
 __global__ void __launch_bounds__(256)
 attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int L, int H,
-                     float scale) {
+                     float scale, float* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // [KT][LDK32]
   float* Vs = Ks + KT * LDK32;                 // [KT][HD]
@@ -418,7 +433,14 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
     for (int r = 0; r < ROWS32; ++r) {
       const int qr = warp + r * 8;
       const float zr = warp_sum(z[r]);
-      if (q0 + qr < L) out[((long long)g * L + q0 + qr) * D + h * HD + lane] = acc[r] / zr;
+      if (q0 + qr >= L) continue;
+      const long long row = (long long)g * L + q0 + qr;
+      out[row * D + h * HD + lane] = acc[r] / zr;
+      if (stats && lane == 0) {
+        const long long MH = (long long)(gridDim.x / H) * L * H;
+        stats[row * H + h] = m[r];
+        stats[MH + row * H + h] = 1.f / zr;
+      }
     }
   }
 }
@@ -435,14 +457,9 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
 constexpr int ATT_WARPS = 4;
 constexpr int LDH = HD + 8;             // bf16 row stride of the K, V tiles: ldmatrix conflict-free
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 __global__ void __launch_bounds__(ATT_WARPS * 32, 4)
 attention_bf16_kernel(const float* __restrict__ qkv, bf16* __restrict__ out, int L, int H,
-                      float scale, int kt_rows) {
+                      float scale, int kt_rows, float* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
   bf16* Vs = Ks + kt_rows * LDH;             // [kt_rows][LDH]
@@ -591,20 +608,22 @@ attention_bf16_kernel(const float* __restrict__ qkv, bf16* __restrict__ out, int
         *reinterpret_cast<__nv_bfloat162*>(out + ((long long)g * L + rb) * D + d) =
             __floats2bfloat162_rn(o[j][2] / zb, o[j][3] / zb);
     }
+    if (stats && (lane & 3) == 0) {
+      const long long MH = (long long)(gridDim.x / H) * L * H;
+      if (ra < L) {
+        stats[((long long)g * L + ra) * H + h] = ma;
+        stats[MH + ((long long)g * L + ra) * H + h] = 1.f / za;
+      }
+      if (rb < L) {
+        stats[((long long)g * L + rb) * H + h] = mb;
+        stats[MH + ((long long)g * L + rb) * H + h] = 1.f / zb;
+      }
+    }
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = e == cudaSuccess;
-  return e;
-}
-
 cudaError_t launch_attention(int bf, const float* qkv, void* out, int G, int L, int H, float scale,
-                             cudaStream_t st) {
+                             float* stats, cudaStream_t st) {
   static bool f32_ready = false;
   cudaError_t e;
   if (bf) {
@@ -612,28 +631,31 @@ cudaError_t launch_attention(int bf, const float* qkv, void* out, int G, int L, 
     const int kt_rows = (min(L, KT) + 15) / 16 * 16;
     const size_t bytes = sizeof(bf16) * 2 * kt_rows * LDH;
     attention_bf16_kernel<<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<bf16*>(out), L, H,
-                                                                scale, kt_rows);
+                                                                scale, kt_rows, stats);
   } else {
     if ((e = allow_smem(attention_f32_kernel, ATT_F32_SMEM, f32_ready)) != cudaSuccess) return e;
-    attention_f32_kernel<<<G * H, 256, ATT_F32_SMEM, st>>>(qkv, static_cast<float*>(out), L, H, scale);
+    attention_f32_kernel<<<G * H, 256, ATT_F32_SMEM, st>>>(qkv, static_cast<float*>(out), L, H, scale, stats);
   }
   return cudaGetLastError();
 }
 
 template <int EPI>
 cudaError_t launch_linear(int bf, const void* a, const void* w, const float* bias, void* c,
-                          int M, int N, int K, cudaStream_t st) {
+                          int M, int N, int K, cudaStream_t st, const void* mask = nullptr,
+                          float* colsum = nullptr) {
   if (bf) {
     static bool ready = false;
     const cudaError_t e = allow_smem(linear_bf16_kernel<EPI>, LINEAR_BF16_SMEM, ready);
     if (e != cudaSuccess) return e;
     const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
     linear_bf16_kernel<EPI><<<(unsigned)blocks, 256, LINEAR_BF16_SMEM, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w), bias, c, M, N, K);
+        static_cast<const bf16*>(a), static_cast<const bf16*>(w), bias, c, M, N, K,
+        static_cast<const bf16*>(mask), colsum);
   } else {
     const long long blocks = (long long)((M + 63) / 64) * ((N + 63) / 64);
     linear_f32_kernel<EPI><<<(unsigned)blocks, 256, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w), bias, c, M, N, K);
+        static_cast<const float*>(a), static_cast<const float*>(w), bias, c, M, N, K,
+        static_cast<const float*>(mask), colsum);
   }
   return cudaGetLastError();
 }
@@ -672,13 +694,30 @@ int cse_linear(const void* a, const void* w, const void* bias, void* c, int bf16
   }
 }
 
-// out[G*L, H*hd] (bf16 when bf16 else fp32) = masked MHSA of qkv[G*L, 3*H*hd].
+// out[G*L, H*hd] (bf16 when bf16 else fp32) = masked MHSA of qkv[G*L, 3*H*hd];
+// stats (null, or [2, G*L, H] fp32) receives each row's max and 1/z.
 int cse_attention(const void* qkv, void* out, int bf16_out, int G, int L, int H, int hd,
-                  float scale, void* stream) {
+                  float scale, void* stats, void* stream) {
   if (hd != HD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
-  return (int)launch_attention(bf16_out, q, out, G, L, H, scale, st);
+  return (int)launch_attention(bf16_out, q, out, G, L, H, scale, static_cast<float*>(stats), st);
+}
+
+// Training's dX GEMM through the FFN's ReLU: out (a's dtype) =
+// where(mask > 0, a[M, K] . w[K, N] + bias, 0); colsum[N] (fp32) = the column
+// sums of that value, reduced in a fixed order from per-block partials
+// (partials: ceil(M / 128) rows for bf16, ceil(M / 64) for fp32, times N).
+int cse_linear_relu_grad(const void* a, const void* w, const void* bias, const void* mask, void* out,
+                         void* partials, void* colsum, int bf16_operands, long long M, int N, int K,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partials);
+  cudaError_t e = launch_linear<EPI_RELU_GRAD>(bf16_operands, a, w, static_cast<const float*>(bias), out,
+                                               (int)M, N, K, st, mask, part);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = (int)((M + (bf16_operands ? BM : 64) - 1) / (bf16_operands ? BM : 64));
+  return (int)launch_sum_rows(part, static_cast<float*>(colsum), rows, N, st);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 """Build ``cse_tpu_torch/csrc`` into a shared library and load it with ctypes.
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
-builds them in seconds. The library is built for ``sm_90a`` (Hopper) on
-first use into ``cse_tpu_torch/_build/`` (listed in ``.gitignore``), under a
-name that hashes the sources and flags, so an edited source is rebuilt. A
-failed build raises.
+builds them in seconds: one ``nvcc -c`` per source, all started together,
+then one link. The library is built for ``sm_90a`` (Hopper) on first use
+into ``cse_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
+hashes the sources and flags, so an edited source is rebuilt. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -21,19 +22,24 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_stack.cu",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCES = ("fused_stack.cu", "fused_train.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points of csrc/fused_stack.cu: name -> argtypes (all return the
-# launch's cudaError_t as int; 0 means the kernel was launched)
+# C entry points of csrc/*.cu: name -> argtypes (all return the launch's
+# cudaError_t as int; 0 means the kernels were launched)
 SIGNATURES = {
+    # fused_stack.cu
     "cse_layer_norm": (P, P, P, P, I, LL, I, F, P),
     "cse_linear": (P, P, P, P, I, I, LL, I, I, P),
-    "cse_attention": (P, P, I, I, I, I, I, F, P),
+    "cse_attention": (P, P, I, I, I, I, I, F, P, P),
+    "cse_linear_relu_grad": (P, P, P, P, P, P, P, I, LL, I, I, P),
+    # fused_train.cu
+    "cse_weight_grad": (P, P, P, P, I, LL, I, I, I, I, P),
+    "cse_layer_norm_bwd": (P, P, P, P, P, P, P, P, I, I, LL, I, F, I, P),
+    "cse_attention_bwd": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
 }
 
 
@@ -64,24 +70,35 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc, procs = _nvcc(), []
+    objs = [os.path.join(tmpdir, src + ".o") for src in SOURCES]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"cse_tpu_torch: kernel build failed ({' '.join(cmd)}):\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, out)
+        for src, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *COMPILE_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                   "-o", obj, str(CSRC / src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        for cmd, proc in procs:
+            _finish(cmd, proc.communicate()[0], proc.returncode, verbose)
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", os.path.join(tmpdir, out.name), *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, res.stdout + res.stderr, res.returncode, False)
+        os.replace(os.path.join(tmpdir, out.name), out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
+
+
+def _finish(cmd, output: str, returncode: int, verbose: bool):
+    if returncode != 0:
+        raise RuntimeError(f"cse_tpu_torch: kernel build failed ({' '.join(cmd)}):\n{output}")
+    if verbose:
+        print(output, flush=True)
 
 
 @functools.cache

@@ -5,7 +5,8 @@ runs all layers of a stack in one Pallas program with the weights resident
 in VMEM; on Hopper the same arithmetic runs as three CUDA kernels
 (``csrc/fused_stack.cu``: row LayerNorm, tiled GEMM with three epilogues,
 two-pass attention), 57 launches per stack call at 8 layers, with the fp32
-residual stream kept in device memory between them.
+residual stream kept in device memory between them. The training path
+(:mod:`cse_tpu_torch.ops.fused_train`) runs its forward on the same kernels.
 
 Each kernel has a wrapper here (:func:`layer_norm`, :func:`linear`,
 :func:`attention`) and a plain PyTorch version beside it (``*_plain``). A
@@ -18,7 +19,9 @@ Numerics contract (that of the TPU kernel): the input is rounded to
 to cd (projection weights and also biases and LN scales); matmul operands
 are cd with fp32 accumulation; LN (eps 1e-6) and softmax are fp32; q is
 scaled by 1/sqrt(hd) and rounded to cd; the softmax normalisation is applied
-after PV; the output takes the dtype of the input as given.
+after PV; the output takes the dtype of the input as given. The plain
+versions accumulate in fp32, or in float64 for float64 operands (the CPU
+gradient checks of the training path).
 """
 
 from __future__ import annotations
@@ -79,6 +82,11 @@ def stack_weights(stack, compute_dtype: torch.dtype) -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------- plain versions
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' accumulation type: fp32, or float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def layer_norm_plain(x, scale, bias, out_dtype):
     """LN over the last axis of fp32 ``x`` (eps 1e-6), written in out_dtype."""
     m = x.mean(dim=-1, keepdim=True)
@@ -90,7 +98,7 @@ def linear_plain(a, w, bias, epilogue, residual=None):
     """``a[M, K] @ w[K, N] + bias`` with operands as given (cd) multiplied in
     fp32. epilogue 'bias' -> fp32; 'relu' -> a's dtype; 'residual' -> added
     into the fp32 ``residual`` in place (returned)."""
-    y = a.float() @ w.float() + bias
+    y = wide(a) @ wide(w) + bias
     if epilogue == "bias":
         return y
     if epilogue == "relu":
@@ -100,12 +108,13 @@ def linear_plain(a, w, bias, epilogue, residual=None):
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def attention_plain(qkv, seq_len, nhead, out_dtype):
+def attention_plain(qkv, seq_len, nhead, out_dtype, stats=None):
     """Masked MHSA of the TPU kernel: qkv ``[G*L, 3D]`` fp32 -> ``[G*L, D]``.
 
     q*scale, k, v rounded to out_dtype (cd); scores, max, exp and the sum in
     fp32; cd(p) @ cd(v) in fp32, divided by z after PV. Sequences are
-    processed in groups so the fp32 score tensor stays near 1 GB.
+    processed in groups so the fp32 score tensor stays near 1 GB. ``stats``
+    (``[2, G*L, H]``), when given, receives each row's max and 1/z.
     """
     M, D3 = qkv.shape
     D, L, H = D3 // 3, seq_len, nhead
@@ -117,11 +126,16 @@ def attention_plain(qkv, seq_len, nhead, out_dtype):
     step = max(1, (1 << 28) // (H * L * L))
     for g0 in range(0, G, step):
         q, k, v = heads[:, g0 : g0 + step]
-        s = (q * scale).to(cd).float() @ k.to(cd).float().transpose(-1, -2)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        s = wide((q * scale).to(cd)) @ wide(k.to(cd)).transpose(-1, -2)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
         z = p.sum(dim=-1, keepdim=True)
-        o = (p.to(cd).float() @ v.to(cd).float()) / z
+        o = (wide(p.to(cd)) @ wide(v.to(cd))) / z
         out[g0 : g0 + step] = o.transpose(1, 2).to(cd)
+        if stats is not None:  # [n, H, L, 1] -> rows (g, l) x heads
+            rows = slice(g0 * L, (g0 + q.shape[0]) * L)
+            stats[0, rows] = m[..., 0].transpose(1, 2).reshape(-1, H)
+            stats[1, rows] = (1.0 / z[..., 0]).transpose(1, 2).reshape(-1, H)
     return out.reshape(M, D)
 
 
@@ -211,10 +225,11 @@ def linear(a, w, bias, epilogue, residual=None):
     return out
 
 
-def attention(qkv, seq_len, nhead, out_dtype):
-    """Masked MHSA over sequences of ``seq_len``; kernel (c) on CUDA."""
-    if not _route(qkv):
-        return attention_plain(qkv, seq_len, nhead, out_dtype)
+def attention(qkv, seq_len, nhead, out_dtype, stats=None):
+    """Masked MHSA over sequences of ``seq_len``; kernel (c) on CUDA.
+    ``stats``: see :func:`attention_plain`."""
+    if not _route(qkv, stats):
+        return attention_plain(qkv, seq_len, nhead, out_dtype, stats)
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"attention kernel writes fp32 or bf16, not {out_dtype}")
     _check(qkv, "qkv", torch.float32, 2)
@@ -227,10 +242,15 @@ def attention(qkv, seq_len, nhead, out_dtype):
         raise ValueError(f"attention kernel is written for head width 32, got {hd}")
     if qkv.data_ptr() % 16:
         raise ValueError("attention kernel needs a 16-byte aligned qkv")
+    if stats is not None:
+        _check(stats, "stats", torch.float32, 3)
+        if tuple(stats.shape) != (2, M, nhead):
+            raise ValueError(f"stats is {tuple(stats.shape)}, want {(2, M, nhead)}")
     out = torch.empty(M, D, dtype=out_dtype, device=qkv.device)
     err = _build.library().cse_attention(
         qkv.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        M // seq_len, seq_len, nhead, hd, 1.0 / math.sqrt(hd), _stream())
+        M // seq_len, seq_len, nhead, hd, 1.0 / math.sqrt(hd),
+        None if stats is None else stats.data_ptr(), _stream())
     _check_launch("attention", err)
     attention.launches += 1
     return out
@@ -260,6 +280,19 @@ def launches_per_stack(n_layers: int) -> dict[str, int]:
 # ---------------------------------------------------------------- the stack
 
 
+def run_layer(r, w, li, seq_len, nhead, cd, ln, lin, attn):
+    """One pre-LN layer on the fp32 residual ``r [G*L, D]``, updated in place:
+    r += Wo.MHSA(LN1(r)); r += W2.relu(W1.LN2(r)). ``w`` holds ``[n, ...]``
+    stacked weights (matrices ``[din, dout]`` in cd, vectors in r's type)."""
+    h = ln(r, w["ln1_s"][li], w["ln1_b"][li], cd)
+    qkv = lin(h, w["qkv_w"][li], w["qkv_b"][li], "bias")
+    a = attn(qkv, seq_len, nhead, cd)
+    lin(a, w["out_w"][li], w["out_b"][li], "residual", r)
+    h = ln(r, w["ln2_s"][li], w["ln2_b"][li], cd)
+    f = lin(h, w["f1_w"][li], w["f1_b"][li], "relu")
+    lin(f, w["f2_w"][li], w["f2_b"][li], "residual", r)
+
+
 def _run_stack(x, w, nhead, cd, ln, lin, attn):
     G, L, D = x.shape
     out_dtype = x.dtype
@@ -267,13 +300,7 @@ def _run_stack(x, w, nhead, cd, ln, lin, attn):
     # since the residual epilogues update it in place
     r = x.to(cd).to(torch.float32, copy=True).reshape(G * L, D).contiguous()
     for li in range(w["qkv_w"].shape[0]):
-        h = ln(r, w["ln1_s"][li], w["ln1_b"][li], cd)
-        qkv = lin(h, w["qkv_w"][li], w["qkv_b"][li], "bias")
-        a = attn(qkv, L, nhead, cd)
-        lin(a, w["out_w"][li], w["out_b"][li], "residual", r)
-        h = ln(r, w["ln2_s"][li], w["ln2_b"][li], cd)
-        f = lin(h, w["f1_w"][li], w["f1_b"][li], "relu")
-        lin(f, w["f2_w"][li], w["f2_b"][li], "residual", r)
+        run_layer(r, w, li, L, nhead, cd, ln, lin, attn)
     return ln(r, w["fn_s"], w["fn_b"], out_dtype).reshape(G, L, D)
 
 

@@ -5,11 +5,15 @@ Port of ``cse_tpu/serving.py``. Runs the parameters of a
 intra/inter transformer stack through :func:`fused_stack_apply` (the CUDA
 kernels on the card, the plain version on the CPU). The remaining
 projections (1x1 convs, context mappers, mask heads, encoder and decoder)
-stay ordinary PyTorch ops. Inference only.
+stay ordinary PyTorch ops. With ``train=True`` the same forward is
+differentiable: each stack runs through
+:func:`cse_tpu_torch.ops.fused_train.fused_stack_train` (the training
+kernels) and gradients reach the model's parameters.
 
 Usage:
     engine = ServingEngine(cfg, params_or_model)   # device defaults to cuda
     est = engine(mix, ctx)                          # same outputs as Sepformer
+    est = sepformer_fused_forward(model, mix, ctx, train=True)  # a graph
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from cse_tpu_torch.core.device import resolve_device
 from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig, add_pe, dense, mask_head
 from cse_tpu_torch.ops.fused_stack import fused_stack_apply, stack_weights
+from cse_tpu_torch.ops.fused_train import fused_stack_train
 from cse_tpu_torch.ops.segmentation import segment
 
 
@@ -36,13 +41,17 @@ def stacked_weights(model: Sepformer) -> dict[str, dict[str, torch.Tensor]]:
     return out
 
 
-def _stack(x, w, cfg: SepformerConfig):
-    """PE + fused transformer stack. x: [G, L, D]."""
+def _stack(x, cfg: SepformerConfig, stacks, key: str, module):
+    """PE + fused transformer stack. x: [G, L, D]. ``stacks`` None runs the
+    differentiable training stack on ``module`` (the TransformerStack), else
+    the inference stack on ``stacks[key]``."""
     x = add_pe(x, cfg.pe_max_len)
-    return fused_stack_apply(x, w, nhead=cfg.nhead, compute_dtype=cfg.compute_dtype)
+    cd = cfg.compute_dtype
+    if stacks is None:
+        return fused_stack_train(x, module, nhead=cfg.nhead, compute_dtype=cd).to(cd)
+    return fused_stack_apply(x, stacks[key], nhead=cfg.nhead, compute_dtype=cd)
 
 
-@torch.no_grad()
 def sepformer_fused_forward(
     model: Sepformer,
     mix: torch.Tensor,
@@ -50,14 +59,24 @@ def sepformer_fused_forward(
     se: torch.Tensor | None = None,
     cue_index=None,
     stacks: dict | None = None,
+    train: bool = False,
 ):
     """Mirror of ``Sepformer.forward`` with fused stacks; same returns.
 
-    ``stacks`` are the model's :func:`stacked_weights` (made here when not
-    given).
+    ``train=False`` (serving) runs without autograd on the model's
+    :func:`stacked_weights` (``stacks``, made here when not given);
+    ``train=True`` returns a graph through the training stacks.
     """
+    if train:
+        return _fused_forward(model, mix, ctx, se, cue_index, None)
+    with torch.no_grad():
+        return _fused_forward(model, mix, ctx, se, cue_index,
+                              stacked_weights(model) if stacks is None else stacks)
+
+
+def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks):
+    """The forward's body; ``stacks`` None selects the training stacks."""
     cfg, cd = model.cfg, model.cfg.compute_dtype
-    stacks = stacked_weights(model) if stacks is None else stacks
     B, T = mix.shape
     w = model.encode(mix)  # [B, L, N] in cd
     L = w.shape[1]
@@ -77,7 +96,7 @@ def sepformer_fused_forward(
             c = dense(ctx, blk.intra_context_mapper, cd)
             c = c[:, None].expand(B, S, Tc, N).reshape(B * S, Tc, N)
             intra = torch.cat([c, intra.to(c.dtype)], dim=1)
-        intra = _stack(intra, stacks[f"{i}.intra"], cfg)
+        intra = _stack(intra, cfg, stacks, f"{i}.intra", blk.intra_mdl)
         intra = intra[:, Tc:].reshape(B, S, K, N)
         intra = blk.intra_norm(intra) + x
 
@@ -86,7 +105,7 @@ def sepformer_fused_forward(
             c = dense(ctx, blk.inter_context_mapper, cd)
             c = c[:, None].expand(B, K, Tc, N).reshape(B * K, Tc, N)
             inter = torch.cat([c, inter.to(c.dtype)], dim=1)
-        inter = _stack(inter, stacks[f"{i}.inter"], cfg)
+        inter = _stack(inter, cfg, stacks, f"{i}.inter", blk.inter_mdl)
         pred_head = inter[:, 0].reshape(B, K, N).mean(dim=1)
         inter = inter[:, Tc:].reshape(B, K, S, N).transpose(1, 2)
         x = blk.inter_norm(inter) + intra
@@ -134,7 +153,8 @@ class ServingEngine:
 
     def __call__(self, mix, ctx=None, se=None, cue_index=None):
         cue = cue_index if cue_index is None or isinstance(cue_index, int) else self._in(cue_index)
-        return sepformer_fused_forward(
-            self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
-            cue_index=cue, stacks=self.stacks,
-        )
+        with torch.inference_mode():
+            return sepformer_fused_forward(
+                self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
+                cue_index=cue, stacks=self.stacks,
+            )

@@ -1,0 +1,172 @@
+"""Train and eval steps for every CSE variant.
+
+Port of ``cse_tpu/train/step.py`` on one device. A step runs the separator
+forward (the plain :class:`Sepformer`, or with ``fused=True`` the fused
+forward whose stacks run the training kernels), the loss, the backward, and
+the AdamW-amsgrad chain of :mod:`cse_tpu_torch.train.optimizer`.
+
+Loss per variant:
+* contsep:  ctx_weight * selector loss (BCE | CE against the argmax of the
+            detached per-stream SI-SNR) + PIT SI-SNR;
+* context:  -SI-SNR on stream 0;
+* hcontext: the same, with the cue (joint .3 / history .35 / voice .35) drawn
+            per step from two uniforms;
+* base:     PIT SI-SNR only.
+
+The frozen LLM is not ported yet: the batch carries ``ctx_feat`` (ROADMAP).
+The steps run on CUDA unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.ops.losses import ctx_selection_loss, pit_si_snr_loss, si_snr
+from cse_tpu_torch.serving import sepformer_fused_forward
+from cse_tpu_torch.train.optimizer import AdamWAmsgrad, global_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    variant: str = "context"  # 'base' | 'contsep' | 'context' | 'hcontext'
+    num_spks: int = 2
+    ctx_weight: float = 1.0
+    use_ce: bool = True
+
+
+def _sample_cue(generator: torch.Generator | None = None) -> int:
+    """H-ContExt per-step cue draw from two independent uniforms (the
+    reference's double random.random()): joint 0.3 / history 0.35 / voice 0.35."""
+    r = torch.rand(2, generator=generator)
+    if r[0] < 0.3:
+        return 0
+    return 1 if 0.3 <= r[1] < 0.8 else 2
+
+
+def _apply_fn(model, fused: bool):
+    if fused:
+        return lambda mix, ctx=None, **kw: sepformer_fused_forward(model, mix, ctx, train=True, **kw)
+    return lambda mix, ctx=None, **kw: model(mix, ctx, **kw)
+
+
+def make_loss_fn(model, cfg: TrainConfig, fused: bool = False):
+    """loss(batch, generator=None) -> (loss, metrics).
+
+    ``batch`` keys: mixed [B, T], gt [B, T], noises [B, T, spk-1]
+    (contsep/base), ctx_feat [B, Tc, llm_dim], se [B, 1, se_dim] (hcontext).
+    ``fused=True`` runs the separator through the fused forward (training
+    kernels on the card): the same parameters and math."""
+    apply_fn = _apply_fn(model, fused)
+
+    def loss_fn(batch, generator=None):
+        mixed, gt = batch["mixed"], batch["gt"]
+        metrics: dict[str, Any] = {}
+        if cfg.variant == "base":
+            est = apply_fn(mixed)
+            targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
+            loss = pit_si_snr_loss(est, targets).mean()
+            metrics["snr_loss"] = loss
+            return loss, metrics
+        ctx = batch.get("ctx_feat")
+        if cfg.variant == "contsep":
+            est, logits = apply_fn(mixed, ctx)
+            # selection label: the stream with the highest SI-SNR against gt (no grad)
+            label = si_snr(est.detach().transpose(1, 2), gt[:, None, :]).argmax(dim=-1)
+            ctx_loss = ctx_selection_loss(logits, label, cfg.use_ce)
+            targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
+            snr_loss = pit_si_snr_loss(est, targets).mean()
+            loss = cfg.ctx_weight * ctx_loss + snr_loss
+            pred = logits.argmax(dim=-1) if cfg.use_ce else (logits[:, 0] > 0).long()
+            metrics.update(snr_loss=snr_loss, ctx_loss=ctx_loss,
+                           ctx_acc=(pred == label).float().mean())
+            return loss, metrics
+        kwargs = {}
+        if cfg.variant == "hcontext":
+            kwargs = dict(se=batch["se"], cue_index=_sample_cue(generator))
+        est = apply_fn(mixed, ctx, **kwargs)
+        loss = -si_snr(est[:, :, 0], gt).mean()
+        metrics["snr_loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def _to_device(batch, device):
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: bool = False,
+                    device=None):
+    """step(batch, generator=None) -> metrics (floats: the loss terms,
+    ``loss`` and the pre-clip ``grad_norm``).
+
+    Moves ``model`` to ``device`` (CUDA unless ``device="cpu"``) and updates
+    its parameters in place; the optimizer state is ``step.opt_state``."""
+    dev = resolve_device(device)
+    model.to(dev)
+    params = list(model.parameters())
+    opt_state = optimizer.init(params)
+    loss_fn = make_loss_fn(model, cfg, fused)
+
+    def step(batch, generator=None):
+        batch = _to_device(batch, dev)
+        for p in params:
+            p.grad = None
+        loss, metrics = loss_fn(batch, generator)
+        loss.backward()
+        grads = [p.grad for p in params]
+        metrics["loss"] = loss
+        metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
+        optimizer.step(params, grads, opt_state)
+        return {k: float(v.detach()) for k, v in metrics.items()}
+
+    step.opt_state = opt_state
+    return step
+
+
+def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = False, device=None):
+    """step(batch) -> (enhanced [B, T], aux).
+
+    ContSep picks the stream through the selector head (argmax of the
+    softmax, or the sign of the BCE logit); base returns the oracle-best
+    stream when ``gt`` is given; context variants return stream 0.
+    ``fused=True`` runs the fused serving forward."""
+    dev = resolve_device(device)
+    model.to(dev)
+    cue_idx = {"joint": 0, "history": 1, "voice": 2}[cue]
+    if fused:
+        apply_fn = lambda mix, ctx=None, **kw: sepformer_fused_forward(model, mix, ctx, **kw)
+    else:
+        apply_fn = _apply_fn(model, False)
+
+    @torch.no_grad()
+    def step(batch):
+        batch = _to_device(batch, dev)
+        mixed = batch["mixed"]
+        if cfg.variant == "base":
+            est = apply_fn(mixed)
+            if "gt" in batch:
+                best = si_snr(est.transpose(1, 2), batch["gt"][:, None, :]).argmax(dim=-1)
+                return est.gather(2, best[:, None, None].expand(-1, est.shape[1], 1))[:, :, 0], {}
+            return est[:, :, 0], {}
+        ctx = batch.get("ctx_feat")
+        if cfg.variant == "contsep":
+            est, logits = apply_fn(mixed, ctx)
+            pred = logits.argmax(dim=-1) if cfg.use_ce else (logits[:, 0] > 0).long()
+            enhanced = est.gather(2, pred[:, None, None].expand(-1, est.shape[1], 1))[:, :, 0]
+            aux = {"ctx_pred": pred}
+            if "gt" in batch:
+                aux["ctx_label"] = si_snr(est.transpose(1, 2), batch["gt"][:, None, :]).argmax(dim=-1)
+            return enhanced, aux
+        kwargs = {}
+        if cfg.variant == "hcontext":
+            kwargs = dict(se=batch["se"], cue_index=cue_idx)
+        return apply_fn(mixed, ctx, **kwargs)[:, :, 0], {}
+
+    return step

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from cse_tpu_torch.ops import fused_stack as fs
+from cse_tpu_torch.ops import fused_train as ft
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -101,3 +102,155 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     a = torch.randn(4, 12, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="K % 8"):
         fs.linear(a, torch.randn(12, 16, device="cuda").bfloat16(), torch.zeros(16, device="cuda"), "bias")
+
+
+# ---------------------------------------------------------------- training kernels
+
+
+def _train_weights(gen, cd, d=256, ffn=1024, n_layers=1):
+    def r(*s, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*s, device="cuda", generator=gen)).to(cd)
+
+    mats = {"qkv_w": (d, 3 * d), "out_w": (d, d), "f1_w": (d, ffn), "f2_w": (ffn, d)}
+    w = {k: r(n_layers, *s, scale=1 / math.sqrt(s[0])) for k, s in mats.items()}
+    for k, n in (("qkv_b", 3 * d), ("out_b", d), ("f1_b", ffn), ("f2_b", d), ("ln1_b", d), ("ln2_b", d)):
+        w[k] = r(n_layers, n, scale=0.1)
+    for k in ("ln1_s", "ln2_s"):
+        w[k] = r(n_layers, d, scale=0.1, shift=1.0)
+    return w
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len", [7, 127, 251, 300])
+def test_attention_stats_match_plain(gen, cd, seq_len):
+    qkv = 2 * torch.randn(5 * seq_len, 768, device="cuda", generator=gen)
+    st, sp = (torch.empty(2, 5 * seq_len, 8, device="cuda") for _ in range(2))
+    _close(fs.attention(qkv, seq_len, 8, cd, st), fs.attention_plain(qkv, seq_len, 8, cd, sp), cd)
+    _close(st, sp, torch.float32)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len", [1, 7, 127, 251, 300, 513])
+def test_attention_backward_matches_plain(gen, cd, seq_len):
+    """Any length: one tile of 64 rows, several, and several key tiles."""
+    M = 5 * seq_len
+    qkv = 2 * torch.randn(M, 768, device="cuda", generator=gen)
+    stats = torch.empty(2, M, 8, device="cuda")
+    fs.attention_plain(qkv, seq_len, 8, cd, stats)
+    dattn = torch.randn(M, 256, device="cuda", generator=gen)
+    got, got_b = ft.attention_backward(qkv, dattn, stats, seq_len, 8, cd)
+    want, want_b = ft.attention_backward_plain(qkv, dattn, stats, seq_len, 8, cd)
+    assert got.dtype == cd and got.shape == (M, 768)
+    _close(got, want, cd)
+    _close(got_b, want_b, cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("mkn", [(1000, 256, 768), (777, 1024, 256), (5000, 256, 256), (33, 40, 24)])
+def test_weight_grad_matches_plain_and_repeats(gen, cd, mkn):
+    m, k, n = mkn
+    a = torch.randn(m, k, device="cuda", generator=gen).to(cd)
+    dy = torch.randn(m, n, device="cuda", generator=gen).to(cd)
+    got = ft.weight_grad(a, dy)
+    assert got.dtype == torch.float32 and got.shape == (k, n)
+    _close(got, ft.weight_grad_plain(a, dy), cd)
+    assert torch.equal(got, ft.weight_grad(a, dy))  # fixed-order sums: the same bits
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("mkn", [(1000, 256, 1024), (77, 40, 24)])
+def test_linear_relu_grad_matches_plain(gen, cd, mkn):
+    m, k, n = mkn
+    dy = torch.randn(m, k, device="cuda", generator=gen).to(cd)
+    wt = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(cd)
+    mask = torch.relu(torch.randn(m, n, device="cuda", generator=gen)).to(cd)
+    (got, got_s), (want, want_s) = ft.linear_relu_grad(dy, wt, mask), ft.linear_relu_grad_plain(dy, wt, mask)
+    assert got.dtype == cd
+    _close(got, want, cd)
+    _close(got_s, want_s, cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("g_dtype", DTYPES)
+def test_layer_norm_backward_matches_plain(gen, cd, g_dtype):
+    m, d = 3001, 256
+    x = 3 * torch.randn(m, d, device="cuda", generator=gen)
+    dh = torch.randn(m, d, device="cuda", generator=gen)
+    s = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    g = torch.randn(m, d, device="cuda", generator=gen).to(g_dtype)
+    o32, ocd, sums = ft.layer_norm_backward(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    p32, pcd, psums = ft.layer_norm_backward_plain(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    _close(o32, p32, torch.float32)
+    _close(ocd, pcd, cd)
+    _close(sums, psums, torch.float32)
+    g32 = g.float()  # in place into an fp32 g_in
+    o_in, _, _ = ft.layer_norm_backward(dh, x, s, g32, g32, None)
+    assert o_in is g32
+    _close(g32, p32, torch.float32)
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len", [127, 251])
+def test_fused_layers_forward_backward_match_plain(gen, cd, seq_len):
+    """fp32: kernels against plain at the fp32 bar. bf16: a weight gradient is
+    a sum over all rows, and bf16 rounding flips between two summation orders
+    move such a sum by about 1e-2 at a few hundred rows; so each bf16 result
+    is held against the plain fp32 run, and the kernels' error may exceed the
+    plain bf16 version's by at most 25% (+1e-3), as in chip_smoke.py."""
+    w = _train_weights(gen, cd)
+    x = torch.randn(6, seq_len, 256, device="cuda", generator=gen).to(cd)
+    gy = torch.randn(6, seq_len, 256, device="cuda", generator=gen).to(cd)
+    _close(ft.layers_forward(x, w, 8), ft.layers_forward(x, w, 8, ft.PLAIN_OPS), cd)
+    ft.reset_launches()
+    dx, dw = ft.layers_backward(x, gy, w, 8)
+    torch.cuda.synchronize()
+    rx, rw = ft.layers_backward(x, gy, w, 8, ft.PLAIN_OPS)
+    got, plain = {"x": dx, **dw}, {"x": rx, **rw}
+    ref = plain
+    if cd == torch.bfloat16:
+        fx, fw = ft.layers_backward(x.float(), gy.float(), {k: v.float() for k, v in w.items()}, 8, ft.PLAIN_OPS)
+        ref = {"x": fx, **fw}
+    for k in got:
+        g, p, r = got[k], plain[k], ref[k]
+        if k == "qkv_b":  # the key bias's gradient is zero up to rounding: compare q and v
+            g, p, r = ft.qv_part(g), ft.qv_part(p), ft.qv_part(r)
+        if cd == torch.float32:
+            _close(g, p, cd)
+        else:
+            assert _rel(g, r) <= 1.25 * _rel(p, r) + 1e-3, (k, _rel(g, r), _rel(p, r))
+    counts = ft.launch_counts()
+    assert counts["attention_backward"] == 1 and counts["weight_grad"] == 4
+
+
+def test_fused_stack_train_counts(gen):
+    from cse_tpu_torch.models.sepformer import SepformerConfig, TransformerStack
+
+    stack = TransformerStack(SepformerConfig(num_tf_layers=2)).cuda()
+    x = torch.randn(4, 127, 256, device="cuda", generator=gen, requires_grad=True)
+    ft.reset_launches()
+    y = ft.fused_stack_train(x, stack, nhead=8, compute_dtype=torch.bfloat16)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert ft.launch_counts() == ft.launches_per_train_stack(2)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in stack.parameters())
+
+
+def test_optimizer_skips_non_finite_on_the_card(gen):
+    from cse_tpu_torch.train.optimizer import build_optimizer
+
+    params = [torch.randn(300, 7, device="cuda", generator=gen), torch.randn(5, device="cuda", generator=gen)]
+    start = [p.clone() for p in params]
+    opt = build_optimizer(1e-3)
+    state = opt.init(params)
+    for bad in (float("nan"), float("inf")):
+        g = [torch.randn_like(p) for p in params]
+        g[0][17, 3] = bad
+        assert opt.step(params, g, state) is False
+    assert all(torch.equal(p, s) for p, s in zip(params, start))
+    assert (state.count, state.total_notfinite) == (0, 2)
+    assert opt.step(params, [torch.randn_like(p) for p in params], state) is True
+    assert state.count == 1 and not torch.equal(params[0], start[0])

@@ -53,3 +53,8 @@ def test_sources_have_no_forbidden_imports(path):
 
 def test_package_has_kernel_sources():
     assert (PKG_DIR / "csrc" / "fused_stack.cu").exists()
+
+
+@pytest.mark.parametrize("name", ["fused_train.cu", "common.cuh"])
+def test_package_has_training_kernel_sources(name):
+    assert (PKG_DIR / "csrc" / name).exists()
