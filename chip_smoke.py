@@ -28,7 +28,21 @@ Phases (any failure exits non-zero and prints no result line):
      one step split into forward, backward and optimizer, and one step under
      torch.profiler (device time by kernel, the device's busy share); (d) each
      training kernel's time beside its plain version, a library call and its
-     bound.
+     bound;
+  8. the flash path (use_flash_attention=True, remat='layer'): (a) the flash
+     forward and backward kernels against their plain versions at intra,
+     inter, L=300 and L=600, fp32 and bf16; (b) fp32 loss and every gradient
+     of make_loss_fn(fused=False), full width, B=2, against the same model
+     without flash; (c) make_train_step(fused=False), bf16, B=16: launches
+     against the formula, median step time, mixtures/s, peak memory, one
+     profiled step; make_eval_step(fused=False): forward time, output against
+     the fused serving engine on the same weights; (d) kernel times beside
+     the plain versions, SDPA and the bounds;
+  9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
+     epilogues and the whole w8a8 stack against their plain versions; (b)
+     ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
+     Sepformer: launches, median forward time, realtime factor; (c) kernel
+     times beside the plain versions, torch._int_mm or SDPA, and the bounds.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -79,10 +93,24 @@ TOL_TRAIN_FP32 = 5e-3
 # The bf16 trajectory: the JAX suite's bar -> max |fused - plain| / (1 + |plain|)
 # < 5e-2 over the steps, and both curves descend.
 TOL_TRAJ = 5e-2
+# The int8 GEMM against its plain version on the same int8 inputs: integer
+# sums are exact and the epilogue rounds step by step as the plain version
+# does -> max_rel <= 1e-6.
+TOL_W8A8_GEMM = 1e-6
+# The whole w8a8 stack. One layer keeps the bf16 bar against the plain
+# version. Through 8 layers it cannot: an LN output one ulp apart flips an
+# int8 rounding by a whole step (1/127 of the row's max), attention spreads
+# that to every row of the sequence, and the flips compound to about the
+# bf16 bar itself. So the 8-layer kernels and plain version are both held
+# against the plain stack with fp32 operands, and the kernels' error may
+# exceed the plain version's by at most 25% (+1e-3), as for the bf16
+# training stack.
+TOL_W8A8_STACK_RATIO = 1.25
 
 # NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12  # int8 tensor cores, dense
 HBM_BYTES_S = 3.35e12
 
 INTRA = (2016, 251)  # B*S sequences of K + 1 tokens at B=16, T=125000
@@ -92,6 +120,11 @@ SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
 REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
 REPLACES_BWD = "cse_tpu/ops/fused_train.py:168"  # _bwd_kernel
 SOURCE_TRAIN = "cse_tpu_torch/csrc/fused_train.cu"
+REPLACES_FLASH_FWD = "cse_tpu/ops/attention.py:38"  # _fwd_kernel
+REPLACES_FLASH_BWD = "cse_tpu/ops/attention.py:59"  # _bwd_kernel
+SOURCE_FLASH = "cse_tpu_torch/csrc/attention.cu"
+REPLACES_W8A8 = "cse_tpu/ops/fused_stack.py:130"  # _stack_kernel_w8a8
+SOURCE_W8A8 = "cse_tpu_torch/csrc/fused_stack_w8a8.cu"
 
 
 def fail(msg: str):
@@ -551,6 +584,400 @@ def phase7_times(gen, card, H, F_, NL):
     return times
 
 
+# ---------------------------------------------------------------- 8. the flash path
+
+
+def bound_of(nbytes, flops, peak=PEAK_BF16):
+    tb, to = 1e3 * nbytes / HBM_BYTES_S, 1e3 * flops / peak
+    return dict(bound_ms=max(tb, to), bound_by="operations" if to >= tb else "bytes")
+
+
+def phase8_kernels(gen, failures, H=8, hd=32):
+    """(a) each flash kernel against its plain version."""
+    from cse_tpu_torch.ops import attention as at
+
+    log("[8a] flash attention kernels vs plain versions (fp32: max_rel <= %.0e; bf16: rel_l2 <= %.0e)"
+        % (TOL_FP32, TOL_BF16))
+    err = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    for cd in (torch.float32, torch.bfloat16):
+        tag = "fp32" if cd == torch.float32 else "bf16"
+        for name, (G, L) in (("intra", INTRA), ("inter", INTER), ("L=300", (64, 300)), ("L=600", (32, 600))):
+            q, k, v, do = (torch.randn(G, H, L, hd, device="cuda", generator=gen).to(cd) for _ in range(4))
+            (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
+            e = check(f"flash_fwd {tag} {name} G={G} L={L} o", o, po, cd, failures)
+            e = max(e, check(f"flash_fwd {tag} {name} lse", lse, plse, torch.float32, failures))
+            err["flash_fwd"] = max(err["flash_fwd"], e)
+            del o, lse
+            got, want = at.flash_bwd(q, k, v, po, plse, do), at.flash_bwd_plain(q, k, v, po, plse, do)
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                err["flash_bwd"] = max(err["flash_bwd"], check(f"flash_bwd {tag} {name} {gname}", g, w, cd, failures))
+            del q, k, v, do, po, plse, got, want
+            torch.cuda.empty_cache()
+    if failures:
+        fail(f"flash kernel checks failed: {failures}")
+    return err
+
+
+def phase8_parity(gen, failures):
+    """(b) fp32 loss and gradients: flash + remat='layer' against the same
+    model without flash."""
+    import dataclasses
+
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.train.step import TrainConfig, make_loss_fn
+
+    B, T = 2, aligned_bucket(128000)
+    log(f"[8b] flash parity, fp32, full width, B={B}, T={T}: make_loss_fn(fused=False) with flash + remat='layer' "
+        f"vs the model without flash (rel_l2 <= {TOL_TRAIN_FP32:.0e})")
+    plain = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.float32)
+    flash = dataclasses.replace(plain, use_flash_attention=True, remat="layer")
+    mix = torch.randn(B, T, device="cuda", generator=gen)
+    ctx = torch.randn(B, 1, 4096, device="cuda", generator=gen)
+    with torch.no_grad():
+        est0 = Sepformer(plain, generator=torch.Generator().manual_seed(3)).cuda()(mix, ctx)[:, :, 0]
+    gt = est0 + 0.5 * est0.std() * torch.randn(B, T, device="cuda", generator=gen)
+    batch = {"mixed": mix, "gt": gt, "ctx_feat": ctx}
+    del est0
+    res = {}
+    for name, cfg in (("flash", flash), ("plain", plain)):
+        model = Sepformer(cfg, generator=torch.Generator().manual_seed(3)).cuda()
+        loss, _ = make_loss_fn(model, TrainConfig(variant="context"))(batch)
+        loss.backward()
+        res[name] = (loss.item(), {k: (ft.qv_part(p.grad) if k.endswith("in_proj.bias") else p.grad).clone()
+                                   for k, p in model.named_parameters()})
+        del model, loss
+        torch.cuda.empty_cache()
+    (lf, gf), (lp, gp) = res["flash"], res["plain"]
+    rl = abs(lf - lp) / abs(lp)
+    log(f"  loss flash {lf:.6f} plain {lp:.6f} rel {rl:.3e}")
+    if not rl <= TOL_TRAIN_FP32:
+        failures.append("flash parity loss")
+    worst = sorted(((errs(gf[k], gp[k])[2], k) for k in gp), reverse=True)
+    for r, k in worst[:5]:
+        log(f"  grad {k:<62s} rel_l2 {r:.3e}")
+    bad = [k for r, k in worst if not r <= TOL_TRAIN_FP32]
+    log(f"  {len(gp)} gradients, worst rel_l2 {worst[0][0]:.3e}: {'ok' if not bad else 'FAIL ' + str(bad)}")
+    failures.extend(f"flash parity grad {k}" for k in bad)
+    if failures:
+        fail(f"flash parity checks failed: {failures}")
+    return {"loss_rel": rl, "worst_grad_rel_l2": worst[0][0]}
+
+
+def cuda_ms(fn, n=5, warmup=2):
+    """Device times of n calls after warmups (CUDA events, each call synchronised)."""
+    times = []
+    for i in range(warmup + n):
+        t_s, t_e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_s.record()
+        fn()
+        t_e.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(t_s.elapsed_time(t_e))
+    return times
+
+
+def phase8_bench(gen, card, failures):
+    """(c) the trainer's layer-by-layer path with flash + remat='layer', and
+    the eval step."""
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.serving import ServingEngine
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+    from cse_tpu_torch.train.step import TrainConfig, make_eval_step, make_train_step
+
+    B, T = 16, aligned_bucket(128000)
+    log(f"[8c] trainer path: make_train_step(fused=False), flash + remat='layer', ContExt full width, bf16, "
+        f"B={B}, T={T} [{card}]")
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16, use_flash_attention=True,
+                          remat="layer")
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)),
+                           TrainConfig(variant="context"))
+    batch = {"mixed": torch.randn(B, T, device="cuda", generator=gen),
+             "gt": torch.randn(B, T, device="cuda", generator=gen),
+             "ctx_feat": torch.randn(B, 1, 4096, device="cuda", generator=gen)}
+    n_att = 2 * cfg.num_dp_layers * cfg.num_tf_layers
+    at.reset_launches()
+    ft.reset_launches()
+    m = step(batch)
+    torch.cuda.synchronize()
+    counts, others = at.launch_counts(), {k: v for k, v in ft.launch_counts().items() if v}
+    want = at.launches_per_step(n_att, cfg.remat_layers)
+    log(f"  launches in one step: {counts} (want {want}); fused-stack kernels {others or 'none'}")
+    if counts != want or others:
+        fail(f"flash train launch counts {counts} != {want} or fused kernels launched {others}")
+    if not math.isfinite(m["loss"]):
+        fail(f"non-finite loss {m}")
+    step(batch)  # second warmup
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for _ in range(5):
+        t_s, t_e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        t_s.record()
+        m = step(batch)
+        t_e.record()
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - h0))
+        times.append(t_s.elapsed_time(t_e))
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  step: median {step_ms:.3f} ms over 5 ({[round(t, 3) for t in times]}; host clock "
+        f"{[round(t, 3) for t in host]}); {B / (step_ms / 1e3):.3f} mixtures/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}  [{card}]")
+    prof = profile_step(step, batch)
+    del step
+    torch.cuda.empty_cache()
+
+    tc = TrainConfig(variant="context")
+    eval_step = make_eval_step(model, tc)
+    at.reset_launches()
+    with torch.no_grad():
+        out, _ = eval_step(batch)
+    torch.cuda.synchronize()
+    eval_counts = at.launch_counts()
+    want = at.launches_per_step(n_att, cfg.remat_layers, train=False)
+    eval_times = cuda_ms(lambda: eval_step(batch))
+    eval_ms = statistics.median(eval_times)
+    serve = ServingEngine(cfg, model)(batch["mixed"], batch["ctx_feat"])[:, :, 0]
+    mx, _, rl2 = errs(out, serve)
+    ok = eval_counts == want and rl2 <= TOL_SERVE_BF16 and tuple(out.shape) == (B, T)
+    log(f"  eval step (fused=False): launches {eval_counts} (want {want}); forward median {eval_ms:.3f} ms over 5 "
+        f"({[round(t, 3) for t in eval_times]}); vs the fused serving engine on the same weights: max_abs "
+        f"{mx:.3e} rel_l2 {rl2:.3e} (tol {TOL_SERVE_BF16:.0e}) {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("flash eval step")
+        fail(f"flash eval checks failed: {failures}")
+    peak_peak = peak
+    del model, batch, out, serve, eval_step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_times_ms": times, "host_ms": host, "mixtures_per_s": B / (step_ms / 1e3),
+            "peak_bytes": peak_peak, "launches": counts, "profile": prof, "eval_ms": eval_ms,
+            "eval_times_ms": eval_times, "eval_launches": eval_counts, "eval_vs_serving_rel_l2": rl2}
+
+
+def phase8_times(gen, card, H=8, hd=32):
+    """(d) the flash kernels' times, plain times, SDPA and bounds (bf16)."""
+    from cse_tpu_torch.ops import attention as at
+
+    log(f"[8d] flash kernel times, bf16 [{card}]")
+    cd, times = torch.bfloat16, {}
+    for name, (G, L) in (("intra", INTRA), ("inter", INTER)):
+        q, k, v, do = (torch.randn(G, H, L, hd, device="cuda", generator=gen).to(cd) for _ in range(4))
+        o, lse = at.flash_fwd(q, k, v)
+        X = G * H * L * hd * 2  # one bf16 operand
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(qg, kg, vg)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+
+        t = {
+            "flash_fwd": dict(ms=time_ms(lambda: at.flash_fwd(q, k, v)),
+                              plain_ms=time_ms(lambda: at.flash_fwd_plain(q, k, v), reps=3),
+                              library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                              **bound_of(4 * X + G * H * L * 4, 4 * G * H * L * L * hd)),
+            "flash_bwd": dict(ms=time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do)),
+                              plain_ms=time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do), reps=3),
+                              library_ms=time_ms(sdpa_fwd_bwd),
+                              **bound_of(8 * X + G * H * L * 4, 10 * G * H * L * L * hd)),
+        }
+        del q, k, v, do, o, lse, qg, kg, vg
+        torch.cuda.empty_cache()
+        times[name] = t
+        for kname, x in t.items():
+            log(f"  {name} G={G} L={L} {kname:<10s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
+                f"SDPA {x['library_ms']:.4f} ms  bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+    return times
+
+
+# ---------------------------------------------------------------- 9. w8a8 serving
+
+
+def phase9_kernels(gen, failures, H, F_, NL):
+    """(a) quantizer, int8 GEMM and the whole w8a8 stack against their plain versions."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    D, cd = 256, torch.bfloat16
+    log(f"[9a] w8a8 kernels vs plain versions (quantizer bit-exact; int8 GEMM max_rel <= {TOL_W8A8_GEMM:.0e}; "
+        f"1-layer stack rel_l2 <= {TOL_BF16:.0e}; {NL}-layer stack error vs fp32 <= {TOL_W8A8_STACK_RATIO:.2f}x "
+        "plain's + 1e-3)")
+    err = dict.fromkeys(("quantize_rows", "linear_w8a8", "attention[w8a8]", "fused_stack_w8a8"), 0.0)
+    shapes = ((D, 3 * D, "bias"), (D, D, "residual"), (D, F_, "relu"), (F_, D, "residual"))
+    for name, (G, L) in (("intra", INTRA), ("inter", INTER)):
+        M = G * L
+        for K in (D, F_):
+            h = 3 * torch.randn(M, K, device="cuda", generator=gen)
+            h[0] = 0
+            (q, sa), (pq, psa) = w8.quantize_rows(h), w8.quantize_rows_plain(h)
+            diff = int((q != pq).sum()) + int((sa != psa).sum())
+            err["quantize_rows"] = max(err["quantize_rows"], float((q.int() - pq.int()).abs().max()),
+                                       float((sa - psa).abs().max()))
+            log(f"  quantize_rows {name} [{M},{K}]: {diff} elements differ  {'ok' if diff == 0 else 'FAIL'}")
+            if diff:
+                failures.append(f"quantize_rows {name} K={K}")
+            del h, q, sa, pq, psa
+        for K, N, epi in shapes:
+            hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
+            wq, s = fs.quantize_stacked(torch.randn(1, K, N, device="cuda", generator=gen))
+            b = 0.1 * torch.randn(N, device="cuda", generator=gen)
+            res = torch.randn(M, N, device="cuda", generator=gen) if epi == "residual" else None
+            got = w8.linear_w8a8(hq, sa, wq[0], s[0], b, epi, None if res is None else res.clone())
+            want = w8.linear_w8a8_plain(hq, sa, wq[0], s[0], b, epi, res)
+            mx, rmax, rl2 = errs(got, want)
+            ok = rmax <= TOL_W8A8_GEMM
+            log(f"  linear_w8a8 {name} [{M},{K}]x[{K},{N}] {epi:<8s} max_abs {mx:.3e} max_rel {rmax:.3e}  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"linear_w8a8 {name} {epi} K={K}")
+            err["linear_w8a8"] = max(err["linear_w8a8"], mx)
+            del hq, sa, wq, s, got, want, res
+        qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
+        err["attention[w8a8]"] = max(err["attention[w8a8]"], check(
+            f"attention bf16 operands, fp32 out {name}", fs.attention(qkv, L, H, torch.float32, operand_dtype=cd),
+            fs.attention_plain(qkv, L, H, torch.float32, operand_dtype=cd), cd, failures))
+        del qkv
+        for nl in (1, NL):
+            w = fs.stack_weights(stack_module(nl, gen), cd, quant="w8a8")
+            xs = torch.randn(G, L, D, device="cuda", generator=gen).to(cd)
+            got, want = fs.fused_stack_apply(xs, w, H, cd, quant="w8a8"), fs.fused_stack_reference(xs, w, H, cd, "w8a8")
+            if nl == 1:
+                e = check(f"fused stack w8a8 bf16 {name} [{G},{L},{D}] 1 layer", got, want, cd, failures)
+            else:  # see TOL_W8A8_STACK_RATIO
+                ref = fs.fused_stack_reference(xs.float(), w, H, torch.float32, "w8a8")
+                (e, _, rl2), ek, ep = errs(got, want), errs(got, ref)[2], errs(want, ref)[2]
+                ok = ek <= TOL_W8A8_STACK_RATIO * ep + 1e-3
+                log(f"  fused stack w8a8 bf16 {name} {nl} layers: rel_l2 vs plain {rl2:.3e}; vs the plain fp32 run: "
+                    f"kernels {ek:.3e} plain {ep:.3e}  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"fused stack w8a8 {name} {nl} layers")
+                del ref
+            err["fused_stack_w8a8"] = max(err["fused_stack_w8a8"], e)
+            del w, xs, got, want
+            torch.cuda.empty_cache()
+    if failures:
+        fail(f"w8a8 kernel checks failed: {failures}")
+    return err
+
+
+def phase9_serve(gen, card, failures):
+    """(b) ServingEngine(quant="w8a8") at full width."""
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.serving import ServingEngine
+
+    B, T = 16, aligned_bucket(128000)
+    log(f"[9b] ServingEngine(quant='w8a8') variant=context full width, bf16, B={B}, T={T}")
+    mix = torch.randn(B, T, device="cuda", generator=gen)
+    ctx = torch.randn(B, 1, 4096, device="cuda", generator=gen)
+    ref = Sepformer(SepformerConfig(variant="context", num_spks=2), generator=torch.Generator().manual_seed(0))
+    ref = ref.cuda().eval()(mix, ctx)
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+    engine = ServingEngine(cfg, Sepformer(cfg, generator=torch.Generator().manual_seed(0)), quant="w8a8")
+    w8.reset_launches()
+    out = engine(mix, ctx)
+    torch.cuda.synchronize()
+    counts = w8.launch_counts()
+    want = {k: v * 2 * cfg.num_dp_layers for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8").items()}
+    log(f"  launches in one w8a8 forward: {counts} (want {want}, total {sum(want.values())})")
+    if counts != want:
+        fail(f"w8a8 launch counts {counts} != {want}")
+    mx, _, rl2 = errs(out, ref)
+    ok = tuple(out.shape) == (B, T, 1) and bool(torch.isfinite(out).all()) and rl2 <= TOL_SERVE_BF16
+    log(f"  w8a8 bf16 vs plain fp32 Sepformer: max_abs {mx:.3e} rel_l2 {rl2:.3e} (tol {TOL_SERVE_BF16:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("w8a8 serving")
+        fail(f"w8a8 serving checks failed: {failures}")
+    fwd_times = cuda_ms(lambda: engine(mix, ctx))
+    fwd_ms = statistics.median(fwd_times)
+    audio_s = B * T / 8000
+    log(f"  w8a8 forward: median {fwd_ms:.3f} ms over 5 ({[round(t, 3) for t in fwd_times]}); {audio_s:.1f} s of "
+        f"audio -> realtime factor {audio_s / (fwd_ms / 1e3):.1f}x  [{card}]")
+    del engine, ref, out
+    torch.cuda.empty_cache()
+    return {"forward_ms": fwd_ms, "forward_times_ms": fwd_times, "realtime_factor": audio_s / (fwd_ms / 1e3),
+            "launches": counts, "rel_l2_vs_fp32": rl2}
+
+
+def phase9_times(gen, card, H, F_, NL):
+    """(c) the w8a8 kernels' times, plain times, library calls and bounds."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    D, cd, hd = 256, torch.bfloat16, 32
+    log(f"[9c] w8a8 kernel times [{card}]")
+    shapes = ((D, 3 * D, "bias"), (D, D, "residual"), (D, F_, "relu"), (F_, D, "residual"))
+    times = {}
+    for name, (G, L) in (("intra", INTRA), ("inter", INTER)):
+        M = G * L
+        t = {}
+        h = torch.randn(M, D, device="cuda", generator=gen)
+        t["quantize_rows"] = dict(ms=time_ms(lambda: w8.quantize_rows(h)),
+                                  plain_ms=time_ms(lambda: w8.quantize_rows_plain(h), reps=3), library_ms=None,
+                                  **bound_of(M * D * 5 + M * 4, 0))
+        h4 = torch.randn(M, F_, device="cuda", generator=gen)  # the FFN1 output's quantizer
+        t["quantize_rows[1024]"] = dict(ms=time_ms(lambda: w8.quantize_rows(h4)),
+                                        plain_ms=time_ms(lambda: w8.quantize_rows_plain(h4), reps=3),
+                                        library_ms=None, **bound_of(M * F_ * 5 + M * 4, 0))
+        del h4
+        s1, b1 = torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")
+        t["layer_norm[w8a8]"] = dict(ms=time_ms(lambda: fs.layer_norm(h, s1, b1, torch.float32)),
+                                     plain_ms=time_ms(lambda: fs.layer_norm_plain(h, s1, b1, torch.float32)),
+                                     library_ms=time_ms(lambda: F.layer_norm(h, (D,), s1, b1, 1e-6)),
+                                     **bound_of(M * D * 8 + 2 * D * 4, 0))
+        del h
+        ops_, lib_ = [], []
+        for K, N, epi in shapes:
+            hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
+            wq, s = fs.quantize_stacked(torch.randn(1, K, N, device="cuda", generator=gen))
+            res = torch.zeros(M, N, device="cuda") if epi == "residual" else None
+            ops_.append((hq, sa, wq[0], s[0], torch.zeros(N, device="cuda"), epi, res))
+            lib_.append((hq, wq[0].t().contiguous().t()))
+        gemm_ops = sum(2 * M * K * N for K, N, _ in shapes)
+        gemm_bytes = sum(M * K + K * N + M * 4 + 2 * N * 4 + M * N * (8 if e == "residual" else 4)
+                         for K, N, e in shapes)
+        t["linear_w8a8"] = dict(ms=sum(time_ms(lambda o=o: w8.linear_w8a8(*o)) for o in ops_),
+                                plain_ms=time_ms(lambda: [w8.linear_w8a8_plain(*o) for o in ops_], reps=3),
+                                library_ms=time_ms(lambda: [torch._int_mm(a, b) for a, b in lib_]),
+                                **bound_of(gemm_bytes, gemm_ops, PEAK_INT8))
+        del ops_, lib_
+        qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
+        q, k, v = (x.to(cd) for x in qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4))
+        att_flops = 4 * G * H * L * L * hd
+        t["attention[w8a8]"] = dict(
+            ms=time_ms(lambda: fs.attention(qkv, L, H, torch.float32, operand_dtype=cd)),
+            plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, torch.float32, operand_dtype=cd), reps=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            **bound_of(M * 3 * D * 4 + M * D * 4, att_flops))
+        del qkv, q, k, v
+        w = fs.stack_weights(stack_module(NL, gen), cd, quant="w8a8")
+        xs = torch.randn(G, L, D, device="cuda", generator=gen).to(cd)
+        stk_ms = NL * (1e3 * gemm_ops / PEAK_INT8 + 1e3 * att_flops / PEAK_BF16)
+        t["fused_stack_w8a8"] = dict(ms=time_ms(lambda: fs.fused_stack_apply(xs, w, H, cd, quant="w8a8"), reps=5),
+                                     plain_ms=time_ms(lambda: fs.fused_stack_reference(xs, w, H, cd, quant="w8a8"),
+                                                      reps=2, warmup=1),
+                                     library_ms=None, bound_ms=stk_ms, bound_by="operations")
+        del w, xs
+        torch.cuda.empty_cache()
+        times[name] = t
+        for kname, x in t.items():
+            lib = "none" if x["library_ms"] is None else f"{x['library_ms']:.4f} ms"
+            log(f"  {name} G={G} L={L} {kname:<19s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
+                f"library {lib}  bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -753,6 +1180,17 @@ def main() -> int:
         phase7_parity(gen, failures)
         bench = phase7_bench(gen, card)
         ttimes = phase7_times(gen, card, H, F_, NL)
+        t0 = time.time()
+        flash_err = phase8_kernels(gen, failures)
+        flash_parity = phase8_parity(gen, failures)
+        flash_bench = phase8_bench(gen, card, failures)
+        ftimes = phase8_times(gen, card)
+        log(f"  [8] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    w8_err = phase9_kernels(gen, failures, H, F_, NL)
+    w8_serve = phase9_serve(gen, card, failures)
+    wtimes = phase9_times(gen, card, H, F_, NL)
+    log(f"  [9] took {time.time() - t0:.1f} s")
 
     parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
              "linear": ("the four projections (:92-110), one layer's 4 launches", "linear_bf16_kernel"),
@@ -801,11 +1239,44 @@ def main() -> int:
             "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}; launches per bf16 train step",
             "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # the flash path (launches of one bf16 train step, [8c]) and w8a8 serving
+    # (launches of one w8a8 forward, [9b])
+    slice3 = (
+        ("flash_fwd", SOURCE_FLASH, REPLACES_FLASH_FWD, "flash_fwd_bf16_kernel<32>", ftimes, flash_bench["launches"],
+         flash_err, "q/k/v [G, 8, L, 32] -> o, lse; one launch; launches per bf16 train step (remat='layer')"),
+        ("flash_bwd", SOURCE_FLASH, REPLACES_FLASH_BWD,
+         "flash_delta_kernel + flash_bwd_dq_bf16_kernel<32> + flash_bwd_dkdv_bf16_kernel<32>", ftimes,
+         flash_bench["launches"], flash_err, "dq, dk, dv; one call; launches per bf16 train step"),
+        ("quantize_rows", SOURCE_W8A8, REPLACES_W8A8, "quantize_rows_kernel", wtimes, w8_serve["launches"], w8_err,
+         "fp32 [M, 256] -> int8 + row scales (_qdot :115-123); one launch; launches per w8a8 forward"),
+        ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, "linear_w8a8_kernel", wtimes, w8_serve["launches"], w8_err,
+         "the four int8 projections (:149-154), one layer's 4 launches; launches per w8a8 forward"),
+        ("attention[w8a8]", SOURCE, REPLACES_W8A8, "attention_bf16_kernel<float>", wtimes,
+         {"attention[w8a8]": w8_serve["launches"]["attention"]}, w8_err,
+         "_attention (:150) with bf16 operands and an fp32 output; one launch; launches per w8a8 forward"),
+        ("layer_norm[w8a8]", SOURCE, REPLACES_W8A8, "layer_norm_kernel<float>", wtimes,
+         {"layer_norm[w8a8]": w8_serve["launches"]["layer_norm"]}, {"layer_norm[w8a8]": max_err["layer_norm"]},
+         "_ln (:148-155) with an fp32 output; one launch; launches per w8a8 forward"),
+    )
+    for name, source, replaces, symbol, tset, counts, errset, part in slice3:
+        ti, tn = tset["intra"][name], tset["inter"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "symbol": symbol, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": errset[name],
+            "ms": ti["ms"], "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
+            "bound_by": ti["bound_by"], "library_ms": ti["library_ms"],
+            "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}",
+            "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    if any(k["launches"] <= 0 for k in kernels):
+        fail(f"a kernel of the path was not launched: {[k['name'] for k in kernels if k['launches'] <= 0]}")
     log(f"  whole run {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels,
                       "fused_stack": {k: {kk: vv for kk, vv in v["fused_stack"].items()} for k, v in times.items()},
                       "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3),
-                      "train_step": bench, "train_times": ttimes}), flush=True)
+                      "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
+                      "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
+                      "w8a8_times": wtimes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

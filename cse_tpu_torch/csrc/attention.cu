@@ -1,0 +1,752 @@
+// Hopper (sm_90a) port of cse_tpu/ops/attention.py: the flash-attention pair
+// _fwd_kernel (:38, launched at :110) and _bwd_kernel (:59, launched at
+// :134). The host wrapper is cse_tpu_torch/ops/attention.py.
+//
+// Layout. q, k, v, o, do are [BH, L, DH] row-major (the public [B, H, L, dh]
+// of the JAX function, made contiguous by the wrapper); lse and delta are
+// [BH, L] fp32. Reading the packed [B, L, 3D] projection instead would save
+// the model's three transposed copies, but ties the kernels to one caller's
+// layout; this first port keeps the public one.
+//
+// The TPU kernel holds one sequence's whole [Lp, Lp] score tile in VMEM with
+// L padded to a multiple of 128. An SM has 227 KB of shared memory and the
+// registers are the scarcer store, so here a block owns 64 rows (queries,
+// or keys in the dk/dv kernel), keys or queries stream through shared memory
+// in tiles, and scores live only in registers. No padding: keys past L are
+// masked (p = 0) and rows past L are not written. Any L; head width DH in
+// {16, 32, 48, 64}.
+//
+// Arithmetic, that of the TPU kernels:
+//   forward  s = (q . k^T) * scale in fp32 (the scale after the product),
+//            m = max s, p = exp(s - m), z = sum p, o = cd(p / z) . v with
+//            fp32 accumulation (the division before PV), lse = m + log z.
+//            Three passes over the keys (max, sum, PV) recompute the scores
+//            instead of storing them.
+//   backward p = exp(s - lse), delta = rowsum(do * o), dp = do . v^T,
+//            ds = p * (dp - delta) * scale, dq = ds . k, dk = ds^T . q,
+//            dv = p^T . do, fp32 throughout, each result rounded to cd.
+//            A pre-pass writes delta; the dq kernel walks the keys once per
+//            query tile, the dk/dv kernel the queries once per key tile.
+//
+// bf16: the score, dp and PV products have bf16 operands, so mma.sync
+// m16n8k16 with fp32 accumulation gives each product exactly, as the TPU's
+// fp32 dot of upcast values does. The backward's dq, dk, dv contract fp32 ds
+// and p: each is split into two bf16 terms (hi = bf16(x), lo = bf16(x - hi))
+// and both go through mma.sync, which keeps ~16 bits of ds and p (the output
+// is bf16, 8 bits) and keeps the products on the tensor cores. fp32 runs on
+// CUDA-core FMAs (no TF32), one warp per row.
+//
+// Bound on the H100 at the training shapes (G = 2016 or 4000 sequences x 8
+// heads, L = 251 or 127, DH = 32, bf16): the forward reads q, k, v and
+// writes o and lse, ~1.05 GB = 0.31 ms at 3.35 TB/s, against 0.13 TFLOP =
+// 0.13 ms on the tensor cores; the backward moves ~2.09 GB = 0.62 ms against
+// 0.33 TFLOP = 0.33 ms. Both are bound by bytes. The design reads each
+// operand tile once per block from device memory (K and V are re-read by
+// the ceil(L / 64) blocks of a sequence, mostly from L2) and writes each
+// output once.
+//
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError() (0 = launched).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int RT = 64;    // rows (queries, or keys) per block
+constexpr int KT = 256;   // keys per shared-memory tile (bf16 kernels)
+constexpr int QT = 128;   // queries per shared-memory tile (bf16 dk/dv)
+constexpr int T32 = 64;   // keys or queries per shared-memory tile (fp32 kernels)
+
+template <int DH>
+__host__ __device__ constexpr int ldh() { return DH + 8; }  // bf16 row stride of the tiles: ldmatrix conflict-free
+
+__device__ __forceinline__ unsigned ld_pair(const bf16* p) { return *reinterpret_cast<const unsigned*>(p); }
+
+// x = hi + lo, both bf16, packed as two pairs for an A fragment
+__device__ __forceinline__ void split_pack(float a, float b, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// rows r0 .. r0 + n - 1 of src [L, DH] (bf16) into dst [n][LDH], zero past L
+template <int DH>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int r0, int n, int L) {
+  constexpr int C = DH / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
+    const int r = e / C, c = (e % C) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < L) v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * DH + c);
+    *reinterpret_cast<uint4*>(dst + r * ldh<DH>() + c) = v;
+  }
+}
+
+// A fragments (m16 x k16 each, DH / 16 of them) of rows ra, ra + 8 of x [L, DH]
+template <int DH>
+__device__ __forceinline__ void load_afrag(unsigned (&f)[DH / 16][4], const bf16* x, int ra, int L, int lane) {
+  const int rb = ra + 8;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
+      f[ks][hi * 2] = ra < L ? ld_pair(x + (long long)ra * DH + d) : 0u;
+      f[ks][hi * 2 + 1] = rb < L ? ld_pair(x + (long long)rb * DH + d) : 0u;
+    }
+}
+
+// s[j] = X . Y^T for 16 columns cb .. cb + 15 of the tile Ys [.][LDH] (n8 tiles j = 0, 1)
+template <int DH>
+__device__ __forceinline__ void prod16(float (&s)[2][4], const unsigned (&xa)[DH / 16][4], const bf16* Ys, int cb,
+                                       int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    unsigned f[4];
+    ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * ldh<DH>() + ks * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16_16816(s[0], xa[ks], f[0], f[1]);
+    mma_bf16_16816(s[1], xa[ks], f[2], f[3]);
+  }
+}
+
+// acc[DH / 8] += A[16 x 16] . Zs[cb .. cb + 15][0 .. DH)  (Zs row-major [.][LDH])
+template <int DH>
+__device__ __forceinline__ void mma_rows(float (&acc)[DH / 8][4], const unsigned (&a)[4], const bf16* Zs, int cb,
+                                         int lane) {
+#pragma unroll
+  for (int d2 = 0; d2 < DH / 16; ++d2) {
+    unsigned f[4];
+    ldmatrix_x4_trans(f, Zs + (cb + (lane & 15)) * ldh<DH>() + d2 * 16 + (lane >> 4) * 8);
+    mma_bf16_16816(acc[d2 * 2], a, f[0], f[1]);
+    mma_bf16_16816(acc[d2 * 2 + 1], a, f[2], f[3]);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DH / 8][4], int ra, int L, int lane) {
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int d = j * 8 + (lane & 3) * 2;
+    if (ra < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)ra * DH + d) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (ra + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(ra + 8) * DH + d) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// ---------------------------------------------------------------- forward, bf16
+// Block: sequence-head bh = blockIdx.x / ntile, queries (blockIdx.x % ntile) * 64
+// onwards; 4 warps x 16 query rows. K and V of up to KT keys in shared memory.
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      bf16* __restrict__ o, float* __restrict__ lse, int L, float scale, int kt_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
+  bf16* Vs = Ks + kt_rows * ldh<DH>();
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long off = bh * L * DH;
+  const bf16 *qb = q + off, *kb_ = k + off, *vb = v + off;
+  const int nkt = (L + KT - 1) / KT;
+  const float NEG_INF = __int_as_float(0xff800000);
+
+  const int q0 = (blockIdx.x % ntile) * RT + warp * 16;
+  const int ra = q0 + (lane >> 2), rb = ra + 8;
+  const bool active = q0 < L;  // warp-uniform
+  unsigned qa[DH / 16][4];
+  load_afrag<DH>(qa, qb, ra, L, lane);
+
+  auto load_kv = [&](int k0, bool with_v) {
+    load_tile_bf16<DH>(Ks, kb_, k0, kt_rows, L);
+    if (with_v) load_tile_bf16<DH>(Vs, vb, k0, kt_rows, L);
+  };
+  if (nkt == 1) {
+    load_kv(0, true);
+    __syncthreads();
+  }
+  float ma = NEG_INF, mb = NEG_INF, za = 0.f, zb = 0.f, acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // pass 0: the row max; pass 1: z = sum exp(s - m); pass 2: o = cd(p / z) . v
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int kt = 0; kt < nkt; ++kt) {
+      if (nkt > 1) {
+        __syncthreads();
+        load_kv(kt * KT, pass == 2);
+        __syncthreads();
+      }
+      const int nk = min(KT, L - kt * KT);
+      if (!active) continue;
+      for (int cb = 0; cb < nk; cb += 16) {
+        float s[2][4];
+        prod16<DH>(s, qa, Ks, cb, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool valid = cb + j * 8 + (lane & 3) * 2 + (e & 1) < nk;
+            const float x = __fmul_rn(s[j][e], scale);  // the scale after the product, unfused
+            if (pass == 0) {
+              if (valid) {
+                if (e < 2) ma = fmaxf(ma, x);
+                else mb = fmaxf(mb, x);
+              }
+            } else {
+              const float p = valid ? expf(x - (e < 2 ? ma : mb)) : 0.f;
+              if (pass == 1) {
+                if (e < 2) za += p;
+                else zb += p;
+              } else {
+                s[j][e] = p / (e < 2 ? za : zb);
+              }
+            }
+          }
+        if (pass == 2) {
+          const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                                  pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+          mma_rows<DH>(acc, pa, Vs, cb, lane);
+        }
+      }
+    }
+    // the four lanes of a quad share a row
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      if (pass == 0) {
+        ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, x));
+        mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, x));
+      } else if (pass == 1) {
+        za += __shfl_xor_sync(FULL, za, x);
+        zb += __shfl_xor_sync(FULL, zb, x);
+      }
+    }
+  }
+  if (!active) return;
+  store_rows<DH>(o + off, acc, ra, L, lane);
+  if ((lane & 3) == 0) {
+    if (ra < L) lse[bh * L + ra] = ma + logf(za);
+    if (rb < L) lse[bh * L + rb] = mb + logf(zb);
+  }
+}
+
+// ---------------------------------------------------------------- forward, fp32
+// 8 warps x 8 query rows; lane j scores key c + j and owns output columns
+// j, j + 32. K (DH + 1-word rows), V and the block's q rows in shared memory.
+template <int DH>
+constexpr size_t fwd_f32_smem() { return sizeof(float) * (T32 * (DH + 1) + T32 * DH + RT * DH); }
+
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, float* __restrict__ lse, int L, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LK = DH + 1, CPL = (DH + 31) / 32, ROWS = RT / 8;
+  float* Ks = reinterpret_cast<float*>(smem);  // [T32][LK]
+  float* Vs = Ks + T32 * LK;                   // [T32][DH]
+  float* Qs = Vs + T32 * DH;                   // [RT][DH]
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int r0 = (blockIdx.x % ntile) * RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long off = bh * L * DH;
+  const int nkt = (L + T32 - 1) / T32;
+
+  for (int e = tid; e < RT * DH; e += 256) {
+    const int r = r0 + e / DH;
+    Qs[e] = r < L ? q[off + (long long)r * DH + e % DH] : 0.f;
+  }
+  auto load_kv = [&](int k0) {
+    for (int e = tid; e < T32 * DH; e += 256) {
+      const int r = e / DH, d = e % DH, key = k0 + r;
+      Ks[r * LK + d] = key < L ? k[off + (long long)key * DH + d] : 0.f;
+      Vs[r * DH + d] = key < L ? v[off + (long long)key * DH + d] : 0.f;
+    }
+  };
+  float m[ROWS], z[ROWS], acc[ROWS][CPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = __int_as_float(0xff800000);
+    z[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+  }
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int kt = 0; kt < nkt; ++kt) {
+      __syncthreads();
+      load_kv(kt * T32);
+      __syncthreads();
+      const int nk = min(T32, L - kt * T32);
+#pragma unroll 1
+      for (int r = 0; r < ROWS; ++r) {
+        const int qr = warp + r * 8;
+        if (r0 + qr >= L) continue;  // warp-uniform
+        float qv[DH];
+#pragma unroll
+        for (int d = 0; d < DH; ++d) qv[d] = Qs[qr * DH + d];
+        for (int c = 0; c < nk; c += 32) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < DH; ++d) s = fmaf(qv[d], Ks[(c + lane) * LK + d], s);
+          s = __fmul_rn(s, scale);
+          const bool valid = c + lane < nk;
+          if (pass == 0) {
+            if (valid) m[r] = fmaxf(m[r], s);
+          } else if (pass == 1) {
+            z[r] += valid ? expf(s - m[r]) : 0.f;
+          } else {
+            const float p = valid ? expf(s - m[r]) / z[r] : 0.f;
+#pragma unroll 4
+            for (int j = 0; j < 32; ++j) {
+              const float pj = __shfl_sync(FULL, p, j);
+#pragma unroll
+              for (int cc = 0; cc < CPL; ++cc)
+                if (lane + cc * 32 < DH) acc[r][cc] = fmaf(pj, Vs[(c + j) * DH + lane + cc * 32], acc[r][cc]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (pass == 0) m[r] = warp_max(m[r]);
+      if (pass == 1) z[r] = warp_sum(z[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = r0 + warp + r * 8;
+    if (row >= L) continue;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc)
+      if (lane + cc * 32 < DH) o[off + (long long)row * DH + lane + cc * 32] = acc[r][cc];
+    if (lane == 0) lse[bh * L + row] = m[r] + logf(z[r]);
+  }
+}
+
+// ---------------------------------------------------------------- backward
+// delta[row] = sum_d do[row, d] * o[row, d] in fp32: one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta, long long rows,
+                   int DH) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < DH; d += 32) s += to_f(dout[row * DH + d]) * to_f(o[row * DH + d]);
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// bf16 dq: 4 warps x 16 query rows; K and V of up to KT keys in shared memory.
+// One walk over the keys: p = exp(s - lse), dp = do . v^T, ds = p (dp - delta)
+// scale, dq += (ds_hi + ds_lo) . k.
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const bf16* __restrict__ dout, bf16* __restrict__ dq, int L, float scale, int kt_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
+  bf16* Vs = Ks + kt_rows * ldh<DH>();
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long off = bh * L * DH;
+  const int nkt = (L + KT - 1) / KT;
+  const int q0 = (blockIdx.x % ntile) * RT + warp * 16;
+  const int ra = q0 + (lane >> 2), rb = ra + 8;
+  const bool active = q0 < L;
+  unsigned qa[DH / 16][4], da[DH / 16][4];
+  load_afrag<DH>(qa, q + off, ra, L, lane);
+  load_afrag<DH>(da, dout + off, ra, L, lane);
+  const float la = ra < L ? lse[bh * L + ra] : 0.f, lb = rb < L ? lse[bh * L + rb] : 0.f;
+  const float ea = ra < L ? delta[bh * L + ra] : 0.f, eb = rb < L ? delta[bh * L + rb] : 0.f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();
+    load_tile_bf16<DH>(Ks, k + off, kt * KT, kt_rows, L);
+    load_tile_bf16<DH>(Vs, v + off, kt * KT, kt_rows, L);
+    __syncthreads();
+    const int nk = min(KT, L - kt * KT);
+    if (!active) continue;
+    for (int cb = 0; cb < nk; cb += 16) {
+      float s[2][4], dp[2][4];
+      prod16<DH>(s, qa, Ks, cb, lane);
+      prod16<DH>(dp, da, Vs, cb, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = cb + j * 8 + (lane & 3) * 2 + (e & 1) < nk;
+          const float p = valid ? expf(__fmul_rn(s[j][e], scale) - (e < 2 ? la : lb)) : 0.f;
+          s[j][e] = p * (dp[j][e] - (e < 2 ? ea : eb)) * scale;  // ds
+        }
+      unsigned hi[4], lo[4];
+      split_pack(s[0][0], s[0][1], hi[0], lo[0]);
+      split_pack(s[0][2], s[0][3], hi[1], lo[1]);
+      split_pack(s[1][0], s[1][1], hi[2], lo[2]);
+      split_pack(s[1][2], s[1][3], hi[3], lo[3]);
+      mma_rows<DH>(acc, hi, Ks, cb, lane);
+      mma_rows<DH>(acc, lo, Ks, cb, lane);
+    }
+  }
+  if (active) store_rows<DH>(dq + off, acc, ra, L, lane);
+}
+
+// bf16 dk, dv: 4 warps x 16 keys; queries in tiles of QT in shared memory (q,
+// do, and each row's lse and delta). Per 16 queries the transposed products
+// sT = k . q^T, dpT = v . do^T give pT and dsT in the accumulators, which
+// go on as A fragments: dv += pT . do, dk += dsT . q (each split hi + lo).
+template <int DH>
+constexpr size_t dkdv_bf16_smem() { return sizeof(bf16) * 2 * QT * ldh<DH>() + sizeof(float) * 2 * QT; }
+
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
+                           float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][LDH]
+  bf16* Os = Qs + QT * ldh<DH>();            // do
+  float* ql = reinterpret_cast<float*>(Os + QT * ldh<DH>());
+  float* qd = ql + QT;
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long off = bh * L * DH;
+  const int k0 = (blockIdx.x % ntile) * RT + warp * 16;
+  const int ka = k0 + (lane >> 2);
+  unsigned kf[DH / 16][4], vf[DH / 16][4];
+  load_afrag<DH>(kf, k + off, ka, L, lane);
+  load_afrag<DH>(vf, v + off, ka, L, lane);
+  float gk[DH / 8][4], gv[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+
+  for (int q0 = 0; q0 < L; q0 += QT) {
+    __syncthreads();  // every warp is done with the previous query tile
+    load_tile_bf16<DH>(Qs, q + off, q0, QT, L);
+    load_tile_bf16<DH>(Os, dout + off, q0, QT, L);
+    for (int r = tid; r < QT; r += 128) {
+      ql[r] = q0 + r < L ? lse[bh * L + q0 + r] : 0.f;
+      qd[r] = q0 + r < L ? delta[bh * L + q0 + r] : 0.f;
+    }
+    __syncthreads();
+    if (k0 >= L) continue;  // warp-uniform; the barriers above are reached by all
+    const int nq = min(QT, L - q0);
+    for (int cb = 0; cb < nq; cb += 16) {
+      float s[2][4], dp[2][4];
+      prod16<DH>(s, kf, Qs, cb, lane);
+      prod16<DH>(dp, vf, Os, cb, lane);
+      // column (query) of fragment element e of n8 tile j: cb + j*8 + 2*(lane&3) + (e&1)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = cb + j * 8 + (lane & 3) * 2 + (e & 1);
+          const float p = qr < nq ? expf(__fmul_rn(s[j][e], scale) - ql[qr]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - qd[qr]) * scale;  // dsT
+        }
+      unsigned ph[4], pl[4], sh[4], sl[4];
+      split_pack(s[0][0], s[0][1], ph[0], pl[0]);
+      split_pack(s[0][2], s[0][3], ph[1], pl[1]);
+      split_pack(s[1][0], s[1][1], ph[2], pl[2]);
+      split_pack(s[1][2], s[1][3], ph[3], pl[3]);
+      split_pack(dp[0][0], dp[0][1], sh[0], sl[0]);
+      split_pack(dp[0][2], dp[0][3], sh[1], sl[1]);
+      split_pack(dp[1][0], dp[1][1], sh[2], sl[2]);
+      split_pack(dp[1][2], dp[1][3], sh[3], sl[3]);
+      mma_rows<DH>(gv, ph, Os, cb, lane);
+      mma_rows<DH>(gv, pl, Os, cb, lane);
+      mma_rows<DH>(gk, sh, Qs, cb, lane);
+      mma_rows<DH>(gk, sl, Qs, cb, lane);
+    }
+  }
+  if (k0 >= L) return;
+  store_rows<DH>(dk + off, gk, ka, L, lane);
+  store_rows<DH>(dv + off, gv, ka, L, lane);
+}
+
+// fp32 dq: 8 warps x 8 query rows; lane j takes key c + j and owns output
+// columns j, j + 32. K and V (DH + 1-word rows) of T32 keys in shared memory.
+template <int DH>
+constexpr size_t dq_f32_smem() { return sizeof(float) * 2 * T32 * (DH + 1); }
+
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ dout, float* __restrict__ dq, int L, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LK = DH + 1, CPL = (DH + 31) / 32, ROWS = RT / 8;
+  float* Ks = reinterpret_cast<float*>(smem);  // [T32][LK]
+  float* Vs = Ks + T32 * LK;
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int r0 = (blockIdx.x % ntile) * RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long off = bh * L * DH;
+  float acc[ROWS][CPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < L; k0 += T32) {
+    __syncthreads();
+    for (int e = tid; e < T32 * DH; e += 256) {
+      const int r = e / DH, d = e % DH, key = k0 + r;
+      Ks[r * LK + d] = key < L ? k[off + (long long)key * DH + d] : 0.f;
+      Vs[r * LK + d] = key < L ? v[off + (long long)key * DH + d] : 0.f;
+    }
+    __syncthreads();
+    const int nk = min(T32, L - k0);
+#pragma unroll 1
+    for (int r = 0; r < ROWS; ++r) {
+      const int row = r0 + warp + r * 8;
+      if (row >= L) continue;  // warp-uniform
+      float qv[DH], dv[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        qv[d] = q[off + (long long)row * DH + d];
+        dv[d] = dout[off + (long long)row * DH + d];
+      }
+      const float l = lse[bh * L + row], dl = delta[bh * L + row];
+      for (int c = 0; c < nk; c += 32) {
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          s = fmaf(qv[d], Ks[(c + lane) * LK + d], s);
+          dp = fmaf(dv[d], Vs[(c + lane) * LK + d], dp);
+        }
+        const float p = c + lane < nk ? expf(__fmul_rn(s, scale) - l) : 0.f;
+        const float ds = p * (dp - dl) * scale;
+#pragma unroll 4
+        for (int j = 0; j < 32; ++j) {
+          const float dj = __shfl_sync(FULL, ds, j);
+#pragma unroll
+          for (int cc = 0; cc < CPL; ++cc)
+            if (lane + cc * 32 < DH) acc[r][cc] = fmaf(dj, Ks[(c + j) * LK + lane + cc * 32], acc[r][cc]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = r0 + warp + r * 8;
+    if (row >= L) continue;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc)
+      if (lane + cc * 32 < DH) dq[off + (long long)row * DH + lane + cc * 32] = acc[r][cc];
+  }
+}
+
+// fp32 dk, dv: 8 warps x 8 keys; lane j takes query c + j. Queries in tiles
+// of T32: q and do (DH + 1-word rows), lse, delta.
+template <int DH>
+constexpr size_t dkdv_f32_smem() { return sizeof(float) * (2 * T32 * (DH + 1) + 2 * T32); }
+
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv, int L,
+                          float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LK = DH + 1, CPL = (DH + 31) / 32, ROWS = RT / 8;
+  float* Qs = reinterpret_cast<float*>(smem);  // [T32][LK]
+  float* Os = Qs + T32 * LK;
+  float* ql = Os + T32 * LK;
+  float* qd = ql + T32;
+  const int ntile = (L + RT - 1) / RT;
+  const long long bh = blockIdx.x / ntile;
+  const int r0 = (blockIdx.x % ntile) * RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long off = bh * L * DH;
+  float gk[ROWS][CPL], gv[ROWS][CPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) gk[r][c] = gv[r][c] = 0.f;
+
+  for (int q0 = 0; q0 < L; q0 += T32) {
+    __syncthreads();
+    for (int e = tid; e < T32 * DH; e += 256) {
+      const int r = e / DH, d = e % DH, qr = q0 + r;
+      Qs[r * LK + d] = qr < L ? q[off + (long long)qr * DH + d] : 0.f;
+      Os[r * LK + d] = qr < L ? dout[off + (long long)qr * DH + d] : 0.f;
+    }
+    for (int r = tid; r < T32; r += 256) {
+      ql[r] = q0 + r < L ? lse[bh * L + q0 + r] : 0.f;
+      qd[r] = q0 + r < L ? delta[bh * L + q0 + r] : 0.f;
+    }
+    __syncthreads();
+    const int nq = min(T32, L - q0);
+#pragma unroll 1
+    for (int r = 0; r < ROWS; ++r) {
+      const int key = r0 + warp + r * 8;
+      if (key >= L) continue;  // warp-uniform
+      float kv[DH], vv[DH];
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        kv[d] = k[off + (long long)key * DH + d];
+        vv[d] = v[off + (long long)key * DH + d];
+      }
+      for (int c = 0; c < nq; c += 32) {
+        const int qr = c + lane;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          s = fmaf(kv[d], Qs[qr * LK + d], s);
+          dp = fmaf(vv[d], Os[qr * LK + d], dp);
+        }
+        const float p = qr < nq ? expf(__fmul_rn(s, scale) - ql[qr]) : 0.f;
+        const float ds = p * (dp - qd[qr]) * scale;
+#pragma unroll 4
+        for (int j = 0; j < 32; ++j) {
+          const float pj = __shfl_sync(FULL, p, j), dj = __shfl_sync(FULL, ds, j);
+#pragma unroll
+          for (int cc = 0; cc < CPL; ++cc)
+            if (lane + cc * 32 < DH) {
+              gv[r][cc] = fmaf(pj, Os[(c + j) * LK + lane + cc * 32], gv[r][cc]);
+              gk[r][cc] = fmaf(dj, Qs[(c + j) * LK + lane + cc * 32], gk[r][cc]);
+            }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int key = r0 + warp + r * 8;
+    if (key >= L) continue;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc)
+      if (lane + cc * 32 < DH) {
+        dk[off + (long long)key * DH + lane + cc * 32] = gk[r][cc];
+        dv[off + (long long)key * DH + lane + cc * 32] = gv[r][cc];
+      }
+  }
+}
+
+// ---------------------------------------------------------------- launchers
+template <int DH>
+cudaError_t launch_fwd(int bf, const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L,
+                       float scale, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((long long)BH * ((L + RT - 1) / RT));
+  cudaError_t e;
+  if (bf) {
+    static bool ready = false;
+    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
+    const size_t bytes = sizeof(bf16) * 2 * kt_rows * ldh<DH>();
+    if ((e = allow_smem(flash_fwd_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready)) != cudaSuccess)
+      return e;
+    flash_fwd_bf16_kernel<DH><<<blocks, 128, bytes, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, L, scale, kt_rows);
+  } else {
+    static bool ready = false;
+    if ((e = allow_smem(flash_fwd_f32_kernel<DH>, fwd_f32_smem<DH>(), ready)) != cudaSuccess) return e;
+    flash_fwd_f32_kernel<DH><<<blocks, 256, fwd_f32_smem<DH>(), st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), lse, L, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bwd(int bf, const void* q, const void* k, const void* v, const void* o, const float* lse,
+                       const void* dout, float* delta, void* dq, void* dk, void* dv, int BH, int L, float scale,
+                       cudaStream_t st) {
+  const long long rows = (long long)BH * L;
+  const unsigned blocks = (unsigned)((long long)BH * ((L + RT - 1) / RT));
+  const unsigned dblocks = (unsigned)((rows + 7) / 8);
+  cudaError_t e;
+  if (bf) {
+    static bool ready_q = false, ready_k = false;
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k), *vb = static_cast<const bf16*>(v);
+    const bf16* db = static_cast<const bf16*>(dout);
+    flash_delta_kernel<bf16><<<dblocks, 256, 0, st>>>(static_cast<const bf16*>(o), db, delta, rows, DH);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
+    if ((e = allow_smem(flash_bwd_dq_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready_q)) != cudaSuccess)
+      return e;
+    flash_bwd_dq_bf16_kernel<DH><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * ldh<DH>(), st>>>(
+        qb, kb, vb, lse, delta, db, static_cast<bf16*>(dq), L, scale, kt_rows);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dkdv_bf16_kernel<DH>, dkdv_bf16_smem<DH>(), ready_k)) != cudaSuccess) return e;
+    flash_bwd_dkdv_bf16_kernel<DH><<<blocks, 128, dkdv_bf16_smem<DH>(), st>>>(
+        qb, kb, vb, lse, delta, db, static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, scale);
+  } else {
+    static bool ready_q = false, ready_k = false;
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k);
+    const float *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    flash_delta_kernel<float><<<dblocks, 256, 0, st>>>(static_cast<const float*>(o), df, delta, rows, DH);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dq_f32_kernel<DH>, dq_f32_smem<DH>(), ready_q)) != cudaSuccess) return e;
+    flash_bwd_dq_f32_kernel<DH><<<blocks, 256, dq_f32_smem<DH>(), st>>>(qf, kf, vf, lse, delta, df,
+                                                                         static_cast<float*>(dq), L, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dkdv_f32_kernel<DH>, dkdv_f32_smem<DH>(), ready_k)) != cudaSuccess) return e;
+    flash_bwd_dkdv_f32_kernel<DH><<<blocks, 256, dkdv_f32_smem<DH>(), st>>>(
+        qf, kf, vf, lse, delta, df, static_cast<float*>(dk), static_cast<float*>(dv), L, scale);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// o [BH, L, dh] (bf16 when bf16 else fp32), lse [BH, L] fp32 = flash forward
+// of q, k, v [BH, L, dh] (same type); dh in {16, 32, 48, 64}.
+int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bf, int BH, int L, int dh,
+                  float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (dh) {
+    case 16: return (int)launch_fwd<16>(bf, q, k, v, o, l, BH, L, scale, st);
+    case 32: return (int)launch_fwd<32>(bf, q, k, v, o, l, BH, L, scale, st);
+    case 48: return (int)launch_fwd<48>(bf, q, k, v, o, l, BH, L, scale, st);
+    case 64: return (int)launch_fwd<64>(bf, q, k, v, o, l, BH, L, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dq, dk, dv [BH, L, dh] of the flash attention from q, k, v, o, do (all one
+// type) and lse [BH, L]; delta [BH, L] fp32 is scratch (rowsum(do * o)).
+int cse_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse, const void* dout,
+                  void* delta, void* dq, void* dk, void* dv, int bf, int BH, int L, int dh, float scale,
+                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+#define CSE_FLASH_BWD(DH) (int)launch_bwd<DH>(bf, q, k, v, o, l, dout, dl, dq, dk, dv, BH, L, scale, st)
+  switch (dh) {
+    case 16: return CSE_FLASH_BWD(16);
+    case 32: return CSE_FLASH_BWD(32);
+    case 48: return CSE_FLASH_BWD(48);
+    case 64: return CSE_FLASH_BWD(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CSE_FLASH_BWD
+}
+
+}  // extern "C"

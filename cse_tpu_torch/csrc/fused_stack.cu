@@ -454,11 +454,21 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
 // from the score fragments into the PV product as its A operand. For L > KT
 // both passes walk the key tiles, so p is rounded relative to the row's
 // global max.
+// The output is bf16, or fp32 (TO = float: the w8a8 stack, whose attention
+// output is quantized again from fp32).
 constexpr int ATT_WARPS = 4;
 constexpr int LDH = HD + 8;             // bf16 row stride of the K, V tiles: ldmatrix conflict-free
 
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename TO>
 __global__ void __launch_bounds__(ATT_WARPS * 32, 4)
-attention_bf16_kernel(const float* __restrict__ qkv, bf16* __restrict__ out, int L, int H,
+attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L, int H,
                       float scale, int kt_rows, float* __restrict__ stats) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
@@ -601,12 +611,8 @@ attention_bf16_kernel(const float* __restrict__ qkv, bf16* __restrict__ out, int
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = h * HD + j * 8 + (lane & 3) * 2;
-      if (ra < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + ((long long)g * L + ra) * D + d) =
-            __floats2bfloat162_rn(o[j][0] / za, o[j][1] / za);
-      if (rb < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + ((long long)g * L + rb) * D + d) =
-            __floats2bfloat162_rn(o[j][2] / zb, o[j][3] / zb);
+      if (ra < L) store_pair(out + ((long long)g * L + ra) * D + d, o[j][0] / za, o[j][1] / za);
+      if (rb < L) store_pair(out + ((long long)g * L + rb) * D + d, o[j][2] / zb, o[j][3] / zb);
     }
     if (stats && (lane & 3) == 0) {
       const long long MH = (long long)(gridDim.x / H) * L * H;
@@ -622,19 +628,27 @@ attention_bf16_kernel(const float* __restrict__ qkv, bf16* __restrict__ out, int
   }
 }
 
-cudaError_t launch_attention(int bf, const float* qkv, void* out, int G, int L, int H, float scale,
+// mode 0: fp32 operands and output; 1: bf16 operands and output; 2: bf16
+// operands, fp32 output
+cudaError_t launch_attention(int mode, const float* qkv, void* out, int G, int L, int H, float scale,
                              float* stats, cudaStream_t st) {
   static bool f32_ready = false;
   cudaError_t e;
-  if (bf) {
+  if (mode == 1 || mode == 2) {
     // K and V rows for min(L, KT) keys, rounded up to whole 16-key steps: <= 40 KB
     const int kt_rows = (min(L, KT) + 15) / 16 * 16;
     const size_t bytes = sizeof(bf16) * 2 * kt_rows * LDH;
-    attention_bf16_kernel<<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<bf16*>(out), L, H,
-                                                                scale, kt_rows, stats);
-  } else {
+    if (mode == 1)
+      attention_bf16_kernel<bf16><<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<bf16*>(out), L, H,
+                                                                        scale, kt_rows, stats);
+    else
+      attention_bf16_kernel<float><<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<float*>(out), L, H,
+                                                                         scale, kt_rows, stats);
+  } else if (mode == 0) {
     if ((e = allow_smem(attention_f32_kernel, ATT_F32_SMEM, f32_ready)) != cudaSuccess) return e;
     attention_f32_kernel<<<G * H, 256, ATT_F32_SMEM, st>>>(qkv, static_cast<float*>(out), L, H, scale, stats);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -694,14 +708,15 @@ int cse_linear(const void* a, const void* w, const void* bias, void* c, int bf16
   }
 }
 
-// out[G*L, H*hd] (bf16 when bf16 else fp32) = masked MHSA of qkv[G*L, 3*H*hd];
-// stats (null, or [2, G*L, H] fp32) receives each row's max and 1/z.
-int cse_attention(const void* qkv, void* out, int bf16_out, int G, int L, int H, int hd,
+// out[G*L, H*hd] = masked MHSA of qkv[G*L, 3*H*hd]; mode: see launch_attention
+// (0: fp32, 1: bf16, 2: bf16 operands with an fp32 out); stats (null, or
+// [2, G*L, H] fp32) receives each row's max and 1/z.
+int cse_attention(const void* qkv, void* out, int mode, int G, int L, int H, int hd,
                   float scale, void* stats, void* stream) {
   if (hd != HD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
-  return (int)launch_attention(bf16_out, q, out, G, L, H, scale, static_cast<float*>(stats), st);
+  return (int)launch_attention(mode, q, out, G, L, H, scale, static_cast<float*>(stats), st);
 }
 
 // Training's dX GEMM through the FFN's ReLU: out (a's dtype) =

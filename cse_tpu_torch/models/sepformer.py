@@ -1,10 +1,13 @@
 """Sepformer dual-path separator and its CSE variants, layer by layer.
 
-Port of ``cse_tpu/models/sepformer.py``. This module is the plain model: it
-computes every layer with ordinary PyTorch ops, in the reference's
-channels-last layout, and the serving path (:mod:`cse_tpu_torch.serving`,
-which runs the transformer stacks through the CUDA kernels) is held against
-it. One configurable model covers the variants:
+Port of ``cse_tpu/models/sepformer.py``. This module is the layer-by-layer
+model, in the reference's channels-last layout: ordinary PyTorch ops, except
+that ``use_flash_attention`` runs each attention through the flash kernels
+(:func:`cse_tpu_torch.ops.attention.flash_mhsa`) and ``remat`` recomputes
+layers or dual blocks in the backward. The serving path
+(:mod:`cse_tpu_torch.serving`, which runs the transformer stacks through the
+fused-stack kernels) is held against it. One configurable model covers the
+variants:
 
 * ``variant='base'``     — plain 2/3-source separation
 * ``variant='contsep'``  — separate all sources + selector head over the
@@ -26,14 +29,12 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from cse_tpu_torch.ops.attention import flash_mhsa
 from cse_tpu_torch.ops.segmentation import overlap_add, segment
 
-FLASH_NOT_PORTED = (
-    "use_flash_attention=True needs Pallas kernel #5 "
-    "(cse_tpu/ops/attention.py::_fwd_kernel), which is still to be ported "
-    "(ROADMAP.md, queue 2)"
-)
+REMAT_MODES = (False, None, True, "block", "layer", "nested")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +57,23 @@ class SepformerConfig:
     pe_max_len: int = 2500
     compute_dtype: torch.dtype = torch.float32
     use_flash_attention: bool = False
+    # softmax dtype of the non-flash attention: fp32 (default) or bf16
+    softmax_dtype: torch.dtype = torch.float32
+    # rematerialization: False/None, 'block' (each dual block; True too),
+    # 'layer' (each transformer layer) or 'nested' (both)
+    remat: bool | str | None = False
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got {self.remat!r}")
+
+    @property
+    def remat_layers(self) -> bool:
+        return self.remat in ("layer", "nested")
+
+    @property
+    def remat_blocks(self) -> bool:
+        return self.remat in (True, "block", "nested")
 
     @property
     def add_ctx(self) -> bool:
@@ -95,16 +113,25 @@ def dense(x: torch.Tensor, layer: nn.Linear, cd: torch.dtype) -> torch.Tensor:
     return y + layer.bias.to(cd) if layer.bias is not None else y
 
 
+def remat(module: nn.Module, on: bool, *args):
+    """``module(*args)``, rematerialised in the backward when ``on`` (as
+    ``nn.remat`` does): only the inputs are saved, and the forward runs again
+    when the gradient is taken. Values are unchanged."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Packed-QKV multi-head self-attention (``in_proj`` is q|k|v)."""
 
     def __init__(self, cfg: SepformerConfig):
         super().__init__()
-        if cfg.use_flash_attention:
-            raise NotImplementedError(FLASH_NOT_PORTED)
         D = cfg.d_model
         self.nhead = cfg.nhead
         self.cd = cfg.compute_dtype
+        self.use_flash = cfg.use_flash_attention
+        self.sd = cfg.softmax_dtype
         self.in_proj = nn.Linear(D, 3 * D)
         self.out_proj = nn.Linear(D, D)
 
@@ -114,10 +141,15 @@ class MultiHeadSelfAttention(nn.Module):
         hd = D // H
         qkv = dense(x, self.in_proj, self.cd)
         q, k, v = (t.reshape(B, L, H, hd).transpose(1, 2) for t in qkv.split(D, dim=-1))
-        # scores, scale and softmax in fp32 (the reference's softmax_dtype)
-        logits = (q @ k.transpose(-1, -2)).float() * (1.0 / math.sqrt(hd))
-        probs = torch.softmax(logits, dim=-1).to(self.cd)
-        out = (probs @ v).transpose(1, 2).reshape(B, L, D)
+        if self.use_flash:
+            out = flash_mhsa(q, k, v)
+        else:
+            # scores cast to the softmax dtype sd, scaled and normalised in sd
+            sd = self.sd
+            logits = (q @ k.transpose(-1, -2)).to(sd) * torch.tensor(1.0 / math.sqrt(hd), dtype=sd)
+            probs = torch.softmax(logits, dim=-1).to(self.cd)
+            out = probs @ v
+        out = out.transpose(1, 2).reshape(B, L, D)
         return dense(out, self.out_proj, self.cd)
 
 
@@ -146,6 +178,7 @@ class TransformerStack(nn.Module):
     def __init__(self, cfg: SepformerConfig):
         super().__init__()
         self.pe_max_len = cfg.pe_max_len
+        self.remat = cfg.remat_layers
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(cfg) for _ in range(cfg.num_tf_layers)
         )
@@ -154,7 +187,7 @@ class TransformerStack(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = add_pe(x, self.pe_max_len)
         for layer in self.layers:
-            x = layer(x)
+            x = remat(layer, self.remat, x)
         return self.norm(x.float())
 
 
@@ -248,7 +281,7 @@ class DualPathModel(nn.Module):
         x, gap = segment(x, cfg.chunk_size)  # [B, S, K, D]
         pred_head = None
         for blk in self.dual_mdl:
-            x, pred_head = blk(x, ctx)
+            x, pred_head = remat(blk, cfg.remat_blocks, x, ctx)
         return mask_head(self, x, gap, B, L), pred_head
 
 

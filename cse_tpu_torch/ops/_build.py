@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_stack.cu", "fused_train.cu")
+SOURCES = ("fused_stack.cu", "fused_train.cu", "attention.cu", "fused_stack_w8a8.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
@@ -40,6 +40,12 @@ SIGNATURES = {
     "cse_weight_grad": (P, P, P, P, I, LL, I, I, I, I, P),
     "cse_layer_norm_bwd": (P, P, P, P, P, P, P, P, I, I, LL, I, F, I, P),
     "cse_attention_bwd": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
+    # attention.cu
+    "cse_flash_fwd": (P, P, P, P, P, I, I, I, I, F, P),
+    "cse_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
+    # fused_stack_w8a8.cu
+    "cse_quantize_rows": (P, P, P, LL, I, P),
+    "cse_linear_w8a8": (P, P, P, P, P, P, I, LL, I, I, P),
 }
 
 

@@ -7,6 +7,9 @@ in VMEM; on Hopper the same arithmetic runs as three CUDA kernels
 two-pass attention), 57 launches per stack call at 8 layers, with the fp32
 residual stream kept in device memory between them. The training path
 (:mod:`cse_tpu_torch.ops.fused_train`) runs its forward on the same kernels.
+With ``quant="w8a8"`` the stack runs ``_stack_kernel_w8a8`` instead
+(:mod:`cse_tpu_torch.ops.fused_stack_w8a8`: int8 projections, this module's
+LayerNorm and attention kernels with fp32 outputs).
 
 Each kernel has a wrapper here (:func:`layer_norm`, :func:`linear`,
 :func:`attention`) and a plain PyTorch version beside it (``*_plain``). A
@@ -34,25 +37,47 @@ import torch.nn.functional as F
 
 from cse_tpu_torch.ops import _build
 
-W8A8_NOT_PORTED = (
-    "quant='w8a8' needs Pallas kernel #2 "
-    "(cse_tpu/ops/fused_stack.py::_stack_kernel_w8a8), which is still to be "
-    "ported (ROADMAP.md, queue 2)"
-)
+QUANT_MODES = (None, "w8a8")
 LN_EPS = 1e-6
 EPILOGUES = {"bias": 0, "relu": 1, "residual": 2}
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def stack_weights(stack, compute_dtype: torch.dtype) -> dict[str, torch.Tensor]:
+def check_quant_mode(quant):
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r} (None or 'w8a8')")
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-12) / 127 as a true fp32 division on every device: on
+    CUDA, PyTorch divides by a Python scalar as a multiply by its reciprocal,
+    which rounds differently in some ulps, so the divisor is a tensor."""
+    amax = amax.clamp_min(1e-12)
+    return amax / torch.full_like(amax, 127.0)
+
+
+def quantize_stacked(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a stacked fp32 ``[n, din, dout]``
+    weight (``_quantize_stacked``, :159): scale = max(max |w| over din,
+    1e-12) / 127, payload = round-half-even(w / scale). Returns (int8
+    ``[n, din, dout]``, fp32 scale ``[n, 1, dout]``)."""
+    wf = w.float()
+    s = int8_scale(wf.abs().amax(dim=1, keepdim=True))
+    return torch.round(wf / s).to(torch.int8), s
+
+
+def stack_weights(stack, compute_dtype: torch.dtype, quant: str | None = None) -> dict[str, torch.Tensor]:
     """Stack a :class:`cse_tpu_torch.models.sepformer.TransformerStack`'s
     per-layer parameters for :func:`fused_stack_apply`.
 
     Projection weights become ``[n_layers, din, dout]`` in cd (the GEMM's B
-    operand, row-major). Biases and LN scales/offsets are rounded to cd like
-    the TPU kernel's inputs and then held in fp32, the type the kernels add
-    them in.
+    operand, row-major); with ``quant="w8a8"`` int8 payloads of the fp32
+    weights (never a cd-rounded copy) with their fp32 ``[n_layers, 1, dout]``
+    scales under ``*_s`` (:func:`quantize_stacked`). Biases and LN
+    scales/offsets are rounded to cd like the TPU kernel's inputs and then
+    held in fp32, the type the kernels add them in.
     """
+    check_quant_mode(quant)
     cd = compute_dtype
     layers = list(stack.layers)
 
@@ -61,6 +86,12 @@ def stack_weights(stack, compute_dtype: torch.dtype) -> dict[str, torch.Tensor]:
         t = t.transpose(1, 2).to(cd) if mat else t.to(cd).float()
         return t.contiguous()
 
+    mats = {}
+    if quant == "w8a8":
+        for name, get in (("qkv", lambda l: l.self_att.in_proj.weight), ("out", lambda l: l.self_att.out_proj.weight),
+                          ("f1", lambda l: l.ffn_1.weight), ("f2", lambda l: l.ffn_2.weight)):
+            q, sc = quantize_stacked(torch.stack([get(lyr).detach() for lyr in layers]).transpose(1, 2))
+            mats[f"{name}_w"], mats[f"{name}_s"] = q.contiguous(), sc.contiguous()
     return {
         "qkv_w": stk(lambda l: l.self_att.in_proj.weight, True),
         "qkv_b": stk(lambda l: l.self_att.in_proj.bias),
@@ -76,6 +107,7 @@ def stack_weights(stack, compute_dtype: torch.dtype) -> dict[str, torch.Tensor]:
         "f2_b": stk(lambda l: l.ffn_2.bias),
         "fn_s": stack.norm.weight.detach().to(cd).float().contiguous(),
         "fn_b": stack.norm.bias.detach().to(cd).float().contiguous(),
+        **mats,
     }
 
 
@@ -108,21 +140,22 @@ def linear_plain(a, w, bias, epilogue, residual=None):
     raise ValueError(f"unknown epilogue {epilogue!r}")
 
 
-def attention_plain(qkv, seq_len, nhead, out_dtype, stats=None):
+def attention_plain(qkv, seq_len, nhead, out_dtype, stats=None, operand_dtype=None):
     """Masked MHSA of the TPU kernel: qkv ``[G*L, 3D]`` fp32 -> ``[G*L, D]``.
 
-    q*scale, k, v rounded to out_dtype (cd); scores, max, exp and the sum in
-    fp32; cd(p) @ cd(v) in fp32, divided by z after PV. Sequences are
-    processed in groups so the fp32 score tensor stays near 1 GB. ``stats``
-    (``[2, G*L, H]``), when given, receives each row's max and 1/z.
+    q*scale, k, v rounded to cd (``operand_dtype``, by default out_dtype);
+    scores, max, exp and the sum in fp32; cd(p) @ cd(v) in fp32, divided by
+    z after PV, written in out_dtype. Sequences are processed in groups so
+    the fp32 score tensor stays near 1 GB. ``stats`` (``[2, G*L, H]``), when
+    given, receives each row's max and 1/z.
     """
     M, D3 = qkv.shape
     D, L, H = D3 // 3, seq_len, nhead
     G, hd = M // L, D // H
-    cd = out_dtype
+    cd = operand_dtype or out_dtype
     scale = 1.0 / math.sqrt(hd)
     heads = qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4)  # [3, G, H, L, hd]
-    out = torch.empty(G, L, H, hd, dtype=cd, device=qkv.device)
+    out = torch.empty(G, L, H, hd, dtype=out_dtype, device=qkv.device)
     step = max(1, (1 << 28) // (H * L * L))
     for g0 in range(0, G, step):
         q, k, v = heads[:, g0 : g0 + step]
@@ -131,7 +164,7 @@ def attention_plain(qkv, seq_len, nhead, out_dtype, stats=None):
         p = torch.exp(s - m)
         z = p.sum(dim=-1, keepdim=True)
         o = (wide(p.to(cd)) @ wide(v.to(cd))) / z
-        out[g0 : g0 + step] = o.transpose(1, 2).to(cd)
+        out[g0 : g0 + step] = o.transpose(1, 2).to(out_dtype)
         if stats is not None:  # [n, H, L, 1] -> rows (g, l) x heads
             rows = slice(g0 * L, (g0 + q.shape[0]) * L)
             stats[0, rows] = m[..., 0].transpose(1, 2).reshape(-1, H)
@@ -225,13 +258,19 @@ def linear(a, w, bias, epilogue, residual=None):
     return out
 
 
-def attention(qkv, seq_len, nhead, out_dtype, stats=None):
+ATT_MODES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+             (torch.bfloat16, torch.float32): 2}  # (operands, output) -> cse_attention mode
+
+
+def attention(qkv, seq_len, nhead, out_dtype, stats=None, operand_dtype=None):
     """Masked MHSA over sequences of ``seq_len``; kernel (c) on CUDA.
-    ``stats``: see :func:`attention_plain`."""
+    ``stats``, ``operand_dtype``: see :func:`attention_plain`."""
     if not _route(qkv, stats):
-        return attention_plain(qkv, seq_len, nhead, out_dtype, stats)
-    if out_dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"attention kernel writes fp32 or bf16, not {out_dtype}")
+        return attention_plain(qkv, seq_len, nhead, out_dtype, stats, operand_dtype)
+    mode = ATT_MODES.get((operand_dtype or out_dtype, out_dtype))
+    if mode is None:
+        raise TypeError(f"attention kernel takes fp32 or bf16 operands and writes fp32 or their type, "
+                        f"not {operand_dtype} -> {out_dtype}")
     _check(qkv, "qkv", torch.float32, 2)
     M, D3 = qkv.shape
     D = D3 // 3
@@ -248,8 +287,7 @@ def attention(qkv, seq_len, nhead, out_dtype, stats=None):
             raise ValueError(f"stats is {tuple(stats.shape)}, want {(2, M, nhead)}")
     out = torch.empty(M, D, dtype=out_dtype, device=qkv.device)
     err = _build.library().cse_attention(
-        qkv.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        M // seq_len, seq_len, nhead, hd, 1.0 / math.sqrt(hd),
+        qkv.data_ptr(), out.data_ptr(), mode, M // seq_len, seq_len, nhead, hd, 1.0 / math.sqrt(hd),
         None if stats is None else stats.data_ptr(), _stream())
     _check_launch("attention", err)
     attention.launches += 1
@@ -271,9 +309,13 @@ def launch_counts() -> dict[str, int]:
 reset_launches()
 
 
-def launches_per_stack(n_layers: int) -> dict[str, int]:
+def launches_per_stack(n_layers: int, quant: str | None = None) -> dict[str, int]:
     """Launches one stack call makes: per layer 2 LN + 4 GEMM + 1 attention,
-    plus the final LN."""
+    plus the final LN; with ``quant="w8a8"`` the 4 GEMMs are int8 GEMMs
+    (:mod:`cse_tpu_torch.ops.fused_stack_w8a8`), each after a row quantizer."""
+    if quant == "w8a8":
+        return {"layer_norm": 2 * n_layers + 1, "attention": n_layers,
+                "quantize_rows": 4 * n_layers, "linear_w8a8": 4 * n_layers}
     return {"layer_norm": 2 * n_layers + 1, "linear": 4 * n_layers, "attention": n_layers}
 
 
@@ -304,14 +346,28 @@ def _run_stack(x, w, nhead, cd, ln, lin, attn):
     return ln(r, w["fn_s"], w["fn_b"], out_dtype).reshape(G, L, D)
 
 
-def fused_stack_reference(x, w, nhead: int, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of the whole ``_stack_kernel`` on any device.
+def fused_stack_reference(x, w, nhead: int, compute_dtype: torch.dtype, quant: str | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the whole ``_stack_kernel`` (or, with
+    ``quant="w8a8"``, ``_stack_kernel_w8a8``) on any device.
 
     x: [G, L, D] (PE already added); w: :func:`stack_weights`. Every matmul
     operand is rounded to cd and multiplied in fp32 (set
     ``torch.backends.cuda.matmul.allow_tf32 = False`` on the card).
     """
+    _check_quant(w, compute_dtype, quant)
+    if quant == "w8a8":
+        from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+        return w8.run_stack(x, w, nhead, compute_dtype, w8.PLAIN_OPS)
     return _run_stack(x, w, nhead, compute_dtype, layer_norm_plain, linear_plain, attention_plain)
+
+
+def _check_quant(w, compute_dtype, quant):
+    check_quant_mode(quant)
+    want = torch.int8 if quant == "w8a8" else compute_dtype
+    if w["qkv_w"].dtype != want:
+        raise TypeError(f"stacked weights are {w['qkv_w'].dtype}, want {want} for compute_dtype "
+                        f"{compute_dtype}, quant {quant!r}")
 
 
 def fused_stack_apply(
@@ -324,14 +380,16 @@ def fused_stack_apply(
     """Run a TransformerStack forward (no PE; final LN included).
 
     x: [G, L, D] sequences (all L positions real); w: :func:`stack_weights`
-    for ``compute_dtype``. CUDA tensors go through the kernels (57 launches
-    at 8 layers), CPU tensors through :func:`fused_stack_reference`. Returns
-    [G, L, D] in x's dtype.
+    for ``compute_dtype`` and ``quant``. CUDA tensors go through the kernels
+    (:func:`launches_per_stack`: 57 launches at 8 layers, 89 with
+    ``quant="w8a8"``), CPU tensors through :func:`fused_stack_reference`.
+    Returns [G, L, D] in x's dtype.
     """
-    if quant is not None:
-        raise NotImplementedError(W8A8_NOT_PORTED)
-    if w["qkv_w"].dtype != compute_dtype:
-        raise TypeError(f"stacked weights are {w['qkv_w'].dtype}, compute_dtype is {compute_dtype}")
     if not _route(x, w["qkv_w"]):
-        return fused_stack_reference(x, w, nhead, compute_dtype)
+        return fused_stack_reference(x, w, nhead, compute_dtype, quant)
+    _check_quant(w, compute_dtype, quant)
+    if quant == "w8a8":
+        from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+        return w8.run_stack(x, w, nhead, compute_dtype, w8.KERNEL_OPS)
     return _run_stack(x, w, nhead, compute_dtype, layer_norm, linear, attention)

@@ -1,0 +1,168 @@
+"""w8a8 inference forward of a TransformerStack through hand-written kernels.
+
+Port of ``cse_tpu/ops/fused_stack.py::_stack_kernel_w8a8`` (:130, with
+``_qdot`` :115). The four projections of each layer run int8 x int8 -> int32
+with per-output-channel weight scales (:func:`fused_stack.quantize_stacked`)
+and a dynamic scale per activation row; LayerNorm, softmax and the residual
+stay fp32, and the attention's score and PV products stay in the compute
+dtype (cd) with an fp32 output. On Hopper (``csrc/fused_stack_w8a8.cu``):
+
+* :func:`quantize_rows`: fp32 ``[M, K]`` -> int8 ``[M, K]`` and fp32 ``sa[M]``,
+  sa = max(max |h|, 1e-12) / 127, q = round-half-even(h / sa) with a true
+  division: bit-exact against :func:`quantize_rows_plain`;
+* :func:`linear_w8a8`: ``mma.sync`` s8 x s8 -> s32 and the epilogue
+  y = acc * sa[row] * s[col] in fp32, then ``y + b`` (QKV), ``relu(y + b)``
+  (FFN1) or ``(r + y) + b`` into the fp32 residual (out-proj, FFN2), the
+  association JAX writes (``x = x + _qdot(...) + b``);
+* the serving stack's LayerNorm (fp32 out) and attention (bf16 operands,
+  fp32 out) kernels of :mod:`cse_tpu_torch.ops.fused_stack`.
+
+Per layer: LN, quantize, QKV, attention, quantize, out-proj, LN, quantize,
+FFN1, quantize, FFN2; then the final LN: 89 launches at 8 layers. Each
+wrapper counts its launches in ``launches``; a CPU tensor takes the plain
+version, anything else raises.
+"""
+
+from __future__ import annotations
+
+import types
+
+import torch
+
+from cse_tpu_torch.ops import _build
+from cse_tpu_torch.ops import fused_stack as fs
+
+MAX_K = 1024  # |acc| <= 127^2 * K < 2^24: integer sums are exact in fp32
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def quantize_rows_plain(h):
+    """fp32 ``h [M, K]`` -> (int8 ``[M, K]``, fp32 row scales ``sa [M]``)."""
+    sa = fs.int8_scale(h.abs().amax(dim=-1, keepdim=True))
+    return torch.round(h / sa).to(torch.int8), sa[:, 0]
+
+
+def qdot_plain(hq, sa, w8, s):
+    """``_qdot``'s contraction and scaling: acc = hq . w8 (exact: every
+    partial sum is an integer below 2^24, so fp32 holds it in any order),
+    y = acc * sa * s in fp32, in that order."""
+    acc = hq.float() @ w8.float()
+    return acc * sa[:, None] * s.reshape(1, -1)
+
+
+def linear_w8a8_plain(hq, sa, w8, s, bias, epilogue, residual=None):
+    """'bias' -> y + b; 'relu' -> relu(y + b); 'residual' -> (r + y) + b,
+    in place into the fp32 ``residual`` (returned). y: :func:`qdot_plain`."""
+    y = qdot_plain(hq, sa, w8, s)
+    if epilogue == "bias":
+        return y + bias
+    if epilogue == "relu":
+        return torch.relu(y + bias)
+    if epilogue == "residual":
+        return residual.add_(y).add_(bias)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+# ---------------------------------------------------------------- kernel wrappers
+
+
+def quantize_rows(h):
+    """See :func:`quantize_rows_plain`; kernel (a) on CUDA."""
+    if not fs._route(h):
+        return quantize_rows_plain(h)
+    fs._check(h, "h", torch.float32, 2)
+    M, K = h.shape
+    hq = torch.empty(M, K, dtype=torch.int8, device=h.device)
+    sa = torch.empty(M, dtype=torch.float32, device=h.device)
+    err = _build.library().cse_quantize_rows(h.data_ptr(), hq.data_ptr(), sa.data_ptr(), M, K, fs._stream())
+    fs._check_launch("quantize_rows", err)
+    quantize_rows.launches += 1
+    return hq, sa
+
+
+def linear_w8a8(hq, sa, w8, s, bias, epilogue, residual=None):
+    """See :func:`linear_w8a8_plain`; kernel (b) on CUDA. ``w8`` is
+    ``[K, N]`` int8; the kernel reads it transposed (``[N, K]``, each output
+    channel's K bytes contiguous), which this wrapper makes."""
+    if not fs._route(hq, sa, w8, s, bias, residual):
+        return linear_w8a8_plain(hq, sa, w8, s, bias, epilogue, residual)
+    fs._check(hq, "hq", torch.int8, 2)
+    fs._check(sa, "sa", torch.float32, 1)
+    fs._check(w8, "w8", torch.int8, 2)
+    fs._check(s, "s", torch.float32)
+    fs._check(bias, "bias", torch.float32, 1)
+    (M, K), (K2, N) = hq.shape, w8.shape
+    if K2 != K or sa.numel() != M or s.numel() != N or bias.numel() != N:
+        raise ValueError(f"shapes hq {tuple(hq.shape)}, sa {tuple(sa.shape)}, w8 {tuple(w8.shape)}, "
+                         f"s {tuple(s.shape)}, bias {tuple(bias.shape)}")
+    if K % 16 or N % 8 or K > MAX_K or hq.data_ptr() % 16:
+        raise ValueError(f"int8 GEMM kernel needs K % 16 == 0, K <= {MAX_K}, N % 8 == 0 and a 16-byte "
+                         f"aligned hq; got K={K}, N={N}")
+    if epilogue in ("bias", "relu"):
+        out = torch.empty(M, N, dtype=torch.float32, device=hq.device)
+    elif epilogue == "residual":
+        fs._check(residual, "residual", torch.float32, 2)
+        if tuple(residual.shape) != (M, N):
+            raise ValueError(f"residual is {tuple(residual.shape)}, want {(M, N)}")
+        out = residual
+    else:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    wt = w8.t().contiguous()
+    err = _build.library().cse_linear_w8a8(
+        hq.data_ptr(), sa.data_ptr(), wt.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        fs.EPILOGUES[epilogue], M, N, K, fs._stream())
+    fs._check_launch("linear_w8a8", err)
+    linear_w8a8.launches += 1
+    return out
+
+
+KERNELS = {"quantize_rows": quantize_rows, "linear_w8a8": linear_w8a8}
+
+
+def reset_launches():
+    """Zero these wrappers' counts and :mod:`fused_stack`'s."""
+    fs.reset_launches()
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Calls of the w8a8 stack's kernel wrappers (LN and attention are
+    :mod:`fused_stack`'s) since the reset; zero counts left out."""
+    counts = {**fs.launch_counts(), **{name: fn.launches for name, fn in KERNELS.items()}}
+    return {k: v for k, v in counts.items() if v}
+
+
+reset_launches()
+
+KERNEL_OPS = types.SimpleNamespace(ln=fs.layer_norm, quant=quantize_rows, lin=linear_w8a8, attn=fs.attention)
+PLAIN_OPS = types.SimpleNamespace(ln=fs.layer_norm_plain, quant=quantize_rows_plain, lin=linear_w8a8_plain,
+                                  attn=fs.attention_plain)
+
+
+# ---------------------------------------------------------------- the stack
+
+
+def run_stack(x, w, nhead, cd, ops):
+    """``_stack_kernel_w8a8`` on x ``[G, L, D]`` (PE added) with
+    :func:`fused_stack.stack_weights` ``(..., quant="w8a8")``; the result in
+    x's dtype."""
+    G, L, D = x.shape
+    f32 = torch.float32
+    r = x.to(cd).to(f32, copy=True).reshape(G * L, D).contiguous()  # updated in place
+
+    def qlin(h, name, li, epilogue, residual=None):
+        hq, sa = ops.quant(h)
+        return ops.lin(hq, sa, w[f"{name}_w"][li], w[f"{name}_s"][li], w[f"{name}_b"][li], epilogue, residual)
+
+    for li in range(w["qkv_w"].shape[0]):
+        h = ops.ln(r, w["ln1_s"][li], w["ln1_b"][li], f32)
+        qkv = qlin(h, "qkv", li, "bias")
+        a = ops.attn(qkv, L, nhead, f32, operand_dtype=cd)
+        qlin(a, "out", li, "residual", r)
+        h = ops.ln(r, w["ln2_s"][li], w["ln2_b"][li], f32)
+        f = qlin(h, "f1", li, "relu")
+        qlin(f, "f2", li, "residual", r)
+    return ops.ln(r, w["fn_s"], w["fn_b"], x.dtype).reshape(G, L, D)

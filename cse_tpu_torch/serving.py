@@ -8,10 +8,12 @@ projections (1x1 convs, context mappers, mask heads, encoder and decoder)
 stay ordinary PyTorch ops. With ``train=True`` the same forward is
 differentiable: each stack runs through
 :func:`cse_tpu_torch.ops.fused_train.fused_stack_train` (the training
-kernels) and gradients reach the model's parameters.
+kernels) and gradients reach the model's parameters. With ``quant="w8a8"``
+(inference only) the stacks' projections run int8 (``_stack_kernel_w8a8``).
 
 Usage:
     engine = ServingEngine(cfg, params_or_model)   # device defaults to cuda
+    engine = ServingEngine(cfg, params_or_model, quant="w8a8")
     est = engine(mix, ctx)                          # same outputs as Sepformer
     est = sepformer_fused_forward(model, mix, ctx, train=True)  # a graph
 """
@@ -25,31 +27,37 @@ import torch
 
 from cse_tpu_torch.core.device import resolve_device
 from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig, add_pe, dense, mask_head
-from cse_tpu_torch.ops.fused_stack import fused_stack_apply, stack_weights
+from cse_tpu_torch.ops.fused_stack import check_quant_mode, fused_stack_apply, stack_weights
 from cse_tpu_torch.ops.fused_train import fused_stack_train
 from cse_tpu_torch.ops.segmentation import segment
 
 
-def stacked_weights(model: Sepformer) -> dict[str, dict[str, torch.Tensor]]:
+def stacked_weights(model: Sepformer, quant: str | None = None) -> dict[str, dict[str, torch.Tensor]]:
     """Every stack's :func:`stack_weights`, keyed ``"{block}.intra"`` /
     ``"{block}.inter"``."""
     cd = model.cfg.compute_dtype
     out = {}
     for i, blk in enumerate(model.masknet.dual_mdl):
-        out[f"{i}.intra"] = stack_weights(blk.intra_mdl, cd)
-        out[f"{i}.inter"] = stack_weights(blk.inter_mdl, cd)
+        out[f"{i}.intra"] = stack_weights(blk.intra_mdl, cd, quant)
+        out[f"{i}.inter"] = stack_weights(blk.inter_mdl, cd, quant)
     return out
 
 
-def _stack(x, cfg: SepformerConfig, stacks, key: str, module):
+def _check_quant(quant, train=False):
+    check_quant_mode(quant)
+    if train and quant is not None:
+        raise ValueError("w8a8 stacks are inference-only: train=True takes quant=None")
+
+
+def _stack(x, cfg: SepformerConfig, stacks, key: str, module, quant=None):
     """PE + fused transformer stack. x: [G, L, D]. ``stacks`` None runs the
     differentiable training stack on ``module`` (the TransformerStack), else
-    the inference stack on ``stacks[key]``."""
+    the inference stack on ``stacks[key]`` (made for ``quant``)."""
     x = add_pe(x, cfg.pe_max_len)
     cd = cfg.compute_dtype
     if stacks is None:
         return fused_stack_train(x, module, nhead=cfg.nhead, compute_dtype=cd).to(cd)
-    return fused_stack_apply(x, stacks[key], nhead=cfg.nhead, compute_dtype=cd)
+    return fused_stack_apply(x, stacks[key], nhead=cfg.nhead, compute_dtype=cd, quant=quant)
 
 
 def sepformer_fused_forward(
@@ -60,21 +68,24 @@ def sepformer_fused_forward(
     cue_index=None,
     stacks: dict | None = None,
     train: bool = False,
+    quant: str | None = None,
 ):
     """Mirror of ``Sepformer.forward`` with fused stacks; same returns.
 
     ``train=False`` (serving) runs without autograd on the model's
-    :func:`stacked_weights` (``stacks``, made here when not given);
-    ``train=True`` returns a graph through the training stacks.
+    :func:`stacked_weights` for ``quant`` (``stacks``, made here when not
+    given); ``train=True`` returns a graph through the training stacks and
+    refuses ``quant="w8a8"``.
     """
+    _check_quant(quant, train)
     if train:
         return _fused_forward(model, mix, ctx, se, cue_index, None)
     with torch.no_grad():
         return _fused_forward(model, mix, ctx, se, cue_index,
-                              stacked_weights(model) if stacks is None else stacks)
+                              stacked_weights(model, quant) if stacks is None else stacks, quant)
 
 
-def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks):
+def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks, quant=None):
     """The forward's body; ``stacks`` None selects the training stacks."""
     cfg, cd = model.cfg, model.cfg.compute_dtype
     B, T = mix.shape
@@ -96,7 +107,7 @@ def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks):
             c = dense(ctx, blk.intra_context_mapper, cd)
             c = c[:, None].expand(B, S, Tc, N).reshape(B * S, Tc, N)
             intra = torch.cat([c, intra.to(c.dtype)], dim=1)
-        intra = _stack(intra, cfg, stacks, f"{i}.intra", blk.intra_mdl)
+        intra = _stack(intra, cfg, stacks, f"{i}.intra", blk.intra_mdl, quant)
         intra = intra[:, Tc:].reshape(B, S, K, N)
         intra = blk.intra_norm(intra) + x
 
@@ -105,7 +116,7 @@ def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks):
             c = dense(ctx, blk.inter_context_mapper, cd)
             c = c[:, None].expand(B, K, Tc, N).reshape(B * K, Tc, N)
             inter = torch.cat([c, inter.to(c.dtype)], dim=1)
-        inter = _stack(inter, cfg, stacks, f"{i}.inter", blk.inter_mdl)
+        inter = _stack(inter, cfg, stacks, f"{i}.inter", blk.inter_mdl, quant)
         pred_head = inter[:, 0].reshape(B, K, N).mean(dim=1)
         inter = inter[:, Tc:].reshape(B, K, S, N).transpose(1, 2)
         x = blk.inter_norm(inter) + intra
@@ -124,12 +135,15 @@ class ServingEngine:
     param tree (nested mappings of arrays), which is loaded strictly through
     :func:`cse_tpu_torch.compat.jax_params.load_jax_params`. ``device``
     defaults to ``cuda`` and raises when CUDA is absent; the stacked kernel
-    weights are made once here.
+    weights are made once here. ``quant="w8a8"`` quantizes the stacks'
+    projections to int8 (``_stack_kernel_w8a8``).
     """
 
-    def __init__(self, cfg: SepformerConfig, params_or_model, device=None):
+    def __init__(self, cfg: SepformerConfig, params_or_model, device=None, quant: str | None = None):
+        _check_quant(quant)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.quant = quant
         if isinstance(params_or_model, Sepformer):
             if params_or_model.cfg != cfg:
                 raise ValueError("model.cfg differs from cfg")
@@ -142,7 +156,7 @@ class ServingEngine:
         else:
             raise TypeError(f"expected a Sepformer or a param mapping, got {type(params_or_model)}")
         self.model = model.to(self.device).eval()
-        self.stacks = stacked_weights(self.model)
+        self.stacks = stacked_weights(self.model, quant)
 
     def _in(self, a):
         if a is None:
@@ -156,5 +170,5 @@ class ServingEngine:
         with torch.inference_mode():
             return sepformer_fused_forward(
                 self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
-                cue_index=cue, stacks=self.stacks,
+                cue_index=cue, stacks=self.stacks, quant=self.quant,
             )

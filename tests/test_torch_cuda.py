@@ -254,3 +254,116 @@ def test_optimizer_skips_non_finite_on_the_card(gen):
     assert (state.count, state.total_notfinite) == (0, 2)
     assert opt.step(params, [torch.randn_like(p) for p in params], state) is True
     assert state.count == 1 and not torch.equal(params[0], start[0])
+
+
+# ---------------------------------------------------------------- flash attention
+
+
+def _flash_inputs(gen, cd, bh, seq_len, dh):
+    return [torch.randn(1, bh, seq_len, dh, device="cuda", generator=gen).to(cd) for _ in range(4)]
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
+def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
+    """Any length: one key tile or several (300, 600); head widths 16-64."""
+    from cse_tpu_torch.ops import attention as at
+
+    q, k, v, _ = _flash_inputs(gen, cd, 12, seq_len, dh)
+    (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
+    assert o.dtype == cd and lse.dtype == torch.float32
+    _close(o, po, cd)
+    _close(lse, plse, torch.float32)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
+def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
+    from cse_tpu_torch.ops import attention as at
+
+    q, k, v, do = _flash_inputs(gen, cd, 12, seq_len, dh)
+    o, lse = at.flash_fwd_plain(q, k, v)
+    for got, want in zip(at.flash_bwd(q, k, v, o, lse, do), at.flash_bwd_plain(q, k, v, o, lse, do)):
+        assert got.dtype == cd
+        _close(got, want, cd)
+
+
+def test_flash_refuses_head_widths_it_does_not_take(gen):
+    from cse_tpu_torch.ops import attention as at
+
+    q = torch.randn(1, 2, 9, 40, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head widths"):
+        at.flash_fwd(q, q, q)
+
+
+def test_flash_model_step_counts(gen):
+    """A flash + remat='layer' Sepformer forward and backward on the card
+    launches each flash kernel as launches_per_step says."""
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import attention as at
+
+    cfg = SepformerConfig(variant="context", num_tf_layers=2, num_dp_layers=1, use_flash_attention=True,
+                          remat="layer", compute_dtype=torch.bfloat16)
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(0)).cuda()
+    mix = torch.randn(2, 8000, device="cuda", generator=gen)
+    ctx = torch.randn(2, 1, 4096, device="cuda", generator=gen)
+    at.reset_launches()
+    model(mix, ctx).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert at.launch_counts() == at.launches_per_step(2 * cfg.num_tf_layers, True)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
+# ---------------------------------------------------------------- w8a8 serving
+
+
+@pytest.mark.parametrize("mk", [(1, 256), (999, 256), (3001, 1024), (17, 48)])
+def test_quantize_rows_is_bit_exact(gen, mk):
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    h = 3 * torch.randn(*mk, device="cuda", generator=gen)
+    h[0] = 0  # a zero row takes the 1e-12 floor
+    (q, sa), (pq, psa) = w8.quantize_rows(h), w8.quantize_rows_plain(h)
+    assert q.dtype == torch.int8 and torch.equal(q, pq) and torch.equal(sa, psa)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "relu", "residual"])
+@pytest.mark.parametrize("mkn", [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 48, 24)])
+def test_linear_w8a8_matches_plain(gen, epilogue, mkn):
+    """Integer sums are exact and the epilogue rounds each step as the plain
+    version does: max_rel <= 1e-6."""
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    m, k, n = mkn
+    hq, sa = w8.quantize_rows(torch.randn(m, k, device="cuda", generator=gen))
+    wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+    s = (torch.rand(1, n, device="cuda", generator=gen) + 0.1) / 100
+    b = torch.randn(n, device="cuda", generator=gen)
+    res = torch.randn(m, n, device="cuda", generator=gen) if epilogue == "residual" else None
+    got = w8.linear_w8a8(hq, sa, wq, s, b, epilogue, None if res is None else res.clone())
+    want = w8.linear_w8a8_plain(hq, sa, wq, s, b, epilogue, res)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("seq_len", [7, 251, 300])
+def test_attention_fp32_output_matches_plain(gen, seq_len):
+    qkv = 2 * torch.randn(5 * seq_len, 768, device="cuda", generator=gen)
+    got = fs.attention(qkv, seq_len, 8, torch.float32, operand_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    _close(got, fs.attention_plain(qkv, seq_len, 8, torch.float32, operand_dtype=torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+def test_w8a8_stack_matches_reference_and_counts(gen, cd):
+    from cse_tpu_torch.models.sepformer import SepformerConfig, TransformerStack
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    stack = TransformerStack(SepformerConfig(num_tf_layers=2))
+    w = {k: v.cuda() for k, v in fs.stack_weights(stack, cd, quant="w8a8").items()}
+    x = torch.randn(9, 300, 256, device="cuda", generator=gen).to(cd)
+    w8.reset_launches()
+    got = fs.fused_stack_apply(x, w, 8, cd, quant="w8a8")
+    torch.cuda.synchronize()
+    assert w8.launch_counts() == fs.launches_per_stack(2, "w8a8")
+    assert got.dtype == cd and got.shape == x.shape
+    _close(got, fs.fused_stack_reference(x, w, 8, cd, quant="w8a8"), torch.bfloat16)

@@ -134,9 +134,3 @@ def test_wrappers_refuse_other_devices():
         fs.attention(torch.empty(4, 48, device="meta"), 4, 2, torch.float32)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         fs.linear(x, torch.empty(16, 8), torch.empty(8), "bias")
-
-
-def test_w8a8_not_ported(rng):
-    w = fs.stack_weights(_port_stack(_stack_params(rng)), torch.float32)
-    with pytest.raises(NotImplementedError, match="kernel #2"):
-        fs.fused_stack_apply(torch.zeros(1, 3, D), w, H, torch.float32, quant="w8a8")

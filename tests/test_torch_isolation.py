@@ -58,3 +58,8 @@ def test_package_has_kernel_sources():
 @pytest.mark.parametrize("name", ["fused_train.cu", "common.cuh"])
 def test_package_has_training_kernel_sources(name):
     assert (PKG_DIR / "csrc" / name).exists()
+
+
+@pytest.mark.parametrize("name", ["attention.cu", "fused_stack_w8a8.cu"])
+def test_package_has_flash_and_w8a8_kernel_sources(name):
+    assert (PKG_DIR / "csrc" / name).exists()

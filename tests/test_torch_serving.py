@@ -188,8 +188,3 @@ def test_default_device_needs_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
-
-
-def test_flash_attention_not_ported():
-    with pytest.raises(NotImplementedError, match="kernel #5"):
-        Sepformer(SepformerConfig(use_flash_attention=True, **TINY))

@@ -1,0 +1,175 @@
+"""cse_tpu_torch w8a8 serving against the JAX package's ``_stack_kernel_w8a8``
+(Pallas interpret mode on the CPU).
+
+Bars: the quantizer is exact (payload equal, scales to rtol 1e-6); the w8a8
+matmul holds tests/test_serving.py's 1e-5 / 1e-7 against ``_qdot`` and the
+numpy oracle; a stack or engine holds relative L2 <= 1e-3 against JAX's w8a8
+run (a one-ulp difference in an LN output can flip one int8 rounding, which
+moves that element by up to 1/127 of its row scale) and the JAX suite's
+5e-2 against its exact fp32 run. Inputs are numpy from a seed.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cse_tpu.models import Sepformer as JaxSepformer
+from cse_tpu.models import SepformerConfig as JaxConfig
+from cse_tpu.ops.fused_stack import _qdot, _quantize_stacked
+from cse_tpu.ops.fused_stack import fused_stack_apply as jax_fused_stack_apply
+from cse_tpu.serving import ServingEngine as JaxEngine
+from cse_tpu_torch.compat.jax_params import load_jax_params
+from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig, TransformerStack
+from cse_tpu_torch.ops import fused_stack as fs
+from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+from cse_tpu_torch.serving import ServingEngine, sepformer_fused_forward
+
+torch.set_num_threads(1)
+
+G, L, D, H, FFN, NL = 6, 11, 16, 4, 32, 2
+TINY = dict(enc_channels=16, enc_kernel=8, enc_stride=4, d_model=16, nhead=4, d_ffn=32,
+            num_tf_layers=2, num_dp_layers=2, chunk_size=10, llm_dim=24, se_dim=12, pe_max_len=256)
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+def test_quantize_stacked_matches_jax():
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((3, 8, 5)).astype(np.float32)
+    w[1, :, 2] = 0  # an all-zero channel takes the 1e-12 floor
+    q, s = fs.quantize_stacked(torch.from_numpy(w))
+    jq, js = (np.asarray(a) for a in _quantize_stacked(jnp.asarray(w)))
+    assert q.dtype == torch.int8 and q.shape == (3, 8, 5) and s.shape == (3, 1, 5)
+    np.testing.assert_array_equal(q.numpy(), jq)
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-6)
+
+
+def test_quantize_rows_and_qdot_match_jax_and_oracle():
+    """The oracle of tests/test_serving.py::test_w8a8_qdot_matches_numpy_oracle."""
+    rng = np.random.default_rng(1)
+    h = (rng.standard_normal((6, 16)) * 3.0).astype(np.float32)
+    h[2] = 0  # a zero row: sa = 1e-12 / 127, payload 0
+    w8_ = rng.integers(-127, 128, (16, 8)).astype(np.int8)
+    s = ((rng.random((1, 8)) + 0.1) / 100.0).astype(np.float32)
+    sa = np.maximum(np.max(np.abs(h), axis=-1, keepdims=True), 1e-12) / np.float32(127.0)
+    hq = np.round(h / sa).astype(np.int8)
+    want = (hq.astype(np.int64) @ w8_.astype(np.int64)) * sa.astype(np.float64) * s
+    got_q, got_sa = w8.quantize_rows_plain(torch.from_numpy(h))
+    np.testing.assert_array_equal(got_q.numpy(), hq)
+    np.testing.assert_array_equal(got_sa.numpy(), sa[:, 0])
+    got = w8.qdot_plain(got_q, got_sa, torch.from_numpy(w8_), torch.from_numpy(s)).numpy()
+    np.testing.assert_allclose(got, want.astype(np.float32), rtol=1e-5, atol=1e-7)
+    jgot = np.asarray(_qdot(jnp.asarray(h), jnp.asarray(w8_), jnp.asarray(s)))
+    np.testing.assert_allclose(got, jgot, rtol=1e-5, atol=1e-7)
+
+
+def test_linear_w8a8_epilogues_associate_as_jax():
+    rng = np.random.default_rng(2)
+    hq = torch.from_numpy(rng.integers(-127, 128, (5, 32)).astype(np.int8))
+    sa = torch.from_numpy(rng.random(5).astype(np.float32) + 0.1)
+    wq = torch.from_numpy(rng.integers(-127, 128, (32, 8)).astype(np.int8))
+    s = torch.from_numpy(rng.random((1, 8)).astype(np.float32) / 100)
+    b = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((5, 8)).astype(np.float32))
+    y = (hq.float() @ wq.float()) * sa[:, None] * s
+    assert torch.equal(w8.linear_w8a8_plain(hq, sa, wq, s, b, "bias"), y + b)
+    assert torch.equal(w8.linear_w8a8_plain(hq, sa, wq, s, b, "relu"), torch.relu(y + b))
+    got = w8.linear_w8a8_plain(hq, sa, wq, s, b, "residual", r.clone())
+    assert torch.equal(got, (r + y) + b)
+
+
+def _stack_params(rng):
+    def n(*s, scale=1.0):
+        return (scale * rng.standard_normal(s)).astype(np.float32)
+
+    tree = {"norm": {"scale": 1 + n(D, scale=0.1), "bias": n(D, scale=0.1)}}
+    for j in range(NL):
+        tree[f"layer_{j}"] = {
+            "norm1": {"scale": 1 + n(D, scale=0.1), "bias": n(D, scale=0.1)},
+            "norm2": {"scale": 1 + n(D, scale=0.1), "bias": n(D, scale=0.1)},
+            "self_att": {"in_proj_kernel": n(D, 3 * D, scale=D ** -0.5), "in_proj_bias": n(3 * D, scale=0.1),
+                         "out_proj_kernel": n(D, D, scale=D ** -0.5), "out_proj_bias": n(D, scale=0.1)},
+            "ffn_1": {"kernel": n(D, FFN, scale=D ** -0.5), "bias": n(FFN, scale=0.1)},
+            "ffn_2": {"kernel": n(FFN, D, scale=FFN ** -0.5), "bias": n(D, scale=0.1)},
+        }
+    return tree
+
+
+@pytest.mark.parametrize("cd", ["fp32", "bf16"])
+def test_stack_matches_jax_w8a8(cd):
+    rng = np.random.default_rng(3)
+    tree = _stack_params(rng)
+    x = rng.standard_normal((G, L, D)).astype(np.float32)
+    jcd, tcd = (jnp.float32, torch.float32) if cd == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jax_fused_stack_apply(jnp.asarray(x), tree, nhead=H, compute_dtype=jcd, quant="w8a8"))
+    exact = np.asarray(jax_fused_stack_apply(jnp.asarray(x), tree, nhead=H, compute_dtype=jnp.float32))
+    stack = load_jax_params(TransformerStack(SepformerConfig(d_model=D, nhead=H, d_ffn=FFN, num_tf_layers=NL)),
+                            tree)
+    w = fs.stack_weights(stack, tcd, quant="w8a8")
+    assert w["qkv_w"].dtype == torch.int8 and w["qkv_w"].shape == (NL, D, 3 * D)
+    assert w["qkv_s"].dtype == torch.float32 and w["qkv_s"].shape == (NL, 1, 3 * D)
+    # the payload comes from the fp32 weights, never a cd-rounded copy
+    q, _ = fs.quantize_stacked(torch.stack([lyr.ffn_1.weight.detach() for lyr in stack.layers]).transpose(1, 2))
+    assert torch.equal(w["f1_w"], q)
+    w8.reset_launches()
+    got = fs.fused_stack_apply(torch.from_numpy(x), w, nhead=H, compute_dtype=tcd, quant="w8a8")
+    assert w8.launch_counts() == {}
+    assert got.dtype == torch.float32 and got.shape == (G, L, D)
+    assert _rel_l2(got.numpy(), want) <= 1e-3
+    assert _rel_l2(got.numpy(), exact) <= 5e-2
+    assert fs.launches_per_stack(8, "w8a8") == {"layer_norm": 17, "attention": 8, "quantize_rows": 32,
+                                                "linear_w8a8": 32}
+
+
+@functools.cache
+def _engine_case(variant):
+    rng = np.random.default_rng(4)
+    cfg = JaxConfig(variant=variant, ce=True, compute_dtype=jnp.float32, **TINY)
+    mix = rng.standard_normal((2, 300)).astype(np.float32)
+    ctx = rng.standard_normal((2, 1, 24)).astype(np.float32)
+    params = jax.tree.map(np.asarray, JaxSepformer(cfg).init(jax.random.key(0), mix, ctx))
+    outs = {q: JaxEngine(cfg, params, quant=q)(mix, ctx) for q in (None, "w8a8")}
+    outs = {q: [np.asarray(o) for o in (v if variant == "contsep" else (v,))] for q, v in outs.items()}
+    return params, mix, ctx, outs
+
+
+@pytest.mark.parametrize("variant", ["context", "contsep"])
+def test_engine_matches_jax_w8a8(variant):
+    params, mix, ctx, outs = _engine_case(variant)
+    engine = ServingEngine(SepformerConfig(variant=variant, ce=True, **TINY), params, device="cpu", quant="w8a8")
+    got = engine(mix, ctx)
+    got = list(got) if variant == "contsep" else [got]
+    for g, want, exact in zip(got, outs["w8a8"], outs[None]):
+        g = g.numpy()
+        assert np.isfinite(g).all() and g.shape == want.shape
+        assert _rel_l2(g, want) <= 1e-3
+        assert _rel_l2(g, exact) <= 5e-2
+
+
+def test_w8a8_refuses_training_and_unknown_modes():
+    params, mix, ctx, _ = _engine_case("context")
+    cfg = SepformerConfig(variant="context", **TINY)
+    model = load_jax_params(Sepformer(cfg), params)
+    with pytest.raises(ValueError, match="inference-only"):
+        sepformer_fused_forward(model, torch.from_numpy(mix), torch.from_numpy(ctx), train=True, quant="w8a8")
+    with pytest.raises(ValueError, match="quant"):
+        ServingEngine(cfg, model, device="cpu", quant="int4")
+    with pytest.raises(TypeError, match="int8"):
+        sepformer_fused_forward(model, torch.from_numpy(mix), torch.from_numpy(ctx), quant="w8a8",
+                                stacks=ServingEngine(cfg, model, device="cpu").stacks)
+
+
+def test_wrappers_refuse_other_devices():
+    h = torch.empty(4, 16, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        w8.quantize_rows(h)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        w8.linear_w8a8(torch.empty(4, 16, dtype=torch.int8, device="meta"), torch.empty(4, device="meta"),
+                       torch.empty(16, 8, dtype=torch.int8), torch.empty(8), torch.empty(8), "bias")
