@@ -1,4 +1,4 @@
-"""Smoke run of the cse_tpu_torch serving and training paths on one NVIDIA GPU.
+"""Smoke run of the cse_tpu_torch serving, training and trainer paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,24 @@ Phases (any failure exits non-zero and prints no result line):
      epilogues and the whole w8a8 stack against their plain versions; (b)
      ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
      Sepformer: launches, median forward time, realtime factor; (c) kernel
-     times beside the plain versions, torch._int_mm or SDPA, and the bounds.
+     times beside the plain versions, torch._int_mm or SDPA, and the bounds;
+ 10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
+     every mode and the whole stripped forward in all 8 modes against the plain
+     versions, and its three products on the GEMM kernel, at the shapes of the
+     tool's own run, G=1008, Lp=D=256, 2 layers, 8 heads, fp32 twin and bf16;
+     (b) that run (python -m cse_tpu_torch.scripts.bench_kernel_parts at its
+     defaults): launches, ms and TFLOP/s of all 8 modes, the plain version's
+     time, the kernels' times beside a library call and the bounds;
+ 11. the trainer: train_net through parse_train_args, variant 'context', full
+     width, --synthetic_smoke --bf16 --batch_size 16 --max_sp_len 16
+     --flash_attention --remat layer with the whole augmentation chain, 9
+     updates with validation and checkpoints at 4 and 8, once on the fused
+     step (the card's default) and once with --no_fused_train: finite losses,
+     launch counts against the formulas, checkpoint files, the loop's sustained
+     mixtures/s, host-to-device bytes per batch, validation ms per batch, peak
+     memory; then for each a resume from the saved step, two iterations of
+     which run under the loop's own torch.profiler window (busy share, longest
+     idle gap, device time of the step and of the next batch's synthesis).
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -125,6 +142,11 @@ REPLACES_FLASH_BWD = "cse_tpu/ops/attention.py:59"  # _bwd_kernel
 SOURCE_FLASH = "cse_tpu_torch/csrc/attention.cu"
 REPLACES_W8A8 = "cse_tpu/ops/fused_stack.py:130"  # _stack_kernel_w8a8
 SOURCE_W8A8 = "cse_tpu_torch/csrc/fused_stack_w8a8.cu"
+REPLACES_PARTS = "scripts/bench_kernel_parts.py:25"  # make_kernel
+SOURCE_PARTS = "cse_tpu_torch/csrc/kernel_parts.cu"
+# the kernel-parts modes whose softmax sum goes through jmat = 1/D: their
+# output is D x the softmax's, so they are held by relative L2 in fp32 too
+PARTS_QUIRK = ("softmax_matmul", "combined", "combined_x2")
 
 
 def fail(msg: str):
@@ -978,6 +1000,248 @@ def phase9_times(gen, card, H, F_, NL):
     return times
 
 
+# ---------------------------------------------------------------- 10. the kernel-parts tool
+
+
+def phase10_kernels(gen, failures):
+    """(a) the tool's kernels and its whole forward against the plain versions,
+    at the shapes the tool's own run gives them."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import kernel_parts as kp
+    from cse_tpu_torch.scripts.bench_kernel_parts import make_inputs
+
+    G, Lp, D, NL, H = 1008, 256, 256, 2, 8
+    M = G * Lp
+    log(f"[10a] kernel-parts kernels vs plain versions at the tool's shapes, G={G} Lp=D={D}, {NL} layers, {H} heads "
+        f"(fp32: max_rel <= {TOL_FP32:.0e}, rel_l2 for the D x softmax modes; bf16: rel_l2 <= {TOL_BF16:.0e}, the "
+        "plain version rounding the score operands to bf16 as the kernel does)")
+    err = dict.fromkeys(("kp_layer_norm", "kp_attention", "linear", "kernel_parts"), 0.0)
+    for cd in (torch.float32, torch.bfloat16):
+        tag = "fp32" if cd == torch.float32 else "bf16"
+        qk = None if cd == torch.float32 else cd
+        x, w, f1, f2, jmat = make_inputs(G, Lp, D, NL, cd)
+        r = (3 * torch.randn(M, D, device="cuda", generator=gen) + 0.5).contiguous()
+        for ln_mode in kp.LN_MODES:
+            e = check(f"kp_layer_norm {tag} {ln_mode}", kp.kp_layer_norm(r, jmat, ln_mode, cd),
+                      kp.kp_layer_norm_plain(r, jmat, ln_mode, cd), cd, failures)
+            err["kp_layer_norm"] = max(err["kp_layer_norm"], e)
+        qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
+        for sm_mode in kp.SOFTMAX_MODES:
+            got = kp.kp_attention(qkv, jmat, r.clone(), Lp, H, sm_mode, cd) - r
+            ref = kp.kp_attention_plain(qkv, jmat, r.clone(), Lp, H, sm_mode, cd, qk_dtype=qk) - r
+            e = check(f"kp_attention {tag} {sm_mode} (added part)", got, ref, cd, failures)
+            err["kp_attention"] = max(err["kp_attention"], e)
+            del got, ref
+        del qkv
+        # the tool's three products on the port's GEMM: zero bias, as kernel_parts_apply calls it
+        for wt, epi in ((w[0], "bias"), (f1[0], "relu"), (f2[0], "residual")):
+            K, N = wt.shape
+            a = torch.randn(M, K, device="cuda", generator=gen).to(cd)
+            bias = torch.zeros(N, device="cuda")
+            res = r if epi == "residual" else None
+            got = fs.linear(a, wt, bias, epi, None if res is None else res.clone())
+            e = check(f"linear {tag} [{M},{K}]x[{K},{N}] {epi}", got, fs.linear_plain(a, wt, bias, epi, res), cd, failures)
+            err["linear"] = max(err["linear"], e)
+            del a, got
+        for mode in kp.MODES:
+            got = kp.kernel_parts_apply(x, w, f1, f2, jmat, mode, H)
+            ref = kp.kernel_parts_plain(x, w, f1, f2, jmat, mode, H, qk_dtype=qk)
+            if cd == torch.float32 and mode in PARTS_QUIRK:
+                mx, rmax, rl2 = errs(got, ref)
+                ok = rl2 <= TOL_FP32 and bool(torch.isfinite(got).all())
+                log(f"  {'kernel_parts fp32 ' + mode + ' (rel_l2)':<44s} max_abs {mx:.3e}  max_rel {rmax:.3e}  "
+                    f"rel_l2 {rl2:.3e}  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"kernel_parts fp32 {mode}")
+            else:
+                mx = check(f"kernel_parts {tag} {mode}", got, ref, cd, failures)
+            err["kernel_parts"] = max(err["kernel_parts"], mx)
+            del got, ref
+        if cd == torch.float32:  # the tool's own arithmetic: D x softmax in three modes
+            full = kp.kernel_parts_apply(x, w, f1, f2, jmat, "full", H)
+            d_hp = errs(kp.kernel_parts_apply(x, w, f1, f2, jmat, "combined_hp", H), full)[0]
+            d_x2 = errs(kp.kernel_parts_apply(x, w, f1, f2, jmat, "combined_x2", H), full)[0]
+            log(f"  fp32: |combined_hp - full| max {d_hp:.3e}; |combined_x2 - full| max {d_x2:.3e} (D x softmax)")
+            if not (d_hp <= 1e-4 and d_x2 > 1.0):
+                failures.append("kernel_parts: combined_hp must agree with full, combined_x2 must not")
+            del full
+        del x, w, f1, f2, jmat, r
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"kernel-parts checks failed: {failures}")
+    return err
+
+
+def phase10_tool(gen, card):
+    """(b) the tool's own run at its defaults, and the kernels' times."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import kernel_parts as kp
+    from cse_tpu_torch.scripts import bench_kernel_parts as tool
+
+    G, Lp, D, NL, H, hd, cd = 1008, 256, 256, 2, 8, 32, torch.bfloat16
+    M = G * Lp
+    # TF/s below uses the tool's own count (12 D^2 per token: it counts an out-projection that its
+    # kernel does not have); the bound uses what the function computes: qkv 3 D^2, FFN1 4 D^2 and
+    # FFN2 4 D^2 multiply-adds per token, and the two attention products
+    flops = tool.flop_count(G, Lp, D, NL)
+    work = G * NL * (2 * 11 * D * D * Lp + 4 * Lp * Lp * D)
+    nbytes = 2 * G * Lp * D * 4 + NL * (3 * D * D + 8 * D * D) * 2 + D * 128 * 2
+    bound = bound_of(nbytes, work)
+    log(f"[10b] the kernel-parts tool at its defaults, G={G} Lp=D={D}, {NL} layers, bf16: {work / 1e12:.4f} TFLOP "
+        f"computed ({flops / 1e12:.4f} by the tool's count), {nbytes / 1e6:.1f} MB in and out -> bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})  [{card}]")
+    kp.reset_launches()
+    tool.main([])  # the main path: combined_x2 and full, 2 warm-ups + 10 timed calls each
+    torch.cuda.synchronize()
+    counts = kp.launch_counts()
+    calls = 2 * (2 + 10)
+    want = {k: v * calls for k, v in kp.launches_per_call(NL).items()}
+    log(f"  launches in the tool's run ({calls} calls): {counts} (want {want})")
+    if counts != want:
+        fail(f"kernel-parts launch counts {counts} != {want}")
+    args = tool.make_inputs(G, Lp, D, NL)
+    by_mode = {m: tool.bench(m, G, Lp, D, NL, H, 10, args) for m in kp.MODES}
+    for m, ms in by_mode.items():
+        log(f"  {m:16s}: {ms:7.3f} ms   ({flops / ms / 1e9:6.1f} TF/s)")
+    plain_ms = time_ms(lambda: kp.kernel_parts_plain(*args, "full", H, qk_dtype=cd), reps=2, warmup=1)
+    log(f"  plain version, full: {plain_ms:.3f} ms; library: none (no single PyTorch call computes it)")
+    x, w, f1, f2, jmat = args
+    r = x.reshape(M, D).clone()
+    t = {"kernel_parts": dict(ms=by_mode["full"], plain_ms=plain_ms, library_ms=None, by_mode_ms=by_mode, **bound)}
+    ln_ms = {m: time_ms(lambda m=m: kp.kp_layer_norm(r, jmat, m, cd)) for m in kp.LN_MODES}
+    t["kp_layer_norm"] = dict(
+        ms=ln_ms["centred"], by_mode_ms=ln_ms,
+        plain_ms=time_ms(lambda: kp.kp_layer_norm_plain(r, jmat, "centred", cd), reps=3),
+        library_ms=time_ms(lambda: F.layer_norm(r, (D,), None, None, 1e-6)),
+        **bound_of(M * D * (4 + 2), 0))
+    qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
+    q, k, v = (a.to(cd) for a in qkv.reshape(G, Lp, 3, H, hd).permute(2, 0, 3, 1, 4))
+    sm_ms = {m: time_ms(lambda m=m: kp.kp_attention(qkv, jmat, r, Lp, H, m, cd)) for m in kp.SOFTMAX_MODES}
+    t["kp_attention"] = dict(
+        ms=sm_ms["sum"], by_mode_ms=sm_ms,
+        plain_ms=time_ms(lambda: kp.kp_attention_plain(qkv, jmat, r, Lp, H, "sum", cd, qk_dtype=cd), reps=2, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        **bound_of(M * 3 * D * 4 + 2 * M * D * 4, 4 * G * H * Lp * Lp * hd))
+    del qkv, q, k, v
+    h = torch.randn(M, D, device="cuda", generator=gen).to(cd)
+    hf = torch.randn(M, 4 * D, device="cuda", generator=gen).to(cd)
+    ops_ = [(h, w[0], torch.zeros(3 * D, device="cuda"), "bias", None),
+            (h, f1[0], torch.zeros(4 * D, device="cuda"), "relu", None),
+            (hf, f2[0], torch.zeros(D, device="cuda"), "residual", torch.zeros(M, D, device="cuda"))]
+    shapes = ((D, 3 * D, "bias"), (D, 4 * D, "relu"), (4 * D, D, "residual"))
+    t["linear[kernel_parts]"] = dict(
+        ms=sum(time_ms(lambda o=o: fs.linear(*o)) for o in ops_),
+        plain_ms=time_ms(lambda: [fs.linear_plain(*o) for o in ops_], reps=3),
+        library_ms=time_ms(lambda: [torch.matmul(o[0], o[1]) for o in ops_]),
+        **bound_of(sum(M * K * 2 + K * N * 2 + N * 4 + M * N * (8 if e == "residual" else 4 if e == "bias" else 2)
+                       for K, N, e in shapes), sum(2 * M * K * N for K, N, _ in shapes)))
+    del ops_, h, hf, r
+    torch.cuda.empty_cache()
+    for kname, v in t.items():
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+        log(f"  G={G} Lp={Lp} {kname:<22s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms  library {lib}  "
+            f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+            + (f"  by mode {({m: round(x, 4) for m, x in v['by_mode_ms'].items()})}" if "by_mode_ms" in v else ""))
+    return {"launches": counts, "times": t, "flops": work, "tool_flop_count": flops}
+
+
+# ---------------------------------------------------------------- 11. the trainer
+
+
+def phase11(card, failures):
+    """The trainer entry point at full width, fused and layer by layer."""
+    import glob
+    import os
+    import tempfile
+
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.train import checkpoint as ckpt_lib
+    from cse_tpu_torch.train.loop import train_net
+
+    base = ["--synthetic_smoke", "--bf16", "--batch_size", "16", "--max_sp_len", "16", "--flash_attention",
+            "--remat", "layer", "--augmentation", "--noise_add", "--synthetic_seconds", "8", "16",
+            "--synthetic_dialogs", "24", "--log_every", "2", "--eval_step", "4", "--tot_iters", "8", "--workers", "8"]
+    log(f"[11] trainer: train_net(parse_train_args({' '.join(base)}), 'context'), full width  [{card}]")
+    out = {}
+    for name, extra in (("fused", []), ("layer_by_layer", ["--no_fused_train"])):
+        ck = tempfile.mkdtemp(prefix=f"cse_ckpt_{name}_")
+        args = parse_train_args(base + extra + ["--checkpoint_dir", ck])
+        ft.reset_launches()
+        at.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        stats, t0 = {}, time.time()
+        model = train_net(args, "context", stats=stats)
+        torch.cuda.synchronize()
+        took, peak = time.time() - t0, torch.cuda.max_memory_allocated()
+        counts, fcounts = ft.launch_counts(), at.launch_counts()
+        cfg = model.cfg
+        steps, n_val = stats["final_step"] - stats["start_step"], len(stats["val_ms"])
+        n_att = 2 * cfg.num_dp_layers * cfg.num_tf_layers
+        per_eval = at.launches_per_step(n_att, cfg.remat_layers, train=False)
+        if name == "fused":
+            per_step = {k: v * 2 * cfg.num_dp_layers for k, v in ft.launches_per_train_stack(cfg.num_tf_layers).items()}
+            want = {k: v * steps for k, v in per_step.items()}
+            fwant = {k: v * n_val for k, v in per_eval.items()}
+        else:
+            per_step = at.launches_per_step(n_att, cfg.remat_layers)
+            want = dict.fromkeys(counts, 0)
+            fwant = {k: per_step[k] * steps + per_eval.get(k, 0) * n_val for k in per_step}
+        files = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ck, "*.ckpt")))
+        losses = stats["loss_reads"]
+        ok = (counts == want and fcounts == fwant and steps == 9 and losses and all(math.isfinite(v) for v in losses)
+              and [f[:16] for f in files if f.startswith("Epoch")] == ["Epoch_0000_00004", "Epoch_0000_00008"]
+              and all(torch.isfinite(p).all() for p in model.parameters()))
+        log(f"  {name}: {steps} updates, {n_val} validation batches in {took:.1f} s; losses read {[round(v, 4) for v in losses]}; "
+            f"launches per update {per_step}; fused-stack kernels {counts} (want {want}); flash kernels {fcounts} "
+            f"(want {fwant}); checkpoints {files}; metric writers {stats['metric_writers'] or 'none'}  "
+            f"{'ok' if ok else 'FAIL'}")
+        # the reference's rule, kept: a Best file is written when a validation reaches best_val,
+        # which starts at 0.0 dB
+        best = [f for f in files if f.startswith("Best")]
+        saved = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(ck))
+        log(f"  {name}: Best file {best or 'none'} (best_val {saved['best_val']:.2f} dB; one is written only when a "
+            "validation SI-SNR reaches best_val, initially 0.0, as in the reference loop)")
+        if bool(best) != any(float(f.split('_')[3][:-5]) >= 0 for f in files if f.startswith("Epoch")):
+            ok = False
+        if not ok:
+            failures.append(f"trainer {name}")
+            fail(f"trainer checks failed: {failures}")
+        rate = stats.get("sustained_mixtures_per_s", float("nan"))
+        val_ms = statistics.median(stats["val_ms"][1:]) if n_val > 1 else stats["val_ms"][0]
+        log(f"  {name}: sustained {rate:.3f} mixtures/s (the loop's own line: validation and checkpoints inside); "
+            f"validation {val_ms:.1f} ms per batch (median, host clock; first {stats['val_ms'][0]:.1f}); "
+            f"host->device {stats['h2d_bytes'] / 1e6:.2f} MB per batch; peak memory {peak / 2**30:.3f} GiB  [{card}]")
+        out[name] = {"updates": steps, "seconds": took, "losses": losses, "launches": counts, "flash_launches": fcounts,
+                     "sustained_mixtures_per_s": rate, "val_ms": stats["val_ms"], "h2d_bytes": stats["h2d_bytes"],
+                     "peak_bytes": peak, "checkpoints": files}
+        del model
+        torch.cuda.empty_cache()
+        # a second call resumes from the saved step; its steps 9 and 10 (each with the next batch's
+        # preparation, and the loss read between them) run under the loop's own profiler window
+        stats = {"profile_steps": (9, 11)}
+        train_net(parse_train_args(base + extra + ["--checkpoint_dir", ck, "--resume", "--from_ckpt",
+                                                   "--tot_iters", "10"]), "context", stats=stats)
+        prof = stats["profile"]
+        synth = prof.get("range_ms", {}).get("prepare_batch", [])
+        ok = (stats["start_step"] == 8 and stats["final_step"] == 11 and all(math.isfinite(v) for v in stats["loss_reads"])
+              and len(synth) == 2 and min(synth) > 0 and 0 < prof["busy_share"] <= 1)
+        log(f"  {name}: resume --from_ckpt --tot_iters 10: started at step {stats['start_step']} (saved 8), ended at "
+            f"{stats['final_step']}, losses {[round(v, 4) for v in stats['loss_reads']]}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"trainer resume {name}")
+            fail(f"trainer checks failed: {failures}; profile {prof}")
+        log(f"  {name}: two loop iterations of that run under torch.profiler: device wall {prof['wall_ms']:.1f} ms, "
+            f"kernels {prof['kernel_ms']:.1f} ms, busy share {prof['busy_share']:.4f}, longest idle gap "
+            f"{prof['longest_idle_gap_ms']:.3f} ms; device time of the work launched by the next batch's preparation "
+            f"(copies + synthesize_batch, kernels summed) {[round(v, 3) for v in synth]} ms  [{card}]")
+        out[name].update(profile=prof, synthesize_ms=synth,
+                         resume={"start_step": stats["start_step"], "final_step": stats["final_step"]})
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -1191,12 +1455,20 @@ def main() -> int:
     w8_serve = phase9_serve(gen, card, failures)
     wtimes = phase9_times(gen, card, H, F_, NL)
     log(f"  [9] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    parts_err = phase10_kernels(gen, failures)
+    parts = phase10_tool(gen, card)
+    log(f"  [10] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    with torch.enable_grad():
+        trainer = phase11(card, failures)
+    log(f"  [11] took {time.time() - t0:.1f} s")
 
-    parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
+    serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
              "linear": ("the four projections (:92-110), one layer's 4 launches", "linear_bf16_kernel"),
              "attention": ("_attention (:39), one launch", "attention_bf16_kernel")}
     kernels = []
-    for kname, (part, symbol) in parts.items():
+    for kname, (part, symbol) in serve_parts.items():
         ti, tn = times["intra"][kname], times["inter"][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE, "symbol": symbol, "replaces": REPLACES,
@@ -1268,6 +1540,25 @@ def main() -> int:
             "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}",
             "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # the kernel-parts tool (launches of the tool's own run, [10b])
+    tool_parts = (
+        ("kp_layer_norm", "kp_layer_norm", SOURCE_PARTS, "kp_ln_rows_kernel / kp_ln_mma_kernel", "kp_layer_norm",
+         "ln (:29-55) in mode 'centred', one launch; every mode in 'by_mode_ms'"),
+        ("kp_attention", "kp_attention", SOURCE_PARTS, "kp_attention_bf16_kernel", "kp_attention",
+         "scores, softmax, PV and the residual add (:68-107) in mode 'sum', one launch; every mode in 'by_mode_ms'"),
+        ("linear[kernel_parts]", "linear", SOURCE, "linear_bf16_kernel", "linear",
+         "the qkv, FFN1 and FFN2 products (:67, :112, :114), one layer's 3 launches"),
+    )
+    for name, counter, source, symbol, ekey, part in tool_parts:
+        ti = parts["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "symbol": symbol, "replaces": REPLACES_PARTS,
+            "launches": parts["launches"][counter], "max_abs_err": parts_err[ekey],
+            "ms": ti["ms"], "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
+            "bound_by": ti["bound_by"], "library_ms": ti["library_ms"],
+            "work": f"G=1008 Lp=D=256 bf16, {part}; launches of the tool's default run (24 calls)",
+            **({"by_mode_ms": ti["by_mode_ms"]} if "by_mode_ms" in ti else {}),
+        })
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel of the path was not launched: {[k['name'] for k in kernels if k['launches'] <= 0]}")
     log(f"  whole run {time.time() - t_start:.1f} s")
@@ -1276,7 +1567,7 @@ def main() -> int:
                       "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3),
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
-                      "w8a8_times": wtimes}), flush=True)
+                      "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,14 @@ with a hand-written CUDA port of ``cse_tpu/ops/fused_stack.py::_stack_kernel``
 (``csrc/fused_stack.cu``), and the fused training step
 (:func:`cse_tpu_torch.train.step.make_train_step`) with a port of
 ``cse_tpu/ops/fused_train.py``'s ``_fwd_kernel`` and ``_bwd_kernel``
-(``ops/fused_train.py``, ``csrc/fused_train.cu``).
+(``ops/fused_train.py``, ``csrc/fused_train.cu``), the flash attention pair
+(``ops/attention.py``, ``csrc/attention.cu``), w8a8 serving
+(``ops/fused_stack_w8a8.py``), the trainer entry point
+(``python -m cse_tpu_torch.train_ContExt``: :mod:`cse_tpu_torch.train.loop`
+with the loaders and the on-device mixture synthesis of
+:mod:`cse_tpu_torch.data.pipeline`) and the kernel-parts dev tool
+(``python -m cse_tpu_torch.scripts.bench_kernel_parts``,
+``csrc/kernel_parts.cu``).
 """
 
 from cse_tpu_torch.core.device import resolve_device

@@ -72,3 +72,14 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     or a shape mismatch, raises."""
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return model
+
+
+def hash_encoder_tables(w, p) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two ``[dim]`` tables of the JAX package's ``HashProjectionEncoder``
+    (``models/context_encoder.py:64-66``: ``w = normal(key) * 0.02``, ``p =
+    uniform(fold_in(key, 1)) * 6.283``, given here as numpy arrays of any
+    shape with ``dim`` entries) as fp32 tensors for
+    ``HashProjectionEncoder(tables=...)``: the port draws its default tables
+    from a ``torch.Generator``, so the caller carries JAX's across to compare
+    the same function on the same tables."""
+    return tuple(torch.from_numpy(np.array(t, dtype=np.float32).reshape(-1)) for t in (w, p))

@@ -1,0 +1,572 @@
+// Hopper (sm_90a) port of scripts/bench_kernel_parts.py::make_kernel, the
+// dev tool that asks where a fused layer's time goes: a stripped pre-LN
+// transformer forward (LayerNorm without scale and bias, bias-free qkv / FFN
+// products, softmax without a key mask, no out-projection, no final LN) in
+// eight modes that move the row mean, mean-square and softmax sum from
+// cross-lane reductions onto matrix products with a ones matrix J [D, 128].
+//
+// The TPU body keeps one [Lp, D] sequence and all weights in VMEM for both
+// layers. On Hopper the layer runs as the HBM-resident decomposition of
+// fused_stack.cu (LN -> GEMM -> attention -> LN -> GEMM -> GEMM on the fp32
+// residual in device memory). The three products per layer are
+// fused_stack.cu's GEMM; this file holds the two parts that kernel set does
+// not compute:
+//
+//   (a) kp_ln_*: LayerNorm without scale and bias, out = (x - mu) * rsqrt(var
+//       + eps), written in the compute dtype cd, with the moments by mode:
+//         LN_NONE     no LN: the cast to cd only (matmul_only);
+//         LN_CENTRED  mu = mean(x), var = mean((x - mu)^2), warp reductions;
+//         LN_CD       mu = (cd(x) . J)[:, 0], m2 = (cd(x*x) . J)[:, 0],
+//                     var = m2 - mu^2: for bf16 on the tensor cores
+//                     (mma.sync m16n8k16, a warp per 16 rows, the x tile as
+//                     the A operand and J's first eight columns as B);
+//         LN_EXACT    the same sums with fp32 operands, fp32-exact;
+//         LN_X2       the same with a cd hi + lo pair: v = hi + lo, hi =
+//                     cd(v), lo = cd(v - hi), two products summed.
+//       For cd = fp32 the rounding to cd is the identity (lo = 0), so the
+//       three J modes share the fp32 path.
+//   (b) kp_attention_*: one block per (sequence, head), head width 32, over
+//       qkv [G*L, 3D] fp32. q is scaled BEFORE the score product (the
+//       serving kernel of fused_stack.cu scales and rounds alike; the fp32
+//       twin multiplies in fp32). No mask. The softmax by mode:
+//         SM_SKIP  p = s * 1e-4, no max / exp / sum;
+//         SM_SUM   m = max s, p = exp(s - m), z = sum p in fp32 (also the
+//                  tool's 'true ones matrix at HIGHEST precision'), p / z;
+//         SM_CD    z = (cd(p) . J)[:, 0], which is sum(p) / D for the tool's
+//                  J = 1/D (its output is D x the softmax: the tool's own
+//                  arithmetic, reproduced as it is), p / z; needs L == rows
+//                  of J, as the tool's product does;
+//         SM_X2    z = (hi(p) . J + lo(p) . J)[:, 0], p * (1 / z).
+//       The normalised p is rounded to cd BEFORE the PV product (the serving
+//       kernel divides after it), so z must be known first: three passes over
+//       the keys (max; sum; PV), the scores recomputed in each. bf16 runs the
+//       score, sum and PV products on the tensor cores with bf16(q * scale)
+//       and bf16(k) operands; fp32 runs CUDA-core FMAs, never TF32. The head
+//       outputs are added into the fp32 residual x in place (the tool's
+//       concatenate and x + attn).
+//
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError() (0 = launched).
+
+#include "common.cuh"
+
+namespace {
+
+enum LnMode { LN_NONE = 0, LN_CENTRED = 1, LN_CD = 2, LN_EXACT = 3, LN_X2 = 4 };
+enum SmMode { SM_SKIP = 0, SM_SUM = 1, SM_CD = 2, SM_X2 = 4 };
+
+// ---------------------------------------------------------------- (a) LN
+// One warp per row. MODE LN_NONE, LN_CENTRED, or LN_EXACT (moments as
+// sum_k v_k * J[k, 0] in fp32, which is also LN_CD and LN_X2 for cd = fp32).
+template <int MODE, typename TO, typename TJ>
+__global__ void __launch_bounds__(256)
+kp_ln_rows_kernel(const float* __restrict__ x, const TJ* __restrict__ J, int ldj,
+                  TO* __restrict__ out, long long M, int D, float eps) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* xr = x + row * D;
+  TO* orow = out + row * D;
+  if (MODE == LN_NONE) {
+    for (int i = lane; i < D; i += 32) orow[i] = from_f<TO>(xr[i]);
+    return;
+  }
+  float mean, var;
+  if (MODE == LN_CENTRED) {
+    float s = 0.f;
+    for (int i = lane; i < D; i += 32) s += xr[i];
+    mean = warp_sum(s) / D;
+    float v = 0.f;
+    for (int i = lane; i < D; i += 32) {
+      const float d = xr[i] - mean;
+      v += d * d;
+    }
+    var = warp_sum(v) / D;
+  } else {
+    float s = 0.f, s2 = 0.f;
+    for (int i = lane; i < D; i += 32) {
+      const float v = xr[i], j = to_f(J[(long long)i * ldj]);
+      s = fmaf(v, j, s);
+      s2 = fmaf(__fmul_rn(v, v), j, s2);
+    }
+    mean = warp_sum(s);
+    var = warp_sum(s2) - mean * mean;
+  }
+  const float rstd = 1.0f / sqrtf(var + eps);
+  for (int i = lane; i < D; i += 32) orow[i] = from_f<TO>((xr[i] - mean) * rstd);
+}
+
+// bf16, LN_CD and LN_X2: the row sums on the tensor cores. A warp owns 16
+// rows; per 16 columns the x tile (rounded to bf16, and for X2 its bf16
+// remainder) is the A fragment, J[k0 .. k0 + 15][0 .. 7] the B fragment, and
+// column 0 of the accumulators holds the sums. D % 16 == 0.
+template <bool X2>
+__global__ void __launch_bounds__(128)
+kp_ln_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ J, int ldj,
+                 bf16* __restrict__ out, long long M, int D, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = ((long long)blockIdx.x * 4 + warp) * 16;
+  if (r0 >= M) return;
+  const long long ra = r0 + (lane >> 2), rb = ra + 8;
+  const int cq = (lane & 3) * 2, n = lane >> 2;
+  float mu[4] = {0.f, 0.f, 0.f, 0.f}, m2[4] = {0.f, 0.f, 0.f, 0.f};
+  float mul[4] = {0.f, 0.f, 0.f, 0.f}, m2l[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    float2 v[4];  // fragment order: (ra, c), (rb, c), (ra, c + 8), (rb, c + 8)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const long long r = (f & 1) ? rb : ra;
+      v[f] = r < M ? *reinterpret_cast<const float2*>(x + r * D + k0 + cq + (f >> 1) * 8)
+                   : make_float2(0.f, 0.f);
+    }
+    const bf16* jp = J + (long long)(k0 + cq) * ldj + n;
+    const unsigned b0 = pack_bf16(to_f(jp[0]), to_f(jp[ldj]));
+    const unsigned b1 = pack_bf16(to_f(jp[8LL * ldj]), to_f(jp[9LL * ldj]));
+    unsigned a[4], a2[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      a[f] = pack_bf16(v[f].x, v[f].y);
+      a2[f] = pack_bf16(__fmul_rn(v[f].x, v[f].x), __fmul_rn(v[f].y, v[f].y));
+    }
+    mma_bf16_16816(mu, a, b0, b1);
+    mma_bf16_16816(m2, a2, b0, b1);
+    if (X2) {
+      unsigned l[4], l2[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float sx = __fmul_rn(v[f].x, v[f].x), sy = __fmul_rn(v[f].y, v[f].y);
+        l[f] = pack_bf16(v[f].x - to_f(__float2bfloat16_rn(v[f].x)), v[f].y - to_f(__float2bfloat16_rn(v[f].y)));
+        l2[f] = pack_bf16(sx - to_f(__float2bfloat16_rn(sx)), sy - to_f(__float2bfloat16_rn(sy)));
+      }
+      mma_bf16_16816(mul, l, b0, b1);
+      mma_bf16_16816(m2l, l2, b0, b1);
+    }
+  }
+  // column 0 of the product sits in the quad's first lane: elements 0 (row ra), 2 (row rb)
+  const int src = lane & ~3;
+  const float mua = __shfl_sync(FULL, mu[0] + mul[0], src), mub = __shfl_sync(FULL, mu[2] + mul[2], src);
+  const float m2a = __shfl_sync(FULL, m2[0] + m2l[0], src), m2b = __shfl_sync(FULL, m2[2] + m2l[2], src);
+  const float rsa = 1.0f / sqrtf((m2a - mua * mua) + eps), rsb = 1.0f / sqrtf((m2b - mub * mub) + eps);
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    if (ra < M) {
+      const float2 t = *reinterpret_cast<const float2*>(x + ra * D + k0 + cq);
+      *reinterpret_cast<__nv_bfloat162*>(out + ra * D + k0 + cq) =
+          __floats2bfloat162_rn((t.x - mua) * rsa, (t.y - mua) * rsa);
+    }
+    if (rb < M) {
+      const float2 t = *reinterpret_cast<const float2*>(x + rb * D + k0 + cq);
+      *reinterpret_cast<__nv_bfloat162*>(out + rb * D + k0 + cq) =
+          __floats2bfloat162_rn((t.x - mub) * rsb, (t.y - mub) * rsb);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- (b) attention
+constexpr int HD = 32;   // head width
+constexpr int KT = 256;  // keys per shared-memory tile
+
+// fp32 twin: one warp per query row, lane j scores key c + j and owns output
+// column j. Passes over the keys: max (not SM_SKIP), z (not SM_SKIP), PV. The
+// mode and the pass are run-time values here (one instantiation: this is the
+// parity path, and its branches are uniform over the block).
+constexpr int QT32 = 64, ROWS32 = QT32 / 8, LDK32 = HD + 1;
+constexpr size_t KP_ATT_F32_SMEM = sizeof(float) * (KT * LDK32 + KT * HD + QT32 * HD + KT);
+
+__global__ void __launch_bounds__(256)
+kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ J, int ldj,
+                        float* __restrict__ x, int L, int H, float scale, int sm) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);  // [KT][LDK32]
+  float* Vs = Ks + KT * LDK32;                 // [KT][HD]
+  float* Qs = Vs + KT * HD;                    // [QT32][HD]
+  float* Jc = Qs + QT32 * HD;                  // [KT]: J[key, 0]
+
+  const int g = blockIdx.x / H, h = blockIdx.x % H;
+  const int D = H * HD, D3 = 3 * D;
+  const float* base = qkv + (long long)g * L * D3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nkt = (L + KT - 1) / KT;
+  const bool use_j = sm == SM_CD || sm == SM_X2;
+
+  auto load_kv = [&](int k0) {
+    for (int e = tid; e < KT * HD; e += blockDim.x) {
+      const int r = e / HD, d = e % HD, key = k0 + r;
+      const float* row = base + (long long)key * D3 + h * HD + d;
+      Ks[r * LDK32 + d] = key < L ? row[D] : 0.f;
+      Vs[r * HD + d] = key < L ? row[2 * D] : 0.f;
+    }
+    if (use_j)
+      for (int r = tid; r < KT; r += blockDim.x) Jc[r] = k0 + r < L ? J[(long long)(k0 + r) * ldj] : 0.f;
+  };
+  if (nkt == 1) load_kv(0);
+
+  for (int q0 = 0; q0 < L; q0 += QT32) {
+    __syncthreads();  // every warp is done with the previous query tile
+    for (int e = tid; e < QT32 * HD; e += blockDim.x) {
+      const int q = q0 + e / HD;
+      Qs[e] = q < L ? base[(long long)q * D3 + h * HD + e % HD] * scale : 0.f;
+    }
+    __syncthreads();
+
+    float m[ROWS32], z[ROWS32], acc[ROWS32];
+#pragma unroll
+    for (int r = 0; r < ROWS32; ++r) {
+      m[r] = __int_as_float(0xff800000);  // -inf
+      z[r] = 0.f;
+      acc[r] = 0.f;
+    }
+    // pass 0: row max; pass 1: z; pass 2: PV with the normalised p
+#pragma unroll 1
+    for (int pass = (sm == SM_SKIP ? 2 : 0); pass < 3; ++pass) {
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (nkt > 1) {
+          __syncthreads();
+          load_kv(kt * KT);
+          __syncthreads();
+        }
+        const int nk = min(KT, L - kt * KT);
+#pragma unroll
+        for (int r = 0; r < ROWS32; ++r) {
+          const int qr = warp + r * 8;
+          if (q0 + qr >= L) continue;  // warp-uniform
+          const float* q = Qs + qr * HD;
+          for (int c = 0; c < nk; c += 32) {
+            float s = 0.f;
+#pragma unroll
+            for (int d = 0; d < HD; ++d) s = fmaf(q[d], Ks[(c + lane) * LDK32 + d], s);
+            const bool valid = c + lane < nk;
+            if (pass == 0) {
+              if (valid) m[r] = fmaxf(m[r], s);
+            } else if (pass == 1) {
+              const float p = valid ? expf(s - m[r]) : 0.f;
+              z[r] = use_j ? fmaf(p, Jc[c + lane], z[r]) : z[r] + p;
+            } else {
+              float p;
+              if (sm == SM_SKIP) p = s * 1e-4f;
+              else if (sm == SM_X2) p = expf(s - m[r]) * z[r];  // z holds 1 / z
+              else p = expf(s - m[r]) / z[r];
+              p = valid ? p : 0.f;
+#pragma unroll
+              for (int j = 0; j < 32; ++j)
+                acc[r] = fmaf(__shfl_sync(FULL, p, j), Vs[(c + j) * HD + lane], acc[r]);
+            }
+          }
+        }
+      }
+      if (pass == 0) {
+#pragma unroll
+        for (int r = 0; r < ROWS32; ++r) m[r] = warp_max(m[r]);
+      } else if (pass == 1) {
+#pragma unroll
+        for (int r = 0; r < ROWS32; ++r) {
+          z[r] = warp_sum(z[r]);
+          if (sm == SM_X2) z[r] = 1.0f / z[r];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS32; ++r) {
+      const int qr = warp + r * 8;
+      if (q0 + qr >= L) continue;
+      x[((long long)g * L + q0 + qr) * D + h * HD + lane] += acc[r];
+    }
+  }
+}
+
+// bf16: score, sum and PV products on the tensor cores (mma.sync m16n8k16,
+// fp32 accumulate), the scores in registers and recomputed in each pass. 4
+// warps, 16 query rows per warp at a time, bf16(q * scale) in A fragments; K,
+// V and J[:, 0:8] (transposed) of up to KT keys in shared memory in bf16.
+constexpr int ATT_WARPS = 4;
+constexpr int LDH = HD + 8;    // bf16 row stride of the K, V tiles: ldmatrix conflict-free
+constexpr int LDJT = KT + 8;   // bf16 row stride of the transposed J tile
+
+template <int SM>
+__global__ void __launch_bounds__(ATT_WARPS * 32, 4)
+kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__ J, int ldj,
+                         float* __restrict__ x, int L, int H, float scale, int kt_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
+  bf16* Vs = Ks + kt_rows * LDH;             // [kt_rows][LDH]
+  bf16* Jt = Vs + kt_rows * LDH;             // [8][LDJT]: Jt[n][key] = J[key, n]
+
+  const int g = blockIdx.x / H, h = blockIdx.x % H;
+  const int D = H * HD, D3 = 3 * D;
+  const float* base = qkv + (long long)g * L * D3 + h * HD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nkt = (L + KT - 1) / KT;
+  const float NEG_INF = __int_as_float(0xff800000);
+  constexpr bool USE_J = SM == SM_CD || SM == SM_X2;
+
+  auto load_kv = [&](int k0, bool with_v) {
+    for (int e = tid; e < kt_rows * (HD / 4); e += ATT_WARPS * 32) {
+      const int r = e / (HD / 4), c = (e % (HD / 4)) * 4, key = k0 + r;
+      float4 k = make_float4(0.f, 0.f, 0.f, 0.f), v = k;
+      if (key < L) {
+        const float* row = base + (long long)key * D3 + c;
+        k = *reinterpret_cast<const float4*>(row + D);
+        if (with_v) v = *reinterpret_cast<const float4*>(row + 2 * D);
+      }
+      *reinterpret_cast<uint2*>(Ks + r * LDH + c) = make_uint2(pack_bf16(k.x, k.y), pack_bf16(k.z, k.w));
+      if (with_v)
+        *reinterpret_cast<uint2*>(Vs + r * LDH + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    }
+    if (USE_J)
+      for (int e = tid; e < kt_rows * 8; e += ATT_WARPS * 32) {
+        const int r = e >> 3, nn = e & 7;
+        Jt[nn * LDJT + r] = k0 + r < L ? J[(long long)(k0 + r) * ldj + nn] : __float2bfloat16_rn(0.f);
+      }
+  };
+  auto scores16 = [&](float (&s)[2][4], const unsigned (&qa)[2][4], int kb) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      unsigned kf[4];
+      ldmatrix_x4(kf, Ks + (kb + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16_16816(s[0], qa[ks], kf[0], kf[1]);
+      mma_bf16_16816(s[1], qa[ks], kf[2], kf[3]);
+    }
+  };
+
+  if (nkt == 1) {
+    load_kv(0, true);
+    __syncthreads();
+  }
+  for (int q0 = 0; q0 < L; q0 += ATT_WARPS * 16) {
+    const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
+    const bool active = q0 + warp * 16 < L;  // warp-uniform
+    unsigned qa[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
+        float2 xa = make_float2(0.f, 0.f), xb = xa;
+        if (ra < L) xa = *reinterpret_cast<const float2*>(base + (long long)ra * D3 + d);
+        if (rb < L) xb = *reinterpret_cast<const float2*>(base + (long long)rb * D3 + d);
+        qa[ks][hi * 2] = pack_bf16(xa.x * scale, xa.y * scale);
+        qa[ks][hi * 2 + 1] = pack_bf16(xb.x * scale, xb.y * scale);
+      }
+
+    float ma = NEG_INF, mb = NEG_INF, za = 0.f, zb = 0.f;
+    float zh[4] = {0.f, 0.f, 0.f, 0.f}, zl[4] = {0.f, 0.f, 0.f, 0.f};
+    float o[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+    // pass 0: row max; pass 1: z; pass 2: O = bf16(normalised p) . V
+#pragma unroll
+    for (int pass = (SM == SM_SKIP ? 2 : 0); pass < 3; ++pass) {
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (nkt > 1) {
+          __syncthreads();
+          load_kv(kt * KT, pass == 2);
+          __syncthreads();
+        }
+        const int nk = min(KT, L - kt * KT);
+        if (!active) continue;
+        for (int kb = 0; kb < nk; kb += 16) {
+          float s[2][4];
+          scores16(s, qa, kb);
+          if (pass == 0) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (kb + j * 8 + (lane & 3) * 2 + e < nk) {
+                  ma = fmaxf(ma, s[j][e]);
+                  mb = fmaxf(mb, s[j][2 + e]);
+                }
+            continue;
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool valid = kb + j * 8 + (lane & 3) * 2 + e < nk;
+              if (SM == SM_SKIP) {
+                s[j][e] = valid ? s[j][e] * 1e-4f : 0.f;
+                s[j][2 + e] = valid ? s[j][2 + e] * 1e-4f : 0.f;
+              } else {
+                s[j][e] = valid ? expf(s[j][e] - ma) : 0.f;
+                s[j][2 + e] = valid ? expf(s[j][2 + e] - mb) : 0.f;
+              }
+            }
+          if (pass == 1) {
+            if (SM == SM_SUM) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  za += s[j][e];
+                  zb += s[j][2 + e];
+                }
+            } else if (USE_J) {
+              // B fragment of J: {k = 2 * (lane % 4) + {0, 1}, n = lane / 4}, then k + 8
+              const bf16* jp = Jt + (lane >> 2) * LDJT + kb + (lane & 3) * 2;
+              const unsigned b0 = *reinterpret_cast<const unsigned*>(jp);
+              const unsigned b1 = *reinterpret_cast<const unsigned*>(jp + 8);
+              const unsigned ph[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                                      pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+              mma_bf16_16816(zh, ph, b0, b1);
+              if (SM == SM_X2) {
+                auto lo = [](float v) { return v - to_f(__float2bfloat16_rn(v)); };
+                const unsigned pl[4] = {pack_bf16(lo(s[0][0]), lo(s[0][1])), pack_bf16(lo(s[0][2]), lo(s[0][3])),
+                                        pack_bf16(lo(s[1][0]), lo(s[1][1])), pack_bf16(lo(s[1][2]), lo(s[1][3]))};
+                mma_bf16_16816(zl, pl, b0, b1);
+              }
+            }
+            continue;
+          }
+          if (SM != SM_SKIP) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                // for SM_X2 za, zb hold 1 / z
+                s[j][e] = SM == SM_X2 ? s[j][e] * za : s[j][e] / za;
+                s[j][2 + e] = SM == SM_X2 ? s[j][2 + e] * zb : s[j][2 + e] / zb;
+              }
+          }
+          const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                                  pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+          for (int dp = 0; dp < 2; ++dp) {
+            unsigned vf[4];
+            ldmatrix_x4_trans(vf, Vs + (kb + (lane & 15)) * LDH + dp * 16 + (lane >> 4) * 8);
+            mma_bf16_16816(o[dp * 2], pa, vf[0], vf[1]);
+            mma_bf16_16816(o[dp * 2 + 1], pa, vf[2], vf[3]);
+          }
+        }
+      }
+      if (!active) continue;
+      if (pass == 0) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, off));
+          mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, off));
+        }
+      } else if (pass == 1) {
+        if (SM == SM_SUM) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            za += __shfl_xor_sync(FULL, za, off);
+            zb += __shfl_xor_sync(FULL, zb, off);
+          }
+        } else {  // column 0 of the product: the quad's first lane, elements 0 and 2
+          za = __shfl_sync(FULL, zh[0] + zl[0], lane & ~3);
+          zb = __shfl_sync(FULL, zh[2] + zl[2], lane & ~3);
+          if (SM == SM_X2) {
+            za = 1.0f / za;
+            zb = 1.0f / zb;
+          }
+        }
+      }
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = h * HD + j * 8 + (lane & 3) * 2;
+      if (ra < L) {
+        float2* p = reinterpret_cast<float2*>(x + ((long long)g * L + ra) * D + d);
+        const float2 t = *p;
+        *p = make_float2(t.x + o[j][0], t.y + o[j][1]);
+      }
+      if (rb < L) {
+        float2* p = reinterpret_cast<float2*>(x + ((long long)g * L + rb) * D + d);
+        const float2 t = *p;
+        *p = make_float2(t.x + o[j][2], t.y + o[j][3]);
+      }
+    }
+  }
+}
+
+template <int SM>
+cudaError_t launch_kp_attention(int bf, const float* qkv, const void* J, int ldj, float* x, int G, int L,
+                                int H, float scale, cudaStream_t st) {
+  if (bf) {
+    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
+    const size_t bytes = sizeof(bf16) * (2 * kt_rows * LDH + 8 * LDJT);  // <= 45 KB
+    kp_attention_bf16_kernel<SM><<<G * H, ATT_WARPS * 32, bytes, st>>>(
+        qkv, static_cast<const bf16*>(J), ldj, x, L, H, scale, kt_rows);
+  } else {
+    static bool ready = false;
+    const cudaError_t e = allow_smem(kp_attention_f32_kernel, KP_ATT_F32_SMEM, ready);
+    if (e != cudaSuccess) return e;
+    kp_attention_f32_kernel<<<G * H, 256, KP_ATT_F32_SMEM, st>>>(
+        qkv, static_cast<const float*>(J), ldj, x, L, H, scale, SM);
+  }
+  return cudaGetLastError();
+}
+
+template <int MODE, typename TO, typename TJ>
+cudaError_t launch_kp_ln_rows(const float* x, const void* J, int ldj, void* out, long long M, int D, float eps,
+                              cudaStream_t st) {
+  kp_ln_rows_kernel<MODE, TO, TJ><<<(unsigned)((M + 7) / 8), 256, 0, st>>>(
+      x, static_cast<const TJ*>(J), ldj, static_cast<TO*>(out), M, D, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out[M, D] (bf16 when bf16_out, else fp32) = the mode's LayerNorm of fp32
+// x[M, D] without scale and bias; J [>= D, ldj] is bf16 when bf16_out, else
+// fp32 (LnMode above; J is not read for LN_NONE and LN_CENTRED).
+int cse_kp_layer_norm(const void* x, const void* j, int ldj, void* out, int bf16_out, int mode,
+                      long long M, int D, float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  if (bf16_out) {
+    switch (mode) {
+      case LN_NONE: return (int)launch_kp_ln_rows<LN_NONE, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
+      case LN_CENTRED: return (int)launch_kp_ln_rows<LN_CENTRED, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
+      case LN_EXACT: return (int)launch_kp_ln_rows<LN_EXACT, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
+      case LN_CD:
+      case LN_X2: {
+        if (D % 16) return (int)cudaErrorInvalidValue;
+        const unsigned blocks = (unsigned)((M + 63) / 64);
+        const bf16* jb = static_cast<const bf16*>(j);
+        bf16* ob = static_cast<bf16*>(out);
+        if (mode == LN_CD) kp_ln_mma_kernel<false><<<blocks, 128, 0, st>>>(xf, jb, ldj, ob, M, D, eps);
+        else kp_ln_mma_kernel<true><<<blocks, 128, 0, st>>>(xf, jb, ldj, ob, M, D, eps);
+        return (int)cudaGetLastError();
+      }
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (mode) {
+    case LN_NONE: return (int)launch_kp_ln_rows<LN_NONE, float, float>(xf, j, ldj, out, M, D, eps, st);
+    case LN_CENTRED: return (int)launch_kp_ln_rows<LN_CENTRED, float, float>(xf, j, ldj, out, M, D, eps, st);
+    case LN_CD:
+    case LN_EXACT:
+    case LN_X2: return (int)launch_kp_ln_rows<LN_EXACT, float, float>(xf, j, ldj, out, M, D, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x[G*L, H*hd] (fp32, in place) += the mode's attention of qkv[G*L, 3*H*hd]
+// fp32 (SmMode above). bf16_operands: products on the tensor cores with J
+// bf16; else fp32 FMAs with J fp32. J [>= L, ldj] is read for SM_CD, SM_X2.
+int cse_kp_attention(const void* qkv, const void* j, int ldj, void* x, int bf16_operands, int mode,
+                     int G, int L, int H, int hd, float scale, void* stream) {
+  if (hd != HD) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(qkv);
+  float* xf = static_cast<float*>(x);
+  switch (mode) {
+    case SM_SKIP: return (int)launch_kp_attention<SM_SKIP>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+    case SM_SUM: return (int)launch_kp_attention<SM_SUM>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+    case SM_CD: return (int)launch_kp_attention<SM_CD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+    case SM_X2: return (int)launch_kp_attention<SM_X2>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_stack.cu", "fused_train.cu", "attention.cu", "fused_stack_w8a8.cu")
+SOURCES = ("fused_stack.cu", "fused_train.cu", "attention.cu", "fused_stack_w8a8.cu", "kernel_parts.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
@@ -46,6 +46,9 @@ SIGNATURES = {
     # fused_stack_w8a8.cu
     "cse_quantize_rows": (P, P, P, LL, I, P),
     "cse_linear_w8a8": (P, P, P, P, P, P, I, LL, I, I, P),
+    # kernel_parts.cu
+    "cse_kp_layer_norm": (P, P, I, P, I, I, LL, I, F, P),
+    "cse_kp_attention": (P, P, I, P, I, I, I, I, I, I, F, P),
 }
 
 

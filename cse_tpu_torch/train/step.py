@@ -13,14 +13,16 @@ Loss per variant:
             per step from two uniforms;
 * base:     PIT SI-SNR only.
 
-The frozen LLM is not ported yet: the batch carries ``ctx_feat`` (ROADMAP).
+The context features come from the batch (``ctx_feat``) or, when the steps
+are built with ``llm_apply`` and ``llm_params``, from the frozen context
+encoder run on ``context_ids`` / ``context_mask`` under ``no_grad``.
 The steps run on CUDA unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -54,13 +56,26 @@ def _apply_fn(model, fused: bool):
     return lambda mix, ctx=None, **kw: model(mix, ctx, **kw)
 
 
-def make_loss_fn(model, cfg: TrainConfig, fused: bool = False):
+def _get_ctx(batch, llm_apply, llm_params):
+    """The context features: the frozen encoder's, under no_grad, when
+    ``llm_apply`` is given; else the batch's ``ctx_feat``."""
+    if llm_apply is not None:
+        with torch.no_grad():
+            return llm_apply(llm_params, batch["context_ids"], batch["context_mask"])
+    return batch.get("ctx_feat")
+
+
+def make_loss_fn(model, cfg: TrainConfig, llm_apply: Callable | None = None, fused: bool = False,
+                 llm_params=None):
     """loss(batch, generator=None) -> (loss, metrics).
 
     ``batch`` keys: mixed [B, T], gt [B, T], noises [B, T, spk-1]
-    (contsep/base), ctx_feat [B, Tc, llm_dim], se [B, 1, se_dim] (hcontext).
+    (contsep/base), ctx_feat [B, Tc, llm_dim] (or context_ids / context_mask
+    when ``llm_apply`` is given), se [B, 1, se_dim] (hcontext).
     ``fused=True`` runs the separator through the fused forward (training
-    kernels on the card): the same parameters and math."""
+    kernels on the card): the same parameters and math. ``llm_apply`` is a
+    pure function ``(llm_params, ids, mask) -> feats`` (an encoder's
+    ``pure()``); no gradient flows into it."""
     apply_fn = _apply_fn(model, fused)
 
     def loss_fn(batch, generator=None):
@@ -72,7 +87,7 @@ def make_loss_fn(model, cfg: TrainConfig, fused: bool = False):
             loss = pit_si_snr_loss(est, targets).mean()
             metrics["snr_loss"] = loss
             return loss, metrics
-        ctx = batch.get("ctx_feat")
+        ctx = _get_ctx(batch, llm_apply, llm_params)
         if cfg.variant == "contsep":
             est, logits = apply_fn(mixed, ctx)
             # selection label: the stream with the highest SI-SNR against gt (no grad)
@@ -101,20 +116,28 @@ def _to_device(batch, device):
             for k, v in batch.items()}
 
 
+def _llm_to(llm_params, device):
+    return None if llm_params is None else tuple(t.to(device) for t in llm_params)
+
+
 def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: bool = False,
-                    device=None):
+                    device=None, llm_apply: Callable | None = None, llm_params=None):
     """step(batch, generator=None) -> metrics (floats: the loss terms,
     ``loss`` and the pre-clip ``grad_norm``).
 
     Moves ``model`` to ``device`` (CUDA unless ``device="cpu"``) and updates
-    its parameters in place; the optimizer state is ``step.opt_state``."""
+    its parameters in place; the optimizer state is ``step.opt_state``.
+    ``step.tensors(batch, generator=None)`` is the same step returning the
+    metrics as 0-d tensors on the device, without reading them back: the
+    trainer's loop reads them only at its log boundaries.
+    ``llm_apply`` / ``llm_params``: see :func:`make_loss_fn`."""
     dev = resolve_device(device)
     model.to(dev)
     params = list(model.parameters())
     opt_state = optimizer.init(params)
-    loss_fn = make_loss_fn(model, cfg, fused)
+    loss_fn = make_loss_fn(model, cfg, llm_apply, fused, _llm_to(llm_params, dev))
 
-    def step(batch, generator=None):
+    def tensors(batch, generator=None):
         batch = _to_device(batch, dev)
         for p in params:
             p.grad = None
@@ -124,13 +147,18 @@ def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: boo
         metrics["loss"] = loss
         metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
         optimizer.step(params, grads, opt_state)
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
 
+    def step(batch, generator=None):
+        return {k: float(v) for k, v in tensors(batch, generator).items()}
+
+    step.tensors = tensors
     step.opt_state = opt_state
     return step
 
 
-def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = False, device=None):
+def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = False, device=None,
+                   llm_apply: Callable | None = None, llm_params=None):
     """step(batch) -> (enhanced [B, T], aux).
 
     ContSep picks the stream through the selector head (argmax of the
@@ -139,6 +167,7 @@ def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = Fa
     ``fused=True`` runs the fused serving forward."""
     dev = resolve_device(device)
     model.to(dev)
+    llm_params = _llm_to(llm_params, dev)
     cue_idx = {"joint": 0, "history": 1, "voice": 2}[cue]
     if fused:
         apply_fn = lambda mix, ctx=None, **kw: sepformer_fused_forward(model, mix, ctx, **kw)
@@ -155,7 +184,7 @@ def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = Fa
                 best = si_snr(est.transpose(1, 2), batch["gt"][:, None, :]).argmax(dim=-1)
                 return est.gather(2, best[:, None, None].expand(-1, est.shape[1], 1))[:, :, 0], {}
             return est[:, :, 0], {}
-        ctx = batch.get("ctx_feat")
+        ctx = _get_ctx(batch, llm_apply, llm_params)
         if cfg.variant == "contsep":
             est, logits = apply_fn(mixed, ctx)
             pred = logits.argmax(dim=-1) if cfg.use_ce else (logits[:, 0] > 0).long()

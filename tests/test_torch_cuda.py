@@ -367,3 +367,96 @@ def test_w8a8_stack_matches_reference_and_counts(gen, cd):
     assert w8.launch_counts() == fs.launches_per_stack(2, "w8a8")
     assert got.dtype == cd and got.shape == x.shape
     _close(got, fs.fused_stack_reference(x, w, 8, cd, quant="w8a8"), torch.bfloat16)
+
+
+# ---------------------------------------------------------------- the kernel-parts tool's kernels
+
+
+def _kp_jmat(cd, d=256):
+    return torch.full((d, 128), 1.0 / d, device="cuda").to(cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("ln_mode", ["none", "centred", "cd", "exact", "x2"])
+def test_kp_layer_norm_matches_plain(gen, cd, ln_mode):
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    x = 0.3 + 2 * torch.randn(1003, 256, device="cuda", generator=gen)
+    x[5] = 0.5  # a constant row: var is exactly 0
+    got, want = kp.kp_layer_norm(x, _kp_jmat(cd), ln_mode, cd), kp.kp_layer_norm_plain(x, _kp_jmat(cd), ln_mode, cd)
+    assert got.dtype == cd
+    if ln_mode != "none":  # 'none' is the cast alone
+        assert float(got[5].float().abs().max()) == 0.0
+    _close(got, want, cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("sm_mode,seq_len", [("skip", 256), ("sum", 256), ("cd", 256), ("ones", 256), ("x2", 256),
+                                             ("skip", 7), ("sum", 127), ("sum", 300), ("ones", 513)])
+def test_kp_attention_matches_plain(gen, cd, sm_mode, seq_len):
+    """Each softmax mode at the tool's length, and the modes free of jmat at
+    other lengths (one key tile or several). The bf16 kernel rounds the score
+    operands to bf16, and so does the plain version it is held against."""
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    G = 3
+    qkv = torch.randn(G * seq_len, 768, device="cuda", generator=gen)
+    x = torch.randn(G * seq_len, 256, device="cuda", generator=gen)
+    got = kp.kp_attention(qkv, _kp_jmat(cd), x.clone(), seq_len, 8, sm_mode, cd)
+    want = kp.kp_attention_plain(qkv, _kp_jmat(cd), x.clone(), seq_len, 8, sm_mode, cd,
+                                 qk_dtype=None if cd == torch.float32 else cd)
+    _close(got - x, want - x, cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("mode", ["full", "matmul_only", "no_softmax", "ln_matmul", "softmax_matmul", "combined",
+                                  "combined_hp", "combined_x2"])
+def test_kernel_parts_apply_matches_plain_and_counts(gen, cd, mode):
+    from cse_tpu_torch.ops import kernel_parts as kp
+    from cse_tpu_torch.scripts.bench_kernel_parts import make_inputs
+
+    args = make_inputs(5, 256, 256, 2, cd)
+    kp.reset_launches()
+    got = kp.kernel_parts_apply(*args, mode, 8)
+    assert kp.launch_counts() == kp.launches_per_call(2)
+    want = kp.kernel_parts_plain(*args, mode, 8, qk_dtype=None if cd == torch.float32 else cd)
+    assert kp.launch_counts() == kp.launches_per_call(2)  # the plain version launches nothing
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(a).all() and got.dtype == torch.float32
+    assert np.linalg.norm(a - b) / np.linalg.norm(b) <= (1e-5 if cd == torch.float32 else 1e-2)
+
+
+def test_kernel_parts_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    j = _kp_jmat(torch.bfloat16)
+    with pytest.raises(ValueError, match="head width 32"):
+        kp.kp_attention(torch.zeros(64, 3 * 64, device="cuda"), j, torch.zeros(64, 64, device="cuda"), 64, 8, "sum",
+                        torch.bfloat16)
+    with pytest.raises(ValueError, match="jmat"):  # the jmat softmax sums need a row of jmat per key
+        kp.kp_attention(torch.zeros(600, 768, device="cuda"), j, torch.zeros(600, 256, device="cuda"), 300, 8, "cd",
+                        torch.bfloat16)
+    with pytest.raises(TypeError):
+        kp.kp_layer_norm(torch.zeros(4, 256, device="cuda"), j.half(), "centred", torch.float16)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        kp.kp_layer_norm(torch.zeros(4, 256, device="cuda"), j.cpu(), "centred", torch.bfloat16)
+
+
+def test_trainer_on_the_card_tiny(gen, tmp_path):
+    """train_net on the card at the tiny width (head width 8, which the fused
+    and flash kernels do not take: the layer-by-layer path, forced), and a
+    checkpoint resumes."""
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.train.loop import train_net
+
+    argv = ["--synthetic_smoke", "--debug_tiny_model", "--train_data", "dailytalk", "--tot_iters", "3",
+            "--batch_size", "2", "--eval_step", "2", "--max_sp_len", "2", "--max_ctx_tokens", "16", "--workers", "2",
+            "--no_fused_train", "--checkpoint_dir", str(tmp_path)]
+    with torch.enable_grad():
+        stats = {}
+        model = train_net(parse_train_args(argv), "base", stats=stats)
+        assert next(model.parameters()).device.type == "cuda" and stats["final_step"] == 4
+        assert np.isfinite(stats["loss_reads"]).all() and len(list(tmp_path.glob("Epoch_*.ckpt"))) == 2
+        stats = {}
+        train_net(parse_train_args(argv + ["--resume", "--from_ckpt", "--tot_iters", "5"]), "base", stats=stats)
+        assert stats["start_step"] == 4 and stats["final_step"] == 6

@@ -63,3 +63,34 @@ def test_package_has_training_kernel_sources(name):
 @pytest.mark.parametrize("name", ["attention.cu", "fused_stack_w8a8.cu"])
 def test_package_has_flash_and_w8a8_kernel_sources(name):
     assert (PKG_DIR / "csrc" / name).exists()
+
+
+TRAINER_MODULES = [
+    "ops.kernel_parts", "ops.mixing", "ops.resample", "data.audio_io", "data.tokenizer", "data.datasets",
+    "data.synthetic", "data.pipeline", "models.context_encoder", "train.checkpoint", "train.loop", "core.flags",
+    "core.banner", "utils.logging", "utils.profiling", "train_ContExt", "train_ContSep", "train_Sepformer",
+    "scripts.bench_kernel_parts",
+]
+
+
+@pytest.mark.parametrize("name", TRAINER_MODULES)
+def test_trainer_and_tool_modules_are_walked(name):
+    """The trainer's modules, the three entry points and the kernel-parts tool
+    are modules of the package, so the two tests above cover them."""
+    assert f"cse_tpu_torch.{name}" in _modules()
+    assert (PKG_DIR / (name.replace(".", "/") + ".py")).exists()
+
+
+def test_package_has_kernel_parts_source_and_build_lists_it():
+    from cse_tpu_torch.ops import _build
+
+    assert (PKG_DIR / "csrc" / "kernel_parts.cu").exists()
+    assert "kernel_parts.cu" in _build.SOURCES
+    assert {"cse_kp_layer_norm", "cse_kp_attention"} <= set(_build.SIGNATURES)
+    assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG_DIR / "csrc").glob("*.cu"))
+
+
+def test_chip_smoke_imports_nothing_forbidden():
+    src = (PKG_DIR.parent / "chip_smoke.py").read_text()
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:" + "|".join(FORBIDDEN) + r"|cse_tpu)(?:\.|\s|$)", re.M)
+    assert not pat.findall(src), pat.findall(src)

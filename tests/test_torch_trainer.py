@@ -1,0 +1,254 @@
+"""The trainer slice as a whole on the CPU: cse_tpu_torch.train.loop.train_net
+through parse_train_args with --debug_tiny_model --platform cpu (the flags of
+tests/test_integration.py), the first batch's loss and gradients against
+cse_tpu's, resume, and the checkpoint files.
+
+First-step parity: the model's weights and the encoder's tables go across
+(compat.jax_params); each package draws the batch from its own loader and
+its own synthesize_batch. Loss and every gradient at rtol 5e-3, atol 1e-4
+(fp32), the bar of tests/test_torch_train_step.py.
+"""
+
+import copy
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cse_tpu.train.loop as jloop
+import cse_tpu.train.step as jstep
+import cse_tpu_torch.train.loop as tloop
+import cse_tpu_torch.train.step as tstep
+from cse_tpu.core.flags import parse_train_args as jax_parse_train_args
+from cse_tpu.data import datasets as jds
+from cse_tpu.data.pipeline import TrainLoader as JaxTrainLoader
+from cse_tpu.data.tokenizer import load_tokenizer as jax_load_tokenizer
+from cse_tpu.models.context_encoder import HashProjectionEncoder as JaxEncoder
+from cse_tpu_torch.compat.jax_params import hash_encoder_tables, jax_params_to_state_dict, load_jax_params
+from cse_tpu_torch.core.flags import parse_train_args
+from cse_tpu_torch.data import datasets as tds
+from cse_tpu_torch.data.pipeline import TrainLoader
+from cse_tpu_torch.data.tokenizer import load_tokenizer
+from cse_tpu_torch.models.context_encoder import HashProjectionEncoder
+from cse_tpu_torch.train import checkpoint as ckpt_lib
+from cse_tpu_torch.train.loop import train_net
+from cse_tpu_torch.train.optimizer import build_optimizer
+from cse_tpu_torch.train.schedules import ReduceLROnPlateau
+
+torch.set_num_threads(1)
+
+BASE = ["--synthetic_smoke", "--platform", "cpu", "--debug_tiny_model", "--train_data", "dailytalk",
+        "--tot_iters", "3", "--batch_size", "2", "--eval_step", "2", "--max_sp_len", "2",
+        "--max_ctx_tokens", "16", "--workers", "2", "--log_every", "10"]
+TOL = dict(rtol=5e-3, atol=1e-4)
+
+
+def _args(extra, parse=parse_train_args):
+    return parse(BASE + [str(e) for e in extra])
+
+
+def test_flags_match_the_jax_package():
+    a, b = vars(_args([])), vars(_args([], jax_parse_train_args))
+    assert a == b
+    assert parse_train_args([]).platform is None and parse_train_args([]).fused_train is None
+    assert parse_train_args(["--no_fused_train"]).fused_train is False
+    assert parse_train_args(["--ctx_buckets", "none"]).ctx_buckets == ()
+
+
+@pytest.mark.parametrize("variant", ["context", "contsep", "base"])
+def test_train_net_variants(tmp_path, variant, capsys):
+    stats = {}
+    model = train_net(_args(["--checkpoint_dir", tmp_path / variant]), variant=variant, stats=stats)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    ckpts = sorted(p.name for p in (tmp_path / variant).glob("*.ckpt"))
+    assert [c[:16] for c in ckpts if c.startswith("Epoch")] == ["Epoch_0000_00002", "Epoch_0000_00004"]
+    # --tot_iters 3: the reference's stop rule ends the run after update 4
+    assert stats["start_step"] == 0 and stats["final_step"] == 4
+    assert stats["loss_reads"] and all(np.isfinite(stats["loss_reads"]))
+    assert len(stats["val_ms"]) >= 3 and stats["h2d_bytes"] > 0
+    out = capsys.readouterr().out
+    assert "train path: layer by layer (auto) on cpu" in out and "Total Iteration Reached" in out
+    assert out.count("## VALIDATION SI-SNR") == 3  # the smoke validation and steps 2, 4
+
+
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train_net(_args(["--checkpoint_dir", tmp_path]), variant="hcontext")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        train_net(_args(["--checkpoint_dir", tmp_path, "--mesh_data", 2]), variant="context")
+    # no --platform: the card, and without one it raises rather than run on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _args(["--checkpoint_dir", tmp_path])
+    args.platform = None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net(args, variant="context")
+
+
+def test_fused_path_can_be_forced_on_the_cpu(tmp_path, capsys):
+    stats = {"profile_steps": (0, 2)}  # both steps under the loop's profiler window
+    train_net(_args(["--checkpoint_dir", tmp_path, "--fused_train", "--tot_iters", 1, "--eval_step", 5]),
+              variant="context", stats=stats)
+    assert "train path: fused kernels (forced) on cpu" in capsys.readouterr().out
+    assert stats["final_step"] == 2 and np.isfinite(stats["loss_reads"]).all()
+    assert not list(tmp_path.glob("*.ckpt"))  # no eval_step boundary was reached
+    # on the CPU the window has the loop's range and no device activity
+    assert stats["profile"] == {"range_ms": {"prepare_batch": [0.0, 0.0]}}
+
+
+def test_device_activity_reads_busy_share_and_longest_gap():
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from cse_tpu_torch.utils.profiling import device_activity
+
+    def ev(dev, a, b, name="k", note=False, dev_us=0.0):
+        return NS(device_type=dev, time_range=NS(start=a, end=b), name=name, is_user_annotation=note,
+                  device_time_total=dev_us)
+
+    events = [ev(DeviceType.CUDA, 3000.0, 4000.0), ev(DeviceType.CUDA, 0.0, 1000.0),
+              ev(DeviceType.CUDA, 1500.0, 2000.0), ev(DeviceType.CUDA, 0.0, 4000.0, "cse/prepare_batch", note=True),
+              ev(DeviceType.CPU, 0.0, 10.0, "cse/prepare_batch", note=True, dev_us=2500.0),
+              ev(DeviceType.CPU, 0.0, 10.0, "aten::add")]
+    got = device_activity(NS(events=lambda: events))
+    assert got == {"wall_ms": 4.0, "kernel_ms": 2.5, "busy_share": 0.625, "longest_idle_gap_ms": 1.0,
+                   "range_ms": {"prepare_batch": [2.5]}}
+
+
+def _first_batches(args, jargs):
+    """The first train batch of each package from its own loader and synthesis."""
+    out = []
+    for a, ds_, Loader, load_tok, loop in ((jargs, jds, JaxTrainLoader, jax_load_tokenizer, jloop),
+                                           (args, tds, TrainLoader, load_tokenizer, tloop)):
+        paths = loop._corpus_paths(a)
+        kw = dict(seed=a.seed, num_workers=a.workers, process_index=0, process_count=1,
+                  demand_files=ds_.demand_noise_list(paths) if a.noise_add else None)
+        if Loader is TrainLoader:
+            kw["device"] = "cpu"
+        loader = Loader(ds_.build_train_list(paths, a.train_data), loop._pipeline_cfg(a, "train"),
+                        load_tok(a.llama_path, a.llama_auth_token), a.train_data, a.batch_size, **kw)
+        out.append(loader.device_batch(next(iter(loader.batches(0)))))
+        loader.close()
+    return out
+
+
+@pytest.mark.parametrize("variant,extra", [("context", ["--augmentation", "--noise_add"]), ("contsep", []),
+                                           ("base", [])])
+def test_first_batch_loss_and_grads_match_jax(variant, extra):
+    args = tloop.setup_synthetic(_args(extra))
+    jargs = _args(extra, jax_parse_train_args)
+    for k in ("dailytalk_data_path", "acoustic_noise_path", "lists_root", "llama_path"):
+        setattr(jargs, k, getattr(args, k))  # both read the port's copy of the corpus
+    jbatch, tbatch = _first_batches(args, jargs)
+    keys = ("mixed", "gt", "noises", "context_ids", "context_mask")
+
+    jmodel, jtcfg = jloop.build_model(jargs, variant)
+    jb = {k: jbatch[k] for k in keys}
+    dummy = (jnp.zeros((2, 4000)),) + (() if variant == "base" else (jnp.zeros((2, 1, 4096)),))
+    params = jmodel.init(jax.random.key(0), *dummy)
+    jenc = JaxEncoder(dim=4096, ctx_length=1)
+    jfn, jps = jenc.pure()
+    loss_fn = jstep.make_loss_fn(jmodel, jtcfg, None if variant == "base" else jfn, fused=False)
+    (jl, jmetrics), jg = jax.value_and_grad(lambda p: loss_fn(p, jb, jax.random.key(1), jps), has_aux=True)(params)
+    want = {k: v.numpy() for k, v in jax_params_to_state_dict(jax.tree.map(np.asarray, jg)).items()}
+
+    model, tcfg = tloop.build_model(args, variant)
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    key = jax.random.key(0)
+    tables = hash_encoder_tables(np.asarray(jax.random.normal(key, (1, 1, 4096)) * 0.02),
+                                 np.asarray(jax.random.uniform(jax.random.fold_in(key, 1), (1, 1, 4096)) * 6.283))
+    tfn, tps = HashProjectionEncoder(dim=4096, ctx_length=1, tables=tables).pure()
+    loss, metrics = tstep.make_loss_fn(model, tcfg, None if variant == "base" else tfn, llm_params=tps)(
+        {k: tbatch[k] for k in keys})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), **TOL)
+    assert set(metrics) == set(jmetrics)
+    got = {k: p.grad.numpy() for k, p in model.named_parameters()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+
+
+def test_resume_restores_state_bit_exact_and_continues(tmp_path, monkeypatch):
+    d = tmp_path / "run"
+    train_net(_args(["--checkpoint_dir", d, "--tot_iters", 2, "--plateau", "--no_reduce", 0,
+                     "--update_frequency", 2]), variant="context")
+    first = ckpt_lib.latest_checkpoint(str(d))
+    assert os.path.basename(first).startswith("Epoch_0000_00002_")
+    saved = ckpt_lib.restore_checkpoint(first)
+    assert saved["step"] == 2 and saved["epoch"] == 0 and saved["format"] == ckpt_lib.FORMAT
+    assert saved["opt_state"]["count"] == 2 and saved["opt_state"]["mini_step"] == 0
+    assert saved["opt_state"]["gradient_step"] == 2 and len(saved["opt_state"]["acc_grads"]) == len(saved["model"])
+    assert set(saved["plateau"]) == set(ReduceLROnPlateau().state_dict())
+
+    seen = {}
+    orig_load, orig_state = ckpt_lib.load_opt_state, ReduceLROnPlateau.load_state_dict
+
+    def load_opt_state(state, saved_state):
+        out = orig_load(state, saved_state)
+        seen["opt"] = copy.deepcopy(ckpt_lib.opt_state_to_dict(out))
+        return out
+
+    def load_state_dict(self, sd):
+        orig_state(self, sd)
+        seen["plateau"] = self.state_dict()
+
+    monkeypatch.setattr(ckpt_lib, "load_opt_state", load_opt_state)
+    monkeypatch.setattr(ReduceLROnPlateau, "load_state_dict", load_state_dict)
+    stats = {}
+    model = train_net(_args(["--checkpoint_dir", d, "--tot_iters", 4, "--resume", "--from_ckpt", "--plateau",
+                             "--no_reduce", 0, "--update_frequency", 2]), variant="context", stats=stats)
+    assert stats["start_step"] == 2 and stats["final_step"] == 5
+    assert seen["plateau"] == dict(saved["plateau"])
+    for k, v in saved["opt_state"].items():
+        if isinstance(v, list):
+            assert all(torch.equal(a, b) for a, b in zip(seen["opt"][k], v)), k
+        else:
+            assert seen["opt"][k] == v, k
+    second = ckpt_lib.latest_checkpoint(str(d))
+    later = ckpt_lib.restore_checkpoint(second)
+    assert later["step"] == 4 > saved["step"] and later["best_val"] >= saved["best_val"]
+    assert later["opt_state"]["count"] == 4
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    # weights only (no --from_ckpt): the model is loaded, the counters are not
+    stats = {}
+    train_net(_args(["--checkpoint_dir", d, "--checkpoint", first, "--tot_iters", 0, "--eval_step", 50]),
+              variant="context", stats=stats)
+    assert stats["start_step"] == 0 and stats["final_step"] == 1
+
+
+def test_checkpoint_names_best_rolls_and_latest_orders(tmp_path):
+    d = str(tmp_path)
+    lin = torch.nn.Linear(3, 2)
+    opt = build_optimizer(1e-3, update_frequency=2)
+    state = {"model": lin.state_dict(), "opt_state": opt.init(list(lin.parameters())), "step": 7, "epoch": 1,
+             "best_val": 1.5, "plateau": ReduceLROnPlateau().state_dict()}
+    p1 = ckpt_lib.save_checkpoint(d, 1, 7, 1.5, state)
+    assert os.path.basename(p1) == "Epoch_0001_00007_1.50.ckpt"
+    b1 = ckpt_lib.save_checkpoint(d, 1, 7, 1.5, state, best=True)
+    assert os.path.basename(b1) == "Best_0001_00007_1.50.ckpt"
+    p2 = ckpt_lib.save_checkpoint(d, 0, 12, -3.256, dict(state, step=12))
+    assert os.path.basename(p2) == "Epoch_0000_00012_-3.26.ckpt"
+    b2 = ckpt_lib.save_checkpoint(d, 2, 9, 2.0, dict(state, step=9), best=True)
+    assert sorted(os.listdir(d)) == ["Best_0002_00009_2.00.ckpt", "Epoch_0000_00012_-3.26.ckpt",
+                                    "Epoch_0001_00007_1.50.ckpt"]  # one rolling Best
+    assert ckpt_lib.latest_checkpoint(d) == p2  # by the step in the name, not the epoch or the time
+    assert ckpt_lib.latest_checkpoint(str(tmp_path / "none")) is None
+    got = ckpt_lib.restore_checkpoint(b2)
+    assert got["step"] == 9 and got["epoch"] == 1 and got["best_val"] == 1.5
+    assert all(torch.equal(got["model"][k], v) for k, v in lin.state_dict().items())
+    fresh = opt.init(list(lin.parameters()))
+    fresh.count = 99
+    ckpt_lib.load_opt_state(fresh, got["opt_state"])
+    assert fresh.count == 0 and fresh.acc_grads is not None and fresh.plateau_scale == 1.0
+    # a released PyTorch checkpoint (no format entry) is refused
+    released = str(tmp_path / "released.ckpt")
+    torch.save({"state_dict": lin.state_dict(), "step": 3}, released)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ckpt_lib.restore_checkpoint(released)
+    with pytest.raises(ValueError, match="does not fit"):
+        ckpt_lib.load_opt_state(build_optimizer(1e-3).init(list(torch.nn.Linear(2, 2).parameters())),
+                                dict(got["opt_state"], mu=[]))
