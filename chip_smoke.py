@@ -37,19 +37,26 @@ Phases (any failure exits non-zero and prints no result line):
      against the formula, median step time, mixtures/s, peak memory, one
      profiled step; make_eval_step(fused=False): forward time, output against
      the fused serving engine on the same weights; (d) kernel times beside
-     the plain versions, SDPA and the bounds;
+     the plain versions, SDPA and the bounds, the forward's time before its
+     redesign, and the forward launch's route, registers, local memory and
+     resident blocks per SM (every L <= 256 instantiation must have no local
+     memory);
   9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
      epilogues and the whole w8a8 stack against their plain versions; (b)
      ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
      Sepformer: launches, median forward time, realtime factor; (c) kernel
      times beside the plain versions, torch._int_mm or SDPA, and the bounds;
  10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
-     every mode and the whole stripped forward in all 8 modes against the plain
+     every mode (bf16 also on the multi-pass route, at L=300) and the whole
+     stripped forward in all 8 modes against the plain
      versions, and its three products on the GEMM kernel, at the shapes of the
      tool's own run, G=1008, Lp=D=256, 2 layers, 8 heads, fp32 twin and bf16;
      (b) that run (python -m cse_tpu_torch.scripts.bench_kernel_parts at its
      defaults): launches, ms and TFLOP/s of all 8 modes, the plain version's
-     time, the kernels' times beside a library call and the bounds;
+     time, the kernels' times beside a library call and the bounds, the
+     attention's time before its redesign, and each mode's launch: route,
+     registers, local memory and resident blocks per SM (every L <= 256
+     instantiation must have no local memory);
  11. the trainer: train_net through parse_train_args, variant 'context', full
      width, --synthetic_smoke --bf16 --batch_size 16 --max_sp_len 16
      --flash_attention --remat layer with the whole augmentation chain, 9
@@ -132,6 +139,10 @@ HBM_BYTES_S = 3.35e12
 
 INTRA = (2016, 251)  # B*S sequences of K + 1 tokens at B=16, T=125000
 INTER = (4000, 127)  # B*K sequences of S + 1 tokens
+# the multi-pass kernels' times before the one-pass redesign, printed beside the new ones
+# (PERF.md section 6, rows 5 and 7b; NVIDIA H100 80GB HBM3, 700 W)
+FLASH_FWD_EARLIER_MS = {"intra": 4.238, "inter": 1.626}
+KP_ATTENTION_EARLIER_MS = 1.750
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
 SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
 REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
@@ -626,7 +637,8 @@ def phase8_kernels(gen, failures, H=8, hd=32):
         for name, (G, L) in (("intra", INTRA), ("inter", INTER), ("L=300", (64, 300)), ("L=600", (32, 600))):
             q, k, v, do = (torch.randn(G, H, L, hd, device="cuda", generator=gen).to(cd) for _ in range(4))
             (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
-            e = check(f"flash_fwd {tag} {name} G={G} L={L} o", o, po, cd, failures)
+            route = at.flash_fwd_info(L, hd)["route"] if cd == torch.bfloat16 else "fp32"
+            e = check(f"flash_fwd {tag} {name} G={G} L={L} ({route}) o", o, po, cd, failures)
             e = max(e, check(f"flash_fwd {tag} {name} lse", lse, plse, torch.float32, failures))
             err["flash_fwd"] = max(err["flash_fwd"], e)
             del o, lse
@@ -784,8 +796,15 @@ def phase8_bench(gen, card, failures):
             "eval_times_ms": eval_times, "eval_launches": eval_counts, "eval_vs_serving_rel_l2": rl2}
 
 
+def show_info(what, info):
+    log(f"  {what}: route {info['route']}, {info['key_blocks']} key blocks in registers, {info['threads']} threads "
+        f"and {info['rows_per_block']} query rows a block, {info['smem_bytes']} B shared, {info['registers']} "
+        f"registers and {info['local_bytes']} B local memory a thread, {info['blocks_per_sm']} blocks per SM")
+
+
 def phase8_times(gen, card, H=8, hd=32):
-    """(d) the flash kernels' times, plain times, SDPA and bounds (bf16)."""
+    """(d) the flash kernels' times, plain times, SDPA and bounds (bf16), and
+    the forward launch's route, registers, local memory and resident blocks."""
     from cse_tpu_torch.ops import attention as at
 
     log(f"[8d] flash kernel times, bf16 [{card}]")
@@ -805,6 +824,7 @@ def phase8_times(gen, card, H=8, hd=32):
             "flash_fwd": dict(ms=time_ms(lambda: at.flash_fwd(q, k, v)),
                               plain_ms=time_ms(lambda: at.flash_fwd_plain(q, k, v), reps=3),
                               library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                              launch=at.flash_fwd_info(L, hd),
                               **bound_of(4 * X + G * H * L * 4, 4 * G * H * L * L * hd)),
             "flash_bwd": dict(ms=time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do)),
                               plain_ms=time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do), reps=3),
@@ -817,6 +837,14 @@ def phase8_times(gen, card, H=8, hd=32):
         for kname, x in t.items():
             log(f"  {name} G={G} L={L} {kname:<10s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
                 f"SDPA {x['library_ms']:.4f} ms  bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+        log(f"  {name} flash_fwd {t['flash_fwd']['ms']:.4f} ms; before the redesign "
+            f"{FLASH_FWD_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        show_info(f"{name} flash_fwd launch", t["flash_fwd"]["launch"])
+    spills = {f"L={L} dh={dh}": at.flash_fwd_info(L, dh)["local_bytes"] for L in (128, 256) for dh in (16, 32, 48, 64)}
+    log(f"  strip instantiations, local-memory bytes a thread: {spills}")
+    if any(spills.values()):
+        fail(f"a strip instantiation of flash_fwd spills to local memory: {spills}")
+    times["strip_local_bytes"] = spills
     return times
 
 
@@ -1033,6 +1061,15 @@ def phase10_kernels(gen, failures):
             err["kp_attention"] = max(err["kp_attention"], e)
             del got, ref
         del qkv
+        if cd == torch.bfloat16:  # the multi-pass route of L > 256, in the modes free of jmat
+            G2, L2 = 64, 300
+            qkv, r2 = (torch.randn(G2 * L2, n * D, device="cuda", generator=gen) for n in (3, 1))
+            for sm_mode in ("skip", "sum"):
+                got = kp.kp_attention(qkv, jmat, r2.clone(), L2, H, sm_mode, cd) - r2
+                ref = kp.kp_attention_plain(qkv, jmat, r2.clone(), L2, H, sm_mode, cd, qk_dtype=qk) - r2
+                check(f"kp_attention {tag} {sm_mode} G={G2} L={L2} ({kp.kp_attention_info(L2, sm_mode)['route']})",
+                      got, ref, cd, failures)
+            del qkv, r2, got, ref
         # the tool's three products on the port's GEMM: zero bias, as kernel_parts_apply calls it
         for wt, epi in ((w[0], "bias"), (f1[0], "relu"), (f2[0], "residual")):
             K, N = wt.shape
@@ -1115,13 +1152,23 @@ def phase10_tool(gen, card):
         library_ms=time_ms(lambda: F.layer_norm(r, (D,), None, None, 1e-6)),
         **bound_of(M * D * (4 + 2), 0))
     qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
+    # SDPA's yardstick takes bf16 q, k, v already split by head: no fp32 read, no residual add
     q, k, v = (a.to(cd) for a in qkv.reshape(G, Lp, 3, H, hd).permute(2, 0, 3, 1, 4))
     sm_ms = {m: time_ms(lambda m=m: kp.kp_attention(qkv, jmat, r, Lp, H, m, cd)) for m in kp.SOFTMAX_MODES}
     t["kp_attention"] = dict(
         ms=sm_ms["sum"], by_mode_ms=sm_ms,
         plain_ms=time_ms(lambda: kp.kp_attention_plain(qkv, jmat, r, Lp, H, "sum", cd, qk_dtype=cd), reps=2, warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        launch={m: kp.kp_attention_info(Lp, m) for m in kp.SOFTMAX_MODES},
         **bound_of(M * 3 * D * 4 + 2 * M * D * 4, 4 * G * H * Lp * Lp * hd))
+    log(f"  kp_attention by mode {({m: round(x, 4) for m, x in sm_ms.items()})}; before the redesign, mode 'sum': "
+        f"{KP_ATTENTION_EARLIER_MS} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+    for m, info in t["kp_attention"]["launch"].items():
+        show_info(f"kp_attention launch, mode {m!r}", info)
+    spills = {f"{m} L={L}": kp.kp_attention_info(L, m)["local_bytes"] for m in kp.SOFTMAX_MODES for L in (128, 256)}
+    log(f"  one-pass instantiations, local-memory bytes a thread: {spills}")
+    if any(spills.values()):
+        fail(f"a one-pass instantiation of kp_attention spills to local memory: {spills}")
     del qkv, q, k, v
     h = torch.randn(M, D, device="cuda", generator=gen).to(cd)
     hf = torch.randn(M, 4 * D, device="cuda", generator=gen).to(cd)
@@ -1514,7 +1561,9 @@ def main() -> int:
     # the flash path (launches of one bf16 train step, [8c]) and w8a8 serving
     # (launches of one w8a8 forward, [9b])
     slice3 = (
-        ("flash_fwd", SOURCE_FLASH, REPLACES_FLASH_FWD, "flash_fwd_bf16_kernel<32>", ftimes, flash_bench["launches"],
+        ("flash_fwd", SOURCE_FLASH, REPLACES_FLASH_FWD,
+         "flash_fwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); flash_fwd_bf16_kernel<32> (L > 256)", ftimes,
+         flash_bench["launches"],
          flash_err, "q/k/v [G, 8, L, 32] -> o, lse; one launch; launches per bf16 train step (remat='layer')"),
         ("flash_bwd", SOURCE_FLASH, REPLACES_FLASH_BWD,
          "flash_delta_kernel + flash_bwd_dq_bf16_kernel<32> + flash_bwd_dkdv_bf16_kernel<32>", ftimes,
@@ -1544,7 +1593,9 @@ def main() -> int:
     tool_parts = (
         ("kp_layer_norm", "kp_layer_norm", SOURCE_PARTS, "kp_ln_rows_kernel / kp_ln_mma_kernel", "kp_layer_norm",
          "ln (:29-55) in mode 'centred', one launch; every mode in 'by_mode_ms'"),
-        ("kp_attention", "kp_attention", SOURCE_PARTS, "kp_attention_bf16_kernel", "kp_attention",
+        ("kp_attention", "kp_attention", SOURCE_PARTS,
+         "kp_attention_strip_bf16_kernel<mode, 16 or 8> (L <= 256); kp_attention_bf16_kernel (L > 256)",
+         "kp_attention",
          "scores, softmax, PV and the residual add (:68-107) in mode 'sum', one launch; every mode in 'by_mode_ms'"),
         ("linear[kernel_parts]", "linear", SOURCE, "linear_bf16_kernel", "linear",
          "the qkv, FFN1 and FFN2 products (:67, :112, :114), one layer's 3 launches"),
@@ -1559,6 +1610,13 @@ def main() -> int:
             "work": f"G=1008 Lp=D=256 bf16, {part}; launches of the tool's default run (24 calls)",
             **({"by_mode_ms": ti["by_mode_ms"]} if "by_mode_ms" in ti else {}),
         })
+    # the two redesigned forwards carry their launch: route, registers, local memory, blocks per SM ([8d], [10b])
+    for entry in kernels:
+        if entry["name"] == "flash_fwd":
+            entry["launch"] = ftimes["intra"]["flash_fwd"]["launch"]
+            entry["inter"]["launch"] = ftimes["inter"]["flash_fwd"]["launch"]
+        elif entry["name"] == "kp_attention":
+            entry["launch"] = parts["times"]["kp_attention"]["launch"]
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel of the path was not launched: {[k['name'] for k in kernels if k['launches'] <= 0]}")
     log(f"  whole run {time.time() - t_start:.1f} s")

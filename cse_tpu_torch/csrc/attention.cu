@@ -9,24 +9,38 @@
 // layout; this first port keeps the public one.
 //
 // The TPU kernel holds one sequence's whole [Lp, Lp] score tile in VMEM with
-// L padded to a multiple of 128. An SM has 227 KB of shared memory and the
-// registers are the scarcer store, so here a block owns 64 rows (queries,
-// or keys in the dk/dv kernel), keys or queries stream through shared memory
-// in tiles, and scores live only in registers. No padding: keys past L are
-// masked (p = 0) and rows past L are not written. Any L; head width DH in
-// {16, 32, 48, 64}.
+// L padded to a multiple of 128 (one product, one exp). An SM has 227 KB of
+// shared memory and the registers are the scarcer store, so here scores live
+// only in registers and no padding is stored: keys past L are masked (p = 0)
+// and rows past L are not written. Any L; head width DH in {16, 32, 48, 64}.
 //
 // Arithmetic, that of the TPU kernels:
 //   forward  s = (q . k^T) * scale in fp32 (the scale after the product),
 //            m = max s, p = exp(s - m), z = sum p, o = cd(p / z) . v with
 //            fp32 accumulation (the division before PV), lse = m + log z.
-//            Three passes over the keys (max, sum, PV) recompute the scores
-//            instead of storing them.
 //   backward p = exp(s - lse), delta = rowsum(do * o), dp = do . v^T,
 //            ds = p * (dp - delta) * scale, dq = ds . k, dk = ds^T . q,
 //            dv = p^T . do, fp32 throughout, each result rounded to cd.
 //            A pre-pass writes delta; the dq kernel walks the keys once per
 //            query tile, the dk/dv kernel the queries once per key tile.
+//
+// The bf16 forward, routed by L. Because p / z is rounded to bf16 before PV,
+// z must be known before the PV product; online rescaling of o is another
+// function.
+//   L <= 256, the strip route (flash_fwd_strip_bf16_kernel): a warp owns 16
+//     queries and keeps their scores against every key in registers,
+//     s[NB][2][4] with NB = 8 (L <= 128) or 16 (L <= 256) blocks of 16 keys,
+//     each a compile-time register index: 64 or 128 fp32 registers a thread
+//     (the whole kernel 127 / 255 at DH 32, no local memory at any DH). K and
+//     V of the (sequence, head) land in shared memory by cp.async once per
+//     block of 2 warps; one product, one exponential and one normalisation
+//     per score, the row max and sum by quad shuffles, every phase without a
+//     branch over the key blocks. p = 2^(s c - m c) with c = scale log2(e)
+//     in one FMA and one ex2, and p * (1 / z): against the reference's expf
+//     and true division it holds the same tolerances and is faster (PERF.md).
+//   L > 256, the three-pass route (flash_fwd_bf16_kernel): 64 query rows per
+//     block, keys in shared-memory tiles of 256, and three passes over the
+//     keys (max, sum, PV) that recompute the scores instead of storing them.
 //
 // bf16: the score, dp and PV products have bf16 operands, so mma.sync
 // m16n8k16 with fp32 accumulation gives each product exactly, as the TPU's
@@ -40,10 +54,14 @@
 // heads, L = 251 or 127, DH = 32, bf16): the forward reads q, k, v and
 // writes o and lse, ~1.05 GB = 0.31 ms at 3.35 TB/s, against 0.13 TFLOP =
 // 0.13 ms on the tensor cores; the backward moves ~2.09 GB = 0.62 ms against
-// 0.33 TFLOP = 0.33 ms. Both are bound by bytes. The design reads each
-// operand tile once per block from device memory (K and V are re-read by
-// the ceil(L / 64) blocks of a sequence, mostly from L2) and writes each
-// output once.
+// 0.33 TFLOP = 0.33 ms. Both are bound by bytes on paper. The strip route
+// also pays one ex2 per score on the special-function unit (16 a clock per
+// SM: 1.0e9 scores at intra ~0.27 ms); at 255 registers a thread an SM
+// holds 8 warps, too few to hide the latency of a strip's dependent phases
+// (product, max, exp, sum, PV), which keeps it at 2.3x its byte bound at
+// intra, 1.3x at inter. The backward reads each
+// operand tile once per block (K and V are re-read by the ceil(L / 64)
+// blocks of a sequence, mostly from L2) and writes each output once.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -234,6 +252,99 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   if ((lane & 3) == 0) {
     if (ra < L) lse[bh * L + ra] = ma + logf(za);
     if (rb < L) lse[bh * L + rb] = mb + logf(zb);
+  }
+}
+
+// ---------------------------------------------------------------- forward, bf16, L <= 256
+// Block: sequence-head bh = blockIdx.x, all of its L query rows; warp w takes
+// the 16-row strips 16 w, 16 (w + W), ... K and V of NB * 16 keys in shared
+// memory (zero past L), loaded once. Per strip, the scores of key block cb
+// sit in s[cb] (the m16n8 accumulators of two n8 tiles). Every phase runs
+// over all NB blocks without a branch, so the compiler interleaves the
+// blocks' products and reductions; the row max and sum keep four partials
+// per row (j, e & 1) for the same reason. The next strip's q fragments are
+// loaded while this one computes.
+template <int DH, int NB>
+constexpr size_t strip_smem() { return sizeof(bf16) * 2 * NB * 16 * ldh<DH>(); }
+
+template <int DH, int NB>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                            bf16* __restrict__ o, float* __restrict__ lse, int L, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = ldh<DH>(), C = DH / 8;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LD]
+  bf16* Vs = Ks + NB * 16 * LD;
+  const long long bh = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const long long off = bh * L * DH;
+  for (int e = threadIdx.x; e < NB * 16 * C; e += blockDim.x) {
+    const int r = e / C, c = (e % C) * 8;
+    const long long g = off + (long long)min(r, L - 1) * DH + c;
+    cp_async16(Ks + r * LD + c, k + g, r < L);  // zero past L
+    cp_async16(Vs + r * LD + c, v + g, r < L);
+  }
+  cp_async_commit();
+  const float NEG_INF = __int_as_float(0xff800000);
+  const float c2 = scale * 1.4426950408889634f;  // scale * log2(e): the exponent is taken of the raw s
+  int q0 = warp * 16;
+  unsigned qn[DH / 16][4];
+  if (q0 < L) load_afrag<DH>(qn, q + off, q0 + (lane >> 2), L, lane);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (; q0 < L; q0 += nw * 16) {
+    const int ra = q0 + (lane >> 2), rb = ra + 8;
+    unsigned qa[DH / 16][4];
+#pragma unroll
+    for (int i = 0; i < DH / 16; ++i)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) qa[i][f] = qn[i][f];
+    if (q0 + nw * 16 < L) load_afrag<DH>(qn, q + off, ra + nw * 16, L, lane);
+
+    float s[NB][2][4];
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) prod16<DH>(s[cb], qa, Ks, cb * 16, lane);
+    // keys past L -> -inf (for NB = 16, L > 128: blocks 0-7 hold none)
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const bool edge = cb >= (NB == 16 ? 8 : 0) && cb * 16 + 16 > L;  // warp-uniform
+      const int lim = L - cb * 16 - (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (edge && j * 8 + (e & 1) >= lim) s[cb][j][e] = NEG_INF;
+    }
+    float m[2], z[2];
+    strip_row_max<NB>(s, m);
+    strip_exp<NB, true>(s, m, c2, z);  // p in place of s
+    const float iz[2] = {1.0f / z[0], 1.0f / z[1]};
+    // o = cd(p / z) . v
+    float acc[DH / 8][4];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      float pn[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pn[j][e] = s[cb][j][e] * iz[e >> 1];
+      const unsigned pa[4] = {pack_bf16(pn[0][0], pn[0][1]), pack_bf16(pn[0][2], pn[0][3]),
+                              pack_bf16(pn[1][0], pn[1][1]), pack_bf16(pn[1][2], pn[1][3])};
+      mma_rows<DH>(acc, pa, Vs, cb * 16, lane);
+    }
+    store_rows<DH>(o + off, acc, ra, L, lane);
+    if ((lane & 3) == 0) {
+      // lse = max of the scaled scores + log z; scaling by scale > 0 keeps the order
+      const float la = __fmul_rn(m[0], scale) + logf(z[0]);
+      const float lb = __fmul_rn(m[1], scale) + logf(z[1]);
+      if (ra < L) lse[bh * L + ra] = la;
+      if (rb < L) lse[bh * L + rb] = lb;
+    }
   }
 }
 
@@ -647,28 +758,82 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // ---------------------------------------------------------------- launchers
+// The bf16 forward's route: the strip kernel for L <= STRIP_MAX_L, one block
+// of STRIP_WARPS warps per sequence-head (all its strips, K and V loaded
+// once); three passes beyond. Measured on the H100 (PERF.md): 2 warps
+// a block beat 1, 4 and 8, and one block per sequence-head beat 64 or 128
+// query rows a block, at both training shapes.
+constexpr int STRIP_MAX_L = 256;
+constexpr int STRIP_WARPS = 2;
+
+// One launch of the bf16 forward at L: the kernel (its shared-memory limit
+// raised once), key blocks held in registers (0: three passes), threads,
+// query rows and dynamic shared bytes a block.
+struct FwdPlan {
+  const void* fn;
+  int nb, threads, rows;
+  size_t smem;
+  cudaError_t err;
+};
+
+template <int DH, int NB>
+FwdPlan strip_plan() {
+  static const cudaError_t e = cudaFuncSetAttribute(flash_fwd_strip_bf16_kernel<DH, NB>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    (int)strip_smem<DH, NB>());
+  return {reinterpret_cast<const void*>(flash_fwd_strip_bf16_kernel<DH, NB>), NB, 32 * STRIP_WARPS, NB * 16,
+          strip_smem<DH, NB>(), e};
+}
+
+template <int DH>
+FwdPlan plan_fwd_bf16(int L) {
+  if (L <= 128) return strip_plan<DH, 8>();
+  if (L <= STRIP_MAX_L) return strip_plan<DH, 16>();
+  static bool ready = false;
+  const cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready);
+  return {reinterpret_cast<const void*>(flash_fwd_bf16_kernel<DH>), 0, 128, RT,
+          sizeof(bf16) * 2 * ((min(L, KT) + 15) / 16 * 16) * ldh<DH>(), e};
+}
+
 template <int DH>
 cudaError_t launch_fwd(int bf, const void* q, const void* k, const void* v, void* o, float* lse, int BH, int L,
                        float scale, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((long long)BH * ((L + RT - 1) / RT));
-  cudaError_t e;
+  if (L < 1) return cudaErrorInvalidValue;
   if (bf) {
-    static bool ready = false;
-    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    const size_t bytes = sizeof(bf16) * 2 * kt_rows * ldh<DH>();
-    if ((e = allow_smem(flash_fwd_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready)) != cudaSuccess)
-      return e;
-    flash_fwd_bf16_kernel<DH><<<blocks, 128, bytes, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, L, scale, kt_rows);
+    const FwdPlan p = plan_fwd_bf16<DH>(L);
+    if (p.err != cudaSuccess) return p.err;
+    const unsigned blocks = (unsigned)((long long)BH * ((L + p.rows - 1) / p.rows));
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k), *vb = static_cast<const bf16*>(v);
+    bf16* ob = static_cast<bf16*>(o);
+    if (p.nb == 8)
+      flash_fwd_strip_bf16_kernel<DH, 8><<<blocks, p.threads, p.smem, st>>>(qb, kb, vb, ob, lse, L, scale);
+    else if (p.nb == 16)
+      flash_fwd_strip_bf16_kernel<DH, 16><<<blocks, p.threads, p.smem, st>>>(qb, kb, vb, ob, lse, L, scale);
+    else
+      flash_fwd_bf16_kernel<DH><<<blocks, p.threads, p.smem, st>>>(qb, kb, vb, ob, lse, L, scale,
+                                                                    (min(L, KT) + 15) / 16 * 16);
   } else {
     static bool ready = false;
+    const unsigned blocks = (unsigned)((long long)BH * ((L + RT - 1) / RT));
+    cudaError_t e;
     if ((e = allow_smem(flash_fwd_f32_kernel<DH>, fwd_f32_smem<DH>(), ready)) != cudaSuccess) return e;
     flash_fwd_f32_kernel<DH><<<blocks, 256, fwd_f32_smem<DH>(), st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, L, scale);
   }
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t fwd_info(int L, int* info) {
+  if (L < 1) return cudaErrorInvalidValue;
+  const FwdPlan p = plan_fwd_bf16<DH>(L);
+  if (p.err != cudaSuccess) return p.err;
+  info[0] = p.nb;
+  info[1] = p.threads;
+  info[2] = p.rows;
+  info[3] = (int)p.smem;
+  return kernel_info(p.fn, p.threads, p.smem, info + 4);
 }
 
 template <int DH>
@@ -726,6 +891,20 @@ int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
     case 32: return (int)launch_fwd<32>(bf, q, k, v, o, l, BH, L, scale, st);
     case 48: return (int)launch_fwd<48>(bf, q, k, v, o, l, BH, L, scale, st);
     case 64: return (int)launch_fwd<64>(bf, q, k, v, o, l, BH, L, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// info[7] of the bf16 forward cse_flash_fwd launches at (L, dh): key blocks
+// held in registers (0: three passes), threads, query rows a block, dynamic
+// shared bytes, registers a thread, local-memory bytes a thread, resident
+// blocks per SM.
+int cse_flash_fwd_info(int L, int dh, int* info) {
+  switch (dh) {
+    case 16: return (int)fwd_info<16>(L, info);
+    case 32: return (int)fwd_info<32>(L, info);
+    case 48: return (int)fwd_info<48>(L, info);
+    case 64: return (int)fwd_info<64>(L, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

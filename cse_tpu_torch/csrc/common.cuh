@@ -1,6 +1,7 @@
-// Device helpers shared by fused_stack.cu and fused_train.cu: type
-// conversion, warp reductions, cp.async, ldmatrix and the bf16 mma.sync
-// m16n8k16, and the fixed-order column reduction that turns per-block
+// Device helpers shared by the kernel sources: type conversion, warp
+// reductions, cp.async, ldmatrix and the bf16 mma.sync m16n8k16, ex2, the
+// row max and exp of a warp's score strip, a kernel's attributes and
+// occupancy, and the fixed-order column reduction that turns per-block
 // partial sums into one row (every cross-block sum of the port goes through
 // it, so no result depends on the order in which blocks run).
 #pragma once
@@ -68,6 +69,77 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 2^x on the special-function unit, one instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A warp's strip of scores s[NB][2][4]: 16 rows against NB blocks of 16 keys,
+// the m16n8 accumulators of two n8 tiles a block. Elements e < 2 belong to
+// row lane / 4, e >= 2 to row lane / 4 + 8; the four lanes of a quad share a
+// row. The reductions keep four partials a row, so that no chain of
+// dependent instructions runs through all NB blocks.
+template <int NB>
+__device__ __forceinline__ void strip_row_max(const float (&s)[NB][2][4], float (&m)[2]) {
+  float mx[2][2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mx[h][j][0] = mx[h][j][1] = __int_as_float(0xff800000);
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1][j][e & 1] = fmaxf(mx[e >> 1][j][e & 1], s[cb][j][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = fmaxf(fmaxf(mx[h][0][0], mx[h][0][1]), fmaxf(mx[h][1][0], mx[h][1][1]));
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) m[h] = fmaxf(m[h], __shfl_xor_sync(FULL, m[h], x));
+  }
+}
+
+// p = exp(s - m) in place of the scores, once per score, as 2^(s c - m c)
+// in one FMA and one ex2 (c = log2(e) times the scale the scores still
+// lack); with SUM also z = sum p over each row.
+template <int NB, bool SUM>
+__device__ __forceinline__ void strip_exp(float (&s)[NB][2][4], const float (&m)[2], float c, float (&z)[2]) {
+  const float nm[2] = {-m[0] * c, -m[1] * c};
+  float zz[2][2][2] = {};
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[cb][j][e] = ex2_approx(fmaf(s[cb][j][e], c, nm[e >> 1]));
+        if (SUM) zz[e >> 1][j][e & 1] += s[cb][j][e];
+      }
+  if constexpr (SUM) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      z[h] = (zz[h][0][0] + zz[h][0][1]) + (zz[h][1][0] + zz[h][1][1]);
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) z[h] += __shfl_xor_sync(FULL, z[h], x);
+    }
+  }
+}
+
+// The function attributes and occupancy of a kernel as chip_smoke.py and the
+// card tests read them: {registers a thread, local memory bytes a thread,
+// resident blocks per SM}.
+inline cudaError_t kernel_info(const void* fn, int threads, size_t smem, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], fn, threads, smem);
 }
 
 // out[c] = sum over r of P[r, c] for P [rows, cols] fp32, rows summed in

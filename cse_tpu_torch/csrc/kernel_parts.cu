@@ -38,12 +38,33 @@
 //                  of J, as the tool's product does;
 //         SM_X2    z = (hi(p) . J + lo(p) . J)[:, 0], p * (1 / z).
 //       The normalised p is rounded to cd BEFORE the PV product (the serving
-//       kernel divides after it), so z must be known first: three passes over
-//       the keys (max; sum; PV), the scores recomputed in each. bf16 runs the
+//       kernel divides after it), so z must be known first. bf16 runs the
 //       score, sum and PV products on the tensor cores with bf16(q * scale)
 //       and bf16(k) operands; fp32 runs CUDA-core FMAs, never TF32. The head
 //       outputs are added into the fp32 residual x in place (the tool's
-//       concatenate and x + attn).
+//       concatenate and x + attn). The bf16 kernel is routed by L:
+//         L <= 256, kp_attention_strip_bf16_kernel: q, k and v (and J's
+//           first eight columns, transposed) of all rows converted to bf16
+//           in shared memory once per block, each row's fp32 head slice
+//           read once, coalesced, many reads in flight; a warp owns 16
+//           queries and keeps their scores against every key in registers
+//           (s[NB][2][4], NB = 8 or 16 blocks of 16 keys, 64 or 128 fp32
+//           registers a thread; the kernel 186-242 at NB 16, no local
+//           memory): one product, one exponential per score, z by the mode
+//           from the resident p (shuffles, or mma.sync with p as the A
+//           operand), one normalisation, PV into a shared-memory tile that
+//           the block adds into x at the end. p = 2^(s log2(e) - m log2(e))
+//           in one FMA and one ex2, and p * (1 / z): against the tool's expf
+//           and divisions it holds the same tolerances and is faster
+//           (PERF.md).
+//         L > 256, kp_attention_bf16_kernel: keys in tiles of 256 and three
+//           passes over them (max; sum; PV), the scores recomputed in each.
+//       Bound on the H100 at the tool's shape (G = 1008, Lp = 256, 8 heads):
+//       the fp32 qkv read and the residual's read and write, 1.32 GB =
+//       0.394 ms at 3.35 TB/s, against 0.13 TFLOP on the tensor cores. A
+//       block stages its rows before any strip can start, and at 186-242
+//       registers a thread two blocks share an SM, so loading and computing
+//       overlap only across those two blocks.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -273,10 +294,11 @@ kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
   }
 }
 
-// bf16: score, sum and PV products on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulate), the scores in registers and recomputed in each pass. 4
-// warps, 16 query rows per warp at a time, bf16(q * scale) in A fragments; K,
-// V and J[:, 0:8] (transposed) of up to KT keys in shared memory in bf16.
+// bf16, L > 256: score, sum and PV products on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulate), the scores in registers and recomputed in each
+// pass. 4 warps, 16 query rows per warp at a time, bf16(q * scale) in A
+// fragments; K, V and J[:, 0:8] (transposed) of up to KT keys in shared
+// memory in bf16.
 constexpr int ATT_WARPS = 4;
 constexpr int LDH = HD + 8;    // bf16 row stride of the K, V tiles: ldmatrix conflict-free
 constexpr int LDJT = KT + 8;   // bf16 row stride of the transposed J tile
@@ -284,8 +306,9 @@ constexpr int LDJT = KT + 8;   // bf16 row stride of the transposed J tile
 template <int SM>
 __global__ void __launch_bounds__(ATT_WARPS * 32, 4)
 kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__ J, int ldj,
-                         float* __restrict__ x, int L, int H, float scale, int kt_rows) {
+                         float* __restrict__ x, int L, int H, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const int kt_rows = (min(L, KT) + 15) / 16 * 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
   bf16* Vs = Ks + kt_rows * LDH;             // [kt_rows][LDH]
   bf16* Jt = Vs + kt_rows * LDH;             // [8][LDJT]: Jt[n][key] = J[key, n]
@@ -486,14 +509,233 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
   }
 }
 
+// bf16, L <= 256: one pass. Block: one (sequence, head), its q, k and v
+// staged in shared memory as bf16 once; warp w takes the 16-query strips w,
+// w + W, ... The scores of key block cb sit in s[cb]. The head's output
+// collects in shared memory and is added into x by the whole block at the
+// end, with many reads in flight (a strip's own read-modify-write would wait
+// on each read).
+// Every phase runs over all NB blocks without a branch (K and V are zero
+// past L), so the compiler interleaves the blocks' work; the row max and sum
+// keep four partials per row.
+constexpr int KP_BATCH = 4;  // rows' loads a thread keeps in flight while the block stages q, k, v
+
+constexpr int LDO = HD + 8;   // fp32 row stride of the head-output tile: conflict-free float2 writes
+
+template <int NB>
+constexpr size_t kp_strip_smem() { return sizeof(bf16) * (3 * NB * 16 * LDH + 8 * LDJT) + sizeof(float) * NB * 16 * LDO; }
+
+template <int SM, int NB>
+__global__ void __launch_bounds__(256, 1)
+kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__ J, int ldj,
+                               float* __restrict__ x, int L, int H, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LDH]
+  bf16* Vs = Ks + NB * 16 * LDH;             // [NB * 16][LDH]
+  bf16* Qs = Vs + NB * 16 * LDH;             // [NB * 16][LDH]: bf16(q * scale)
+  bf16* Jt = Qs + NB * 16 * LDH;             // [8][LDJT]: Jt[n][key] = J[key, n]
+  float* Os = reinterpret_cast<float*>(Jt + 8 * LDJT);  // [NB * 16][LDO]: the head's output, added into x at the end
+  constexpr bool USE_J = SM == SM_CD || SM == SM_X2;
+  const int g = blockIdx.x / H, h = blockIdx.x % H;
+  const int D = H * HD, D3 = 3 * D;
+  const float* base = qkv + (long long)g * L * D3 + h * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const float NEG_INF = __int_as_float(0xff800000);
+  const float LOG2E = 1.4426950408889634f;
+
+  // each row's q, k, v head slices once, eight lanes to a row's 128 bytes, in
+  // batches of KP_BATCH loads a thread in flight; bf16(q * scale), bf16(k),
+  // bf16(v) into shared memory, zero past L
+  constexpr int N = NB * 16 * (HD / 4);
+  for (int e0 = threadIdx.x; e0 < N; e0 += KP_BATCH * blockDim.x) {
+    float4 t[KP_BATCH][3];
+#pragma unroll
+    for (int b = 0; b < KP_BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        t[b][u] = e < N && r < L ? *reinterpret_cast<const float4*>(base + (long long)r * D3 + u * D + c)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < KP_BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
+      if (e >= N) continue;
+      const float4 qq = t[b][0];
+      *reinterpret_cast<uint2*>(Qs + r * LDH + c) =
+          make_uint2(pack_bf16(qq.x * scale, qq.y * scale), pack_bf16(qq.z * scale, qq.w * scale));
+#pragma unroll
+      for (int u = 1; u < 3; ++u)
+        *reinterpret_cast<uint2*>((u == 1 ? Ks : Vs) + r * LDH + c) =
+            make_uint2(pack_bf16(t[b][u].x, t[b][u].y), pack_bf16(t[b][u].z, t[b][u].w));
+    }
+  }
+  if (USE_J)
+    for (int r = threadIdx.x; r < NB * 16; r += blockDim.x)
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+        Jt[nn * LDJT + r] = r < L ? J[(long long)r * ldj + nn] : __float2bfloat16_rn(0.f);
+  __syncthreads();
+
+  for (int q0 = warp * 16; q0 < L; q0 += nw * 16) {
+    const int ra = q0 + (lane >> 2), rb = ra + 8;
+    unsigned qa[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) ldmatrix_x4(qa[ks], Qs + (q0 + (lane & 15)) * LDH + ks * 16 + (lane >> 4) * 8);
+    float s[NB][2][4];
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[cb][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        unsigned kf[4];
+        ldmatrix_x4(kf, Ks + (cb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(s[cb][0], qa[ks], kf[0], kf[1]);
+        mma_bf16_16816(s[cb][1], qa[ks], kf[2], kf[3]);
+      }
+    }
+    // keys past L -> 0 (SM_SKIP) or -inf (for NB = 16, L > 128: blocks 0-7 hold none)
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const bool edge = cb >= (NB == 16 ? 8 : 0) && cb * 16 + 16 > L;  // warp-uniform
+      const int lim = L - cb * 16 - (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool masked = edge && j * 8 + (e & 1) >= lim;
+          if (SM == SM_SKIP) s[cb][j][e] = masked ? 0.f : s[cb][j][e] * 1e-4f;
+          else s[cb][j][e] = masked ? NEG_INF : s[cb][j][e];
+        }
+    }
+    if (SM != SM_SKIP) {
+      float m[2], z[2];
+      strip_row_max<NB>(s, m);
+      strip_exp<NB, SM == SM_SUM>(s, m, LOG2E, z);  // p in place of s
+      if (USE_J) {  // z = (bf16(p) . J)[:, 0], for SM_X2 plus (bf16 remainder of p . J)[:, 0]
+        float zh[4] = {0.f, 0.f, 0.f, 0.f}, zl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int cb = 0; cb < NB; ++cb) {
+          // B fragment of J: {k = 2 * (lane % 4) + {0, 1}, n = lane / 4}, then k + 8
+          const bf16* jp = Jt + (lane >> 2) * LDJT + cb * 16 + (lane & 3) * 2;
+          const unsigned b0 = *reinterpret_cast<const unsigned*>(jp);
+          const unsigned b1 = *reinterpret_cast<const unsigned*>(jp + 8);
+          const float (&p)[2][4] = s[cb];
+          const unsigned ph[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                                  pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+          mma_bf16_16816(zh, ph, b0, b1);
+          if (SM == SM_X2) {
+            auto lo = [](float v) { return v - to_f(__float2bfloat16_rn(v)); };
+            const unsigned pl[4] = {pack_bf16(lo(p[0][0]), lo(p[0][1])), pack_bf16(lo(p[0][2]), lo(p[0][3])),
+                                    pack_bf16(lo(p[1][0]), lo(p[1][1])), pack_bf16(lo(p[1][2]), lo(p[1][3]))};
+            mma_bf16_16816(zl, pl, b0, b1);
+          }
+        }
+        // column 0 of the product: the quad's first lane, elements 0 and 2
+        z[0] = __shfl_sync(FULL, zh[0] + zl[0], lane & ~3);
+        z[1] = __shfl_sync(FULL, zh[2] + zl[2], lane & ~3);
+      }
+      // p * (1 / z): SM_X2's own arithmetic, the others' division within the tolerances
+      const float iz[2] = {1.0f / z[0], 1.0f / z[1]};
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[cb][j][e] *= iz[e >> 1];
+    }
+    // O = bf16(normalised p) . V into the block's output tile
+    float o[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const float (&p)[2][4] = s[cb];
+      const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, Vs + (cb * 16 + (lane & 15)) * LDH + dp * 16 + (lane >> 4) * 8);
+        mma_bf16_16816(o[dp * 2], pa, vf[0], vf[1]);
+        mma_bf16_16816(o[dp * 2 + 1], pa, vf[2], vf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(Os + ra * LDO + d) = make_float2(o[j][0], o[j][1]);
+      *reinterpret_cast<float2*>(Os + rb * LDO + d) = make_float2(o[j][2], o[j][3]);
+    }
+  }
+  // x += the head's output, eight lanes to a row's 128 bytes, KP_BATCH rows' reads in flight
+  __syncthreads();
+  constexpr int NO = NB * 16 * (HD / 4);
+  for (int e0 = threadIdx.x; e0 < NO; e0 += KP_BATCH * blockDim.x) {
+    float4 t[KP_BATCH];
+#pragma unroll
+    for (int b = 0; b < KP_BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
+      if (e < NO && r < L) t[b] = *reinterpret_cast<const float4*>(x + ((long long)g * L + r) * D + h * HD + c);
+    }
+#pragma unroll
+    for (int b = 0; b < KP_BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
+      if (e >= NO || r >= L) continue;
+      const float4 a = *reinterpret_cast<const float4*>(Os + r * LDO + c);
+      *reinterpret_cast<float4*>(x + ((long long)g * L + r) * D + h * HD + c) =
+          make_float4(t[b].x + a.x, t[b].y + a.y, t[b].z + a.z, t[b].w + a.w);
+    }
+  }
+}
+
+// The bf16 attention's route: one pass for L <= STRIP_MAX_L, the multi-pass
+// kernel beyond. STRIP_WARPS beat 2 and 8 warps a block at the tool's shape
+// on the H100 (PERF.md).
+constexpr int STRIP_MAX_L = 256;
+constexpr int STRIP_WARPS = 4;
+
+// One launch of the bf16 attention at L: the kernel (its shared-memory limit
+// raised once), key blocks held in registers (0: multi-pass), threads and
+// dynamic shared bytes a block.
+using KpKernel = void (*)(const float*, const bf16*, int, float*, int, int, float);
+struct KpPlan {
+  KpKernel kern;
+  int nb, threads;
+  size_t smem;
+  cudaError_t err;
+};
+
+template <int SM, int NB>
+KpPlan kp_strip_plan() {
+  static const cudaError_t e = cudaFuncSetAttribute(kp_attention_strip_bf16_kernel<SM, NB>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    (int)kp_strip_smem<NB>());
+  return {kp_attention_strip_bf16_kernel<SM, NB>, NB, 32 * STRIP_WARPS, kp_strip_smem<NB>(), e};
+}
+
+template <int SM>
+KpPlan plan_kp_bf16(int L) {
+  if (L <= 128) return kp_strip_plan<SM, 8>();
+  if (L <= STRIP_MAX_L) return kp_strip_plan<SM, 16>();
+  return {kp_attention_bf16_kernel<SM>, 0, ATT_WARPS * 32,
+          sizeof(bf16) * (2 * ((min(L, KT) + 15) / 16 * 16) * LDH + 8 * LDJT), cudaSuccess};  // <= 45 KB
+}
+
 template <int SM>
 cudaError_t launch_kp_attention(int bf, const float* qkv, const void* J, int ldj, float* x, int G, int L,
                                 int H, float scale, cudaStream_t st) {
   if (bf) {
-    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    const size_t bytes = sizeof(bf16) * (2 * kt_rows * LDH + 8 * LDJT);  // <= 45 KB
-    kp_attention_bf16_kernel<SM><<<G * H, ATT_WARPS * 32, bytes, st>>>(
-        qkv, static_cast<const bf16*>(J), ldj, x, L, H, scale, kt_rows);
+    if (L < 1) return cudaErrorInvalidValue;
+    const KpPlan p = plan_kp_bf16<SM>(L);
+    if (p.err != cudaSuccess) return p.err;
+    p.kern<<<G * H, p.threads, p.smem, st>>>(qkv, static_cast<const bf16*>(J), ldj, x, L, H, scale);
   } else {
     static bool ready = false;
     const cudaError_t e = allow_smem(kp_attention_f32_kernel, KP_ATT_F32_SMEM, ready);
@@ -502,6 +744,18 @@ cudaError_t launch_kp_attention(int bf, const float* qkv, const void* J, int ldj
         qkv, static_cast<const float*>(J), ldj, x, L, H, scale, SM);
   }
   return cudaGetLastError();
+}
+
+template <int SM>
+cudaError_t kp_attention_info(int L, int* info) {
+  if (L < 1) return cudaErrorInvalidValue;
+  const KpPlan p = plan_kp_bf16<SM>(L);
+  if (p.err != cudaSuccess) return p.err;
+  info[0] = p.nb;
+  info[1] = p.threads;
+  info[2] = L;  // query rows a block: the whole sequence
+  info[3] = (int)p.smem;
+  return kernel_info(reinterpret_cast<const void*>(p.kern), p.threads, p.smem, info + 4);
 }
 
 template <int MODE, typename TO, typename TJ>
@@ -565,6 +819,20 @@ int cse_kp_attention(const void* qkv, const void* j, int ldj, void* x, int bf16_
     case SM_SUM: return (int)launch_kp_attention<SM_SUM>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
     case SM_CD: return (int)launch_kp_attention<SM_CD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
     case SM_X2: return (int)launch_kp_attention<SM_X2>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// info[7] of the bf16 attention cse_kp_attention launches for (mode, L), in
+// cse_flash_fwd_info's order: key blocks held in registers (0: multi-pass),
+// threads, query rows a block, dynamic shared bytes, registers a thread,
+// local-memory bytes a thread, resident blocks per SM.
+int cse_kp_attention_info(int mode, int L, int* info) {
+  switch (mode) {
+    case SM_SKIP: return (int)kp_attention_info<SM_SKIP>(L, info);
+    case SM_SUM: return (int)kp_attention_info<SM_SUM>(L, info);
+    case SM_CD: return (int)kp_attention_info<SM_CD>(L, info);
+    case SM_X2: return (int)kp_attention_info<SM_X2>(L, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

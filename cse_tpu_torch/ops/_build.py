@@ -42,6 +42,7 @@ SIGNATURES = {
     "cse_attention_bwd": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
     # attention.cu
     "cse_flash_fwd": (P, P, P, P, P, I, I, I, I, F, P),
+    "cse_flash_fwd_info": (I, I, P),
     "cse_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
     # fused_stack_w8a8.cu
     "cse_quantize_rows": (P, P, P, LL, I, P),
@@ -49,7 +50,28 @@ SIGNATURES = {
     # kernel_parts.cu
     "cse_kp_layer_norm": (P, P, I, P, I, I, LL, I, F, P),
     "cse_kp_attention": (P, P, I, P, I, I, I, I, I, I, F, P),
+    "cse_kp_attention_info": (I, I, P),
 }
+
+
+# what a *_info entry point writes, in order
+INFO_KEYS = ("key_blocks", "threads", "rows_per_block", "smem_bytes", "registers", "local_bytes", "blocks_per_sm")
+
+
+def launch_info(entry: str, *args) -> dict:
+    """The launch a ``cse_*_info`` entry point describes: key blocks held in
+    registers, threads, query rows and dynamic shared bytes a block, and the
+    kernel's registers and local-memory bytes a thread and resident blocks
+    per SM (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``route`` is "strip"
+    (the scores of a strip in registers, L <= 256) or "passes"."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    err = getattr(library(), entry)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"cse_tpu_torch: {entry}{args} failed (cudaError {err})")
+    info = dict(zip(INFO_KEYS, out))
+    info["route"] = "strip" if info["key_blocks"] else "passes"
+    return info
 
 
 def _nvcc() -> str:

@@ -106,7 +106,8 @@ def _check_qkv(q, *others):
 
 
 def flash_fwd(q, k, v):
-    """(o, lse) of :func:`flash_fwd_plain`; the forward kernel on CUDA."""
+    """(o, lse) of :func:`flash_fwd_plain`; the forward kernel on CUDA (bf16:
+    the one-pass strip kernel for L <= 256, three passes beyond)."""
     if not fs._route(q, k, v):
         return flash_fwd_plain(q, k, v)
     bh, L, dh = _check_qkv(q, k, v)
@@ -118,6 +119,12 @@ def flash_fwd(q, k, v):
     fs._check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     return o, lse
+
+
+def flash_fwd_info(L: int, dh: int = 32) -> dict:
+    """How :func:`flash_fwd` launches the bf16 forward at (L, dh): see
+    :func:`cse_tpu_torch.ops._build.launch_info`."""
+    return _build.launch_info("cse_flash_fwd_info", L, dh)
 
 
 def flash_bwd(q, k, v, o, lse, do):

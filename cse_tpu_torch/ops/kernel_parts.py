@@ -171,7 +171,7 @@ def kp_layer_norm(x, jmat, ln_mode, cd):
 def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):
     """See :func:`kp_attention_plain` (the bf16 kernel rounds the score
     operands to bf16: ``qk_dtype=torch.bfloat16``); ``kp_attention_*_kernel``
-    on CUDA."""
+    on CUDA (bf16: one pass for L <= 256, multi-pass beyond)."""
     _check_mode(SOFTMAX_MODES, sm_mode, "softmax mode")
     if not fs._route(qkv, jmat, x):
         return kp_attention_plain(qkv, jmat, x, seq_len, nhead, sm_mode, cd)
@@ -195,6 +195,13 @@ def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):
     fs._check_launch("kp_attention", err)
     kp_attention.launches += 1
     return x
+
+
+def kp_attention_info(seq_len: int, sm_mode: str) -> dict:
+    """How :func:`kp_attention` launches the bf16 attention: see
+    :func:`cse_tpu_torch.ops._build.launch_info`."""
+    _check_mode(SOFTMAX_MODES, sm_mode, "softmax mode")
+    return _build.launch_info("cse_kp_attention_info", SOFTMAX_MODES[sm_mode], seq_len)
 
 
 KERNELS = {"kp_layer_norm": kp_layer_norm, "kp_attention": kp_attention}

@@ -19,6 +19,35 @@ def test_every_source_exists_and_every_entry_is_defined():
     assert defined == set(_build.SIGNATURES)
 
 
+@pytest.mark.parametrize("src", ["attention.cu", "kernel_parts.cu"])
+def test_route_codes_match_the_sources(src, monkeypatch):
+    """Each bf16 attention launcher routes at L = 256, as the wrappers' docs
+    say, and its ``*_info`` entry writes the fields ``launch_info`` reads:
+    the key blocks held in registers name the route (0: the multi-pass
+    kernel), and a failed query raises."""
+    text = (_build.CSRC / src).read_text()
+    assert "constexpr int STRIP_MAX_L = 256;" in text
+    entry = re.search(r"^int (cse_\w+_info)\(", text, flags=re.M).group(1)
+    assert f"info[{len(_build.INFO_KEYS)}]" in text
+
+    def fake(key_blocks, err=0):
+        def call(*args):
+            out = args[-1]
+            for i in range(len(_build.INFO_KEYS)):
+                out[i] = key_blocks if i == 0 else i
+            return err
+        return type("Lib", (), {entry: staticmethod(call)})()
+
+    monkeypatch.setattr(_build, "library", lambda: fake(16))
+    info = _build.launch_info(entry, 251, 1)
+    assert info["route"] == "strip" and [info[k] for k in _build.INFO_KEYS] == [16, 1, 2, 3, 4, 5, 6]
+    monkeypatch.setattr(_build, "library", lambda: fake(0))
+    assert _build.launch_info(entry, 300, 1)["route"] == "passes"
+    monkeypatch.setattr(_build, "library", lambda: fake(0, err=1))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        _build.launch_info(entry, 300, 1)
+
+
 @pytest.mark.parametrize("edit", ["change", "add"])
 def test_library_name_follows_the_sources(tmp_path, monkeypatch, edit):
     csrc = tmp_path / "csrc"

@@ -264,9 +264,12 @@ def _flash_inputs(gen, cd, bh, seq_len, dh):
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
+@pytest.mark.parametrize("seq_len,dh", [(16, 32), (17, 32), (128, 32), (129, 32), (251, 32), (256, 32), (257, 32),
+                                        (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
 def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
-    """Any length: one key tile or several (300, 600); head widths 16-64."""
+    """Any length: bf16 on the strip route (L <= 128: 8 key blocks in
+    registers, L <= 256: 16) or the three-pass route (257 and on, one key tile
+    or several); head widths 16-64."""
     from cse_tpu_torch.ops import attention as at
 
     q, k, v, _ = _flash_inputs(gen, cd, 12, seq_len, dh)
@@ -286,6 +289,19 @@ def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
     for got, want in zip(at.flash_bwd(q, k, v, o, lse, do), at.flash_bwd_plain(q, k, v, o, lse, do)):
         assert got.dtype == cd
         _close(got, want, cd)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("seq_len", [128, 256])
+def test_flash_strip_instantiations_spill_nothing(gen, seq_len, dh):
+    """Each L <= 256 instantiation keeps its score strip in registers: no
+    local memory (cudaFuncGetAttributes.localSizeBytes)."""
+    from cse_tpu_torch.ops import attention as at
+
+    info = at.flash_fwd_info(seq_len, dh)
+    assert info["route"] == "strip" and info["key_blocks"] == seq_len // 16
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert at.flash_fwd_info(seq_len + 1, dh)["route"] == ("strip" if seq_len < 256 else "passes")
 
 
 def test_flash_refuses_head_widths_it_does_not_take(gen):
@@ -392,11 +408,15 @@ def test_kp_layer_norm_matches_plain(gen, cd, ln_mode):
 
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("sm_mode,seq_len", [("skip", 256), ("sum", 256), ("cd", 256), ("ones", 256), ("x2", 256),
-                                             ("skip", 7), ("sum", 127), ("sum", 300), ("ones", 513)])
+                                             ("skip", 7), ("sum", 127), ("sum", 300), ("ones", 513),
+                                             ("sum", 128), ("sum", 255), ("sum", 257),
+                                             ("skip", 128), ("skip", 255), ("skip", 257)])
 def test_kp_attention_matches_plain(gen, cd, sm_mode, seq_len):
     """Each softmax mode at the tool's length, and the modes free of jmat at
-    other lengths (one key tile or several). The bf16 kernel rounds the score
-    operands to bf16, and so does the plain version it is held against."""
+    other lengths: bf16 on the one-pass route (L <= 128, <= 256) or the
+    multi-pass one (257 and on, one key tile or several). The bf16 kernel
+    rounds the score operands to bf16, and so does the plain version it is
+    held against."""
     from cse_tpu_torch.ops import kernel_parts as kp
 
     G = 3
@@ -406,6 +426,16 @@ def test_kp_attention_matches_plain(gen, cd, sm_mode, seq_len):
     want = kp.kp_attention_plain(qkv, _kp_jmat(cd), x.clone(), seq_len, 8, sm_mode, cd,
                                  qk_dtype=None if cd == torch.float32 else cd)
     _close(got - x, want - x, cd)
+
+
+@pytest.mark.parametrize("seq_len", [128, 256])
+@pytest.mark.parametrize("sm_mode", ["skip", "sum", "cd", "x2"])
+def test_kp_attention_one_pass_instantiations_spill_nothing(gen, sm_mode, seq_len):
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    info = kp.kp_attention_info(seq_len, sm_mode)
+    assert info["route"] == "strip" and info["key_blocks"] == seq_len // 16
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("cd", DTYPES)
