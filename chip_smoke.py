@@ -15,6 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
      the median forward time and realtime factor;
   5. each kernel's time beside its plain version, a library call that computes
      the same function (timed only; the port never calls it) and its bound;
+     each GEMM product's TB/s and TFLOP/s beside torch.matmul and the
+     like-for-like torch.addmm (bias or residual in, fp32 out, where the card's
+     torch takes out_dtype); the attention's launch (route, registers, local
+     memory, blocks per SM; every strip instantiation must have no local
+     memory); the times before this slice's redesigns, in the log only;
   6. the training kernels (attention with row stats, attention backward, weight
      gradient, ReLU-gradient GEMM, LayerNorm backward) and the whole 8-layer
      fused_stack_train forward and backward against their plain versions at
@@ -66,7 +71,17 @@ Phases (any failure exits non-zero and prints no result line):
      mixtures/s, host-to-device bytes per batch, validation ms per batch, peak
      memory; then for each a resume from the saved step, two iterations of
      which run under the loop's own torch.profiler window (busy share, longest
-     idle gap, device time of the step and of the next batch's synthesis).
+     idle gap, device time of the step and of the next batch's synthesis);
+ 12. the tiny model (--debug_tiny_model: d_model 32, head width 8): (a) every
+     kernel its trainer runs (the attention with bf16 or fp32 out and stats,
+     its backward, flash forward and backward, the GEMM's epilogues at K 32,
+     64, 96, the ReLU-gradient GEMM, the weight gradients) against its plain
+     version at the model's own shapes, including inter L 1282 (the two-pass
+     route); (b) its trainer at 16 s in fp32 on the default fused step, layer
+     by layer with --flash_attention --remat layer, and layer by layer
+     without either (the reference): losses before the first update and
+     after each of three (lr 1e-3), held against the reference's; (c) both
+     kernel paths in bf16: finite losses, the kernels launched.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -75,8 +90,11 @@ Imports nothing of JAX or of cse_tpu; needs CUDA (exits 1 without it).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -130,6 +148,11 @@ TOL_W8A8_GEMM = 1e-6
 # exceed the plain version's by at most 25% (+1e-3), as for the bf16
 # training stack.
 TOL_W8A8_STACK_RATIO = 1.25
+# The tiny trainer in fp32, the kernels' paths against the reference path
+# (no kernel of the port): the same model, data and updates, only the
+# summation order differs; four losses, before the first of three Adam
+# updates and after each -> max relative difference <= 1e-3.
+TOL_TINY_LOSS = 1e-3
 
 # NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16 = 989e12
@@ -143,6 +166,16 @@ INTER = (4000, 127)  # B*K sequences of S + 1 tokens
 # (PERF.md section 6, rows 5 and 7b; NVIDIA H100 80GB HBM3, 700 W)
 FLASH_FWD_EARLIER_MS = {"intra": 4.238, "inter": 1.626}
 KP_ATTENTION_EARLIER_MS = 1.750
+# the mma.sync GEMM and the two-pass attention before their redesign, printed beside the new
+# ones (PERF.md section 6, rows 1b, 4b, 4c, 7c and 1c, 2c, 4f; NVIDIA H100 80GB HBM3, 700 W)
+LINEAR_EARLIER_MS = {"linear": (4.563, 4.578), "linear_relu_grad": (2.047, 2.095), "linear[dgrad]": (2.389, 2.419),
+                     "linear[kernel_parts]": 2.023}
+ATTENTION_EARLIER_MS = {"attention": (1.789, 1.110), "attention[w8a8]": (1.658, 1.068),
+                        "attention[train]": (1.679, 1.106)}
+# the kernels' symbols in the kernels line
+GEMM_SYMBOL = "linear_bf16_kernel<EPI> (wgmma + TMA, persistent, warp-specialised)"
+ATTENTION_SYMBOL = ("attention_strip_bf16_kernel<{}, 32, 16 or 8> (L <= 256); "
+                    "attention_bf16_kernel<{}, 32> (L > 256)")
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
 SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
 REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
@@ -202,6 +235,71 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def addmm_like(a, w, bias, epi, res=None):
+    """One PyTorch call for the same GEMM with its bias or residual, the
+    like-for-like yardstick beside torch.matmul: torch.addmm with an fp32
+    output (bias, or the residual, as its input) for the fp32 epilogues, bf16
+    addmm (without the ReLU) for the ReLU one."""
+    if epi == "relu":
+        return lambda: torch.addmm(bias.to(a.dtype), a, w)
+    inp = res if epi == "residual" else bias
+    return lambda: torch.addmm(inp, a, w, out_dtype=torch.float32)
+
+
+def time_like(fn):
+    """fn's time, or None where the card's torch refuses the call (an older
+    addmm has no out_dtype)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError):
+        return None
+    return time_ms(fn)
+
+
+def sum_or_none(xs):
+    return None if any(x is None for x in xs) else sum(xs)
+
+
+def fmt_ms(x):
+    return "n/a" if x is None else f"{x:.4f} ms"
+
+
+def attention_launches():
+    """The bf16 attention's launch at every strip instantiation (L 128, 256)
+    and head width, both outputs: local-memory bytes a thread (must be 0)."""
+    from cse_tpu_torch.ops import fused_stack as fs
+
+    return {f"L={L} hd={h} {'bf16' if od == torch.bfloat16 else 'fp32'} out":
+            fs.attention_info(L, h, od)["local_bytes"]
+            for L in (128, 256) for h in fs.HEAD_WIDTHS for od in (torch.bfloat16, torch.float32)}
+
+
+def ptxas_of(report: str, kernel: str) -> dict:
+    """Each instantiation of ``kernel`` in an ``-Xptxas -v`` report: its
+    registers, spill bytes and any warning ptxas gave for it (such as wgmma
+    serialised)."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?$", line.strip())
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                out.setdefault(cur, {"registers": None, "spill_bytes": 0, "warnings": []})
+            continue
+        if cur is None:
+            continue
+        if "warning" in line.lower():
+            out[cur]["warnings"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def random_stack(D, F_, n_layers, cd, gen):
@@ -533,13 +631,18 @@ def phase7_times(gen, card, H, F_, NL):
         qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
         stats = torch.empty(2, M, H, device="cuda")
         att_flops = 4 * G * H * L * L * hd
-        t["attention[train]"] = dict(
-            ms=time_ms(lambda: fs.attention(qkv, L, H, cd, stats)),
-            plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, cd, stats), reps=3),
-            library_ms=None, **bound(M * 3 * D * 4 + M * D * 2 + 2 * M * H * 4, att_flops))
         dattn = torch.randn(M, D, device="cuda", generator=gen)
         q, k, v = (x.to(cd).detach().requires_grad_(True)
                    for x in qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4))
+        # the library call that also returns each row's softmax statistics (o and logsumexp), on
+        # bf16 q, k, v already split by head; None where the card's torch refuses it
+        t["attention[train]"] = dict(
+            ms=time_ms(lambda: fs.attention(qkv, L, H, cd, stats)),
+            plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, cd, stats), reps=3),
+            library_ms=time_like(lambda: torch.ops.aten._scaled_dot_product_flash_attention(q.detach(), k.detach(),
+                                                                                             v.detach())),
+            launch=fs.attention_info(L, hd),
+            **bound(M * 3 * D * 4 + M * D * 2 + 2 * M * H * 4, att_flops))
         do = dattn.reshape(G, L, H, hd).transpose(1, 2).to(cd)
 
         def sdpa_fwd_bwd():
@@ -569,8 +672,15 @@ def phase7_times(gen, card, H, F_, NL):
         ops_ = [(torch.randn(M, K, device="cuda", generator=gen).to(cd),
                  (torch.randn(K, N, device="cuda", generator=gen) / math.sqrt(K)).to(cd),
                  torch.zeros(N, device="cuda")) for K, N in dshapes]
+        part_ms = [time_ms(lambda o=o: fs.linear(*o, "bias")) for o in ops_]
+        like_ms = [time_like(addmm_like(*o, "bias")) for o in ops_]
+        for (K, N), ms, like, o in zip(dshapes, part_ms, like_ms, ops_):
+            nbytes = M * K * 2 + K * N * 2 + N * 4 + M * N * 4
+            log(f"  {shape_name} linear[dgrad] [{M},{K}]x[{K},{N}] kernel {ms:.4f} ms  {nbytes / ms / 1e9:.3f} TB/s  "
+                f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s  bytes bound {1e3 * nbytes / HBM_BYTES_S:.4f} ms  "
+                f"torch.matmul {time_ms(lambda o=o: torch.matmul(o[0], o[1])):.4f} ms  addmm {fmt_ms(like)}")
         t["linear[dgrad]"] = dict(
-            ms=sum(time_ms(lambda o=o: fs.linear(*o, "bias")) for o in ops_),
+            ms=sum(part_ms), library_like_ms=sum_or_none(like_ms),
             plain_ms=time_ms(lambda: [fs.linear_plain(*o, "bias") for o in ops_], reps=3),
             library_ms=time_ms(lambda: [torch.matmul(a, w) for a, w, _ in ops_]),
             **bound(sum(M * K * 2 + K * N * 2 + N * 4 + M * N * 4 for K, N in dshapes),
@@ -579,6 +689,7 @@ def phase7_times(gen, card, H, F_, NL):
         dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
         wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
         mask = torch.relu(torch.randn(M, F_, device="cuda", generator=gen)).to(cd)
+        nbytes = M * D * 2 + D * F_ * 2 + 2 * M * F_ * 2 + F_ * 4
         t["linear_relu_grad"] = dict(
             ms=time_ms(lambda: ft.linear_relu_grad(dy, wt, mask)),
             plain_ms=time_ms(lambda: ft.linear_relu_grad_plain(dy, wt, mask), reps=3),
@@ -613,7 +724,16 @@ def phase7_times(gen, card, H, F_, NL):
         for kname, v in t.items():
             lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
             log(f"  {shape_name} G={G} L={L} {kname:<20s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms  "
-                f"library {lib}  bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+                f"library {lib}  bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                + (f"  addmm {fmt_ms(v['library_like_ms'])}" if "library_like_ms" in v else ""))
+        rg = t["linear_relu_grad"]
+        log(f"  {shape_name} linear_relu_grad {nbytes / rg['ms'] / 1e9:.3f} TB/s  "
+            f"{2 * M * D * F_ / rg['ms'] / 1e9:.1f} TFLOP/s")
+        for kname in ("linear_relu_grad", "linear[dgrad]", "attention[train]"):
+            earlier = (LINEAR_EARLIER_MS.get(kname) or ATTENTION_EARLIER_MS[kname])[shape_name == "inter"]
+            log(f"  {shape_name} {kname} {t[kname]['ms']:.4f} ms; before the redesign {earlier} ms "
+                "(PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        show_info(f"{shape_name} attention[train] launch", t["attention[train]"]["launch"])
     return times
 
 
@@ -1009,7 +1129,11 @@ def phase9_times(gen, card, H, F_, NL):
             ms=time_ms(lambda: fs.attention(qkv, L, H, torch.float32, operand_dtype=cd)),
             plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, torch.float32, operand_dtype=cd), reps=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            launch=fs.attention_info(L, hd, torch.float32),
             **bound_of(M * 3 * D * 4 + M * D * 4, att_flops))
+        log(f"  {name} attention[w8a8] {t['attention[w8a8]']['ms']:.4f} ms; before the redesign "
+            f"{ATTENTION_EARLIER_MS['attention[w8a8]'][name == 'inter']} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        show_info(f"{name} attention[w8a8] launch", t["attention[w8a8]"]["launch"])
         del qkv, q, k, v
         w = fs.stack_weights(stack_module(NL, gen), cd, quant="w8a8")
         xs = torch.randn(G, L, D, device="cuda", generator=gen).to(cd)
@@ -1178,12 +1302,16 @@ def phase10_tool(gen, card):
     shapes = ((D, 3 * D, "bias"), (D, 4 * D, "relu"), (4 * D, D, "residual"))
     t["linear[kernel_parts]"] = dict(
         ms=sum(time_ms(lambda o=o: fs.linear(*o)) for o in ops_),
+        library_like_ms=sum_or_none([time_like(addmm_like(*o)) for o in ops_]),
         plain_ms=time_ms(lambda: [fs.linear_plain(*o) for o in ops_], reps=3),
         library_ms=time_ms(lambda: [torch.matmul(o[0], o[1]) for o in ops_]),
         **bound_of(sum(M * K * 2 + K * N * 2 + N * 4 + M * N * (8 if e == "residual" else 4 if e == "bias" else 2)
                        for K, N, e in shapes), sum(2 * M * K * N for K, N, _ in shapes)))
     del ops_, h, hf, r
     torch.cuda.empty_cache()
+    log(f"  linear[kernel_parts] {t['linear[kernel_parts]']['ms']:.4f} ms, addmm "
+        f"{fmt_ms(t['linear[kernel_parts]']['library_like_ms'])}; before the redesign "
+        f"{LINEAR_EARLIER_MS['linear[kernel_parts]']} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
     for kname, v in t.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         log(f"  G={G} Lp={Lp} {kname:<22s} kernel {v['ms']:.4f} ms  plain {v['plain_ms']:.4f} ms  library {lib}  "
@@ -1289,6 +1417,162 @@ def phase11(card, failures):
     return out
 
 
+TINY_ARGS = ["--synthetic_smoke", "--debug_tiny_model", "--train_data", "dailytalk", "--tot_iters", "3",
+             "--batch_size", "2", "--eval_step", "2", "--max_ctx_tokens", "16", "--workers", "2", "--log_every", "1",
+             "--lr", "1e-3", "--warmup_iteration", "1"]
+
+
+def phase12_kernels(gen, failures):
+    """(a) each kernel the tiny trainer runs, against its plain version at the
+    tiny model's own shapes (d_model 32, 4 heads of width 8, FFN 64; B=2 of
+    16 s and of 2 s: intra L 50 over 2564 chunks, inter L 1282 (the two-pass
+    route) and 162)."""
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.segmentation import segment_shapes
+    from cse_tpu_torch.train.loop import build_model
+
+    cfg = build_model(parse_train_args(TINY_ARGS), "base")[0].cfg
+    D, H, F_, K = cfg.d_model, cfg.nhead, cfg.d_ffn, cfg.chunk_size
+    hd, B = D // H, 2
+    shapes = {}
+    for sec in (16, 2):
+        _, S = segment_shapes((sec * 8000 - cfg.enc_kernel) // cfg.enc_stride + 1, K)
+        shapes[f"{sec} s intra"], shapes[f"{sec} s inter"] = (B * S, K), (B * K, S)
+    del shapes["2 s intra"]  # the same L as at 16 s
+    log(f"[12a] tiny-model kernels vs plain versions at D={D}, {H} heads of width {hd}, FFN {F_}, B={B}: "
+        f"{', '.join(f'{k} G={g} L={l}' for k, (g, l) in shapes.items())} (fp32: max_rel <= {TOL_FP32:.0e}; "
+        f"bf16: rel_l2 <= {TOL_BF16:.0e})")
+    err = {}
+
+    def held(key, e):
+        err[key] = max(err.get(key, 0.0), e)
+
+    for cd in (torch.float32, torch.bfloat16):
+        tag = "fp32" if cd == torch.float32 else "bf16"
+        for shape_name, (G, L) in shapes.items():
+            M = G * L
+            qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
+            held("attention", check(f"attention {tag} {shape_name} L={L}", fs.attention(qkv, L, H, cd),
+                                    fs.attention_plain(qkv, L, H, cd), cd, failures))
+            if cd == torch.bfloat16:
+                held("attention[w8a8]", check(
+                    f"attention bf16 -> fp32 out {shape_name}", fs.attention(qkv, L, H, torch.float32, None, cd),
+                    fs.attention_plain(qkv, L, H, torch.float32, None, cd), cd, failures))
+            sk, sp = (torch.empty(2, M, H, device="cuda") for _ in range(2))
+            held("attention_stats", check(f"attention+stats {tag} {shape_name} out", fs.attention(qkv, L, H, cd, sk),
+                                          fs.attention_plain(qkv, L, H, cd, sp), cd, failures))
+            held("attention_stats", check(f"attention+stats {tag} {shape_name} stats", sk, sp, torch.float32,
+                                          failures))
+            dattn = torch.randn(M, D, device="cuda", generator=gen)
+            (got, gb), (want, wb) = (ft.attention_backward(qkv, dattn, sp, L, H, cd),
+                                     ft.attention_backward_plain(qkv, dattn, sp, L, H, cd))
+            held("attention_backward", check(f"attention_backward {tag} {shape_name} dqkv", got, want, cd, failures))
+            held("attention_backward", check(f"attention_backward {tag} {shape_name} dbias (q, v)", ft.qv_part(gb),
+                                             ft.qv_part(wb), cd, failures))
+            del qkv, sk, sp, dattn, got, want
+            q, k, v, do = (torch.randn(G, H, L, hd, device="cuda", generator=gen).to(cd) for _ in range(4))
+            (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
+            held("flash_fwd", check(f"flash_fwd {tag} {shape_name} o", o, po, cd, failures))
+            held("flash_fwd", check(f"flash_fwd {tag} {shape_name} lse", lse, plse, torch.float32, failures))
+            got, want = at.flash_bwd(q, k, v, po, plse, do), at.flash_bwd_plain(q, k, v, po, plse, do)
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                held("flash_bwd", check(f"flash_bwd {tag} {shape_name} {gname}", g, w, cd, failures))
+            del q, k, v, do, o, lse, po, plse, got, want
+            if shape_name == "2 s inter":
+                continue
+            # the forward's four products and the backward's three dX products
+            for Kd, N, epi in ((D, 3 * D, "bias"), (D, D, "residual"), (D, F_, "relu"), (F_, D, "residual"),
+                               (F_, D, "bias"), (D, D, "bias"), (3 * D, D, "bias")):
+                a = torch.randn(M, Kd, device="cuda", generator=gen).to(cd)
+                w = (torch.randn(Kd, N, device="cuda", generator=gen) / math.sqrt(Kd)).to(cd)
+                bias = 0.1 * torch.randn(N, device="cuda", generator=gen)
+                res = torch.randn(M, N, device="cuda", generator=gen) if epi == "residual" else None
+                held("linear", check(f"linear {tag} {shape_name} [{M},{Kd}]x[{Kd},{N}] {epi}",
+                                     fs.linear(a, w, bias, epi, None if res is None else res.clone()),
+                                     fs.linear_plain(a, w, bias, epi, res), cd, failures))
+                dy = torch.randn(M, N, device="cuda", generator=gen).to(cd)
+                held("weight_grad", check(f"weight_grad {tag} {shape_name} [{M},{Kd}]^T x [{M},{N}]",
+                                          ft.weight_grad(a, dy), ft.weight_grad_plain(a, dy), cd, failures))
+                del a, w, res, dy
+            dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
+            wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
+            mask = torch.relu(torch.randn(M, F_, device="cuda", generator=gen)).to(cd)
+            (o, cs), (ro, rcs) = ft.linear_relu_grad(dy, wt, mask), ft.linear_relu_grad_plain(dy, wt, mask)
+            held("linear_relu_grad", check(f"linear_relu_grad {tag} {shape_name} [{M},{D}]x[{D},{F_}]", o, ro, cd,
+                                           failures))
+            held("linear_relu_grad", check(f"linear_relu_grad {tag} {shape_name} colsum", cs, rcs, cd, failures))
+            del dy, wt, mask, o, ro
+            torch.cuda.empty_cache()
+    if failures:
+        fail(f"tiny-model kernel checks failed: {failures}")
+    return {"shapes": shapes, "max_abs_err": err}
+
+
+def phase12(card, failures):
+    """The tiny trainer (--debug_tiny_model: d_model 32, 4 heads, head width
+    8, 16 s of audio, so the inter-chunk attention takes L > 256) on the card:
+    (b) fp32 on its default fused step, layer by layer with the flash kernels
+    and remat='layer', and layer by layer without either (no kernel of the
+    port: the reference); the kernels' runs must read the reference's losses,
+    before the first update and after each of three (lr 1e-3 from the first
+    step), within TOL_TINY_LOSS; (c) bf16 on both kernel paths: finite losses."""
+    import tempfile
+
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.train.loop import train_net
+
+    log(f"[12b] tiny trainer: train_net(parse_train_args({' '.join(TINY_ARGS)}), 'base')  [{card}]")
+    runs = (("fp32 fused", []), ("fp32 flash", ["--no_fused_train", "--flash_attention", "--remat", "layer"]),
+            ("fp32 reference", ["--no_fused_train"]), ("bf16 fused", ["--bf16"]),
+            ("bf16 flash", ["--bf16", "--no_fused_train", "--flash_attention", "--remat", "layer"]))
+    out = {}
+    for name, extra in runs:
+        fs.reset_launches()
+        ft.reset_launches()
+        at.reset_launches()
+        stats, t0 = {}, time.time()
+        model = train_net(parse_train_args(TINY_ARGS + extra + ["--checkpoint_dir", tempfile.mkdtemp(prefix="cse_tiny_")]),
+                          "base", stats=stats)
+        torch.cuda.synchronize()
+        counts, fcounts, scounts = ft.launch_counts(), at.launch_counts(), fs.launch_counts()
+        cfg = model.cfg
+        hd = cfg.d_model // cfg.nhead
+        losses = stats["loss_reads"]
+        if name.endswith("fused"):
+            ran = all(counts[k] > 0 for k in ("attention", "attention_backward", "linear", "linear_relu_grad"))
+        elif name.endswith("flash"):
+            ran = fcounts["flash_fwd"] > 0 and fcounts["flash_bwd"] > 0
+        else:  # the reference launches no kernel of the port
+            ran = not any(counts.values()) and not any(fcounts.values()) and not any(scounts.values())
+        ok = (hd == 8 and ran and stats["final_step"] == 4 and len(losses) == 4
+              and all(math.isfinite(v) for v in losses) and all(torch.isfinite(p).all() for p in model.parameters()))
+        log(f"  {name}: head width {hd}, {stats['final_step']} steps in {time.time() - t0:.1f} s, losses "
+            f"{losses}; fused-step kernels {counts}; flash kernels {fcounts}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"tiny trainer {name}")
+        out[name] = {"head_width": hd, "losses": losses, "launches": counts, "flash_launches": fcounts}
+        del model
+        torch.cuda.empty_cache()
+    ref = out["fp32 reference"]["losses"]
+    for name in ("fp32 fused", "fp32 flash"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out[name]["losses"], ref))
+        ok = rel <= TOL_TINY_LOSS
+        log(f"  {name} vs fp32 reference: max relative loss difference {rel:.3e} (<= {TOL_TINY_LOSS:.0e})  "
+            f"{'ok' if ok else 'FAIL'}")
+        out[name]["max_rel_loss_diff"] = rel
+        if not ok:
+            failures.append(f"tiny trainer {name} vs reference")
+    if failures:
+        fail(f"tiny trainer checks failed: {failures}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -1314,9 +1598,16 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.time()
-    _build.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        _build.build(verbose=True)
+    print(report.getvalue(), flush=True)
     _build.library()
     log(f"[2] kernels built in {time.time() - t0:.1f} s -> {_build.library_path().name}")
+    gemm = ptxas_of(report.getvalue(), "linear_bf16_kernel")
+    log(f"  linear_bf16_kernel (wgmma + TMA), ptxas: {gemm}")
+    if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
+        fail(f"the GEMM spills, is serialised or is missing from the ptxas report: {gemm}")
 
     failures: list[str] = []
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1447,16 +1738,21 @@ def main() -> int:
         lin_bytes = sum(M * K * 2 + K * N * 2 + N * 4 + M * N * (8 if e == "residual" else 4 if e == "bias" else 2)
                         for K, N, e in shapes)
         part_ms = [time_ms(lambda o=o: fs.linear(*o)) for o in ops_]
-        for (K, N, epi), ms, o in zip(shapes, part_ms, ops_):
+        like_ms = [time_like(addmm_like(*o)) for o in ops_]
+        for (K, N, epi), ms, like, o in zip(shapes, part_ms, like_ms, ops_):
             nbytes = M * K * 2 + K * N * 2 + N * 4 + M * N * (8 if epi == "residual" else 4 if epi == "bias" else 2)
             log(f"  {shape_name} linear [{M},{K}]x[{K},{N}] {epi:<8s} kernel {ms:.4f} ms  "
                 f"{nbytes / ms / 1e9:.3f} TB/s  {2 * M * K * N / ms / 1e9:.1f} TFLOP/s  "
-                f"library {time_ms(lambda o=o: torch.matmul(o[0], o[1])):.4f} ms")
+                f"bytes bound {1e3 * nbytes / HBM_BYTES_S:.4f} ms  "
+                f"torch.matmul {time_ms(lambda o=o: torch.matmul(o[0], o[1])):.4f} ms  addmm {fmt_ms(like)}")
         lin = dict(
             ms=sum(part_ms),
             plain_ms=time_ms(lambda: [fs.linear_plain(*o) for o in ops_], reps=3),
             library_ms=time_ms(lambda: [torch.matmul(o[0], o[1]) for o in ops_]),
+            library_like_ms=sum_or_none(like_ms),
         )
+        log(f"  {shape_name} linear, one layer's 4 GEMMs: {lin['ms']:.4f} ms; before the redesign "
+            f"{LINEAR_EARLIER_MS['linear'][shape_name == 'inter']} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         tb, to = 1e3 * lin_bytes / HBM_BYTES_S, 1e3 * lin_flops / PEAK_BF16
         lin.update(bound_ms=max(tb, to), bound_by="operations" if to >= tb else "bytes")
         del ops_
@@ -1469,7 +1765,11 @@ def main() -> int:
             plain_ms=time_ms(lambda: fs.attention_plain(qkv, L, H, cd), reps=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             bound_ms=max(ab, ao), bound_by="operations" if ao >= ab else "bytes",
+            launch=fs.attention_info(L, D // H),
         )
+        log(f"  {shape_name} attention {att['ms']:.4f} ms; before the redesign "
+            f"{ATTENTION_EARLIER_MS['attention'][shape_name == 'inter']} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        show_info(f"{shape_name} attention launch", att["launch"])
         del qkv, q, k, v
         w = random_stack(D, F_, NL, cd, gen)
         xs = torch.randn(G, L, D, device="cuda", generator=gen).to(cd)
@@ -1484,7 +1784,12 @@ def main() -> int:
         times[shape_name] = {"layer_norm": ln, "linear": lin, "attention": att, "fused_stack": stk}
         for kname, t in times[shape_name].items():
             log(f"  {shape_name} G={G} L={L} {kname:<11s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
-                f"library {t.get('library_ms', float('nan')):.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                f"library {t.get('library_ms', float('nan')):.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                + (f"  addmm {fmt_ms(t['library_like_ms'])}" if "library_like_ms" in t else ""))
+    spills = attention_launches()
+    log(f"  attention strip instantiations, local-memory bytes a thread: {spills}")
+    if any(spills.values()):
+        fail(f"a strip instantiation of the attention spills to local memory: {spills}")
 
     with torch.enable_grad():
         train_err = phase6(gen, failures, H, F_, NL)
@@ -1510,10 +1815,16 @@ def main() -> int:
     with torch.enable_grad():
         trainer = phase11(card, failures)
     log(f"  [11] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tiny_err = phase12_kernels(gen, failures)
+    with torch.enable_grad():
+        tiny = phase12(card, failures)
+    tiny.update(kernels=tiny_err)
+    log(f"  [12] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
-             "linear": ("the four projections (:92-110), one layer's 4 launches", "linear_bf16_kernel"),
-             "attention": ("_attention (:39), one launch", "attention_bf16_kernel")}
+                   "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
+                   "attention": ("_attention (:39), one launch", ATTENTION_SYMBOL.format("bf16", "bf16"))}
     kernels = []
     for kname, (part, symbol) in serve_parts.items():
         ti, tn = times["intra"][kname], times["inter"][kname]
@@ -1530,15 +1841,17 @@ def main() -> int:
     train_parts = (
         ("layer_norm[train]", "layer_norm", SOURCE, REPLACES_FWD, "layer_norm_kernel",
          times, "layer_norm", "layer_norm", "forward and replay LNs; one launch"),
-        ("linear[train]", "linear", SOURCE, REPLACES_FWD, "linear_bf16_kernel",
+        ("linear[train]", "linear", SOURCE, REPLACES_FWD, GEMM_SYMBOL,
          times, "linear", "linear", "forward and replay projections (one layer's 4 launches); "
          "the backward's 3 dX GEMMs per layer are linear[dgrad] in 'train_times'"),
-        ("attention[train]", "attention", SOURCE, REPLACES_FWD, "attention_bf16_kernel",
+        ("attention[train]", "attention", SOURCE, REPLACES_FWD,
+         ATTENTION_SYMBOL.format("bf16", "bf16") + ", with stats",
          ttimes, "attention[train]", "attention_stats", "attention writing row max and 1/z; one launch"),
         ("weight_grad", "weight_grad", SOURCE_TRAIN, REPLACES_BWD, "wgrad_bf16_kernel + sum_rows_kernel",
          ttimes, "weight_grad", "weight_grad", "one layer's 4 weight gradients"),
         ("linear_relu_grad", "linear_relu_grad", SOURCE, REPLACES_BWD,
-         "linear_bf16_kernel<EPI_RELU_GRAD> + sum_rows_kernel", ttimes, "linear_relu_grad", "linear_relu_grad",
+         "linear_bf16_kernel<EPI_RELU_GRAD> (wgmma + TMA) + sum_rows_kernel", ttimes, "linear_relu_grad",
+         "linear_relu_grad",
          "dpre = relu'(h) * (dy W2^T) and its column sums; one call"),
         ("layer_norm_backward", "layer_norm_backward", SOURCE_TRAIN, REPLACES_BWD,
          "layer_norm_bwd_kernel + sum_rows_kernel", ttimes, "layer_norm_backward", "layer_norm_backward",
@@ -1572,7 +1885,7 @@ def main() -> int:
          "fp32 [M, 256] -> int8 + row scales (_qdot :115-123); one launch; launches per w8a8 forward"),
         ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, "linear_w8a8_kernel", wtimes, w8_serve["launches"], w8_err,
          "the four int8 projections (:149-154), one layer's 4 launches; launches per w8a8 forward"),
-        ("attention[w8a8]", SOURCE, REPLACES_W8A8, "attention_bf16_kernel<float>", wtimes,
+        ("attention[w8a8]", SOURCE, REPLACES_W8A8, ATTENTION_SYMBOL.format("float", "float"), wtimes,
          {"attention[w8a8]": w8_serve["launches"]["attention"]}, w8_err,
          "_attention (:150) with bf16 operands and an fp32 output; one launch; launches per w8a8 forward"),
         ("layer_norm[w8a8]", SOURCE, REPLACES_W8A8, "layer_norm_kernel<float>", wtimes,
@@ -1597,7 +1910,7 @@ def main() -> int:
          "kp_attention_strip_bf16_kernel<mode, 16 or 8> (L <= 256); kp_attention_bf16_kernel (L > 256)",
          "kp_attention",
          "scores, softmax, PV and the residual add (:68-107) in mode 'sum', one launch; every mode in 'by_mode_ms'"),
-        ("linear[kernel_parts]", "linear", SOURCE, "linear_bf16_kernel", "linear",
+        ("linear[kernel_parts]", "linear", SOURCE, GEMM_SYMBOL, "linear",
          "the qkv, FFN1 and FFN2 products (:67, :112, :114), one layer's 3 launches"),
     )
     for name, counter, source, symbol, ekey, part in tool_parts:
@@ -1610,13 +1923,25 @@ def main() -> int:
             "work": f"G=1008 Lp=D=256 bf16, {part}; launches of the tool's default run (24 calls)",
             **({"by_mode_ms": ti["by_mode_ms"]} if "by_mode_ms" in ti else {}),
         })
-    # the two redesigned forwards carry their launch: route, registers, local memory, blocks per SM ([8d], [10b])
+    # the one-pass attentions carry their launch: route, registers, local memory, blocks per SM
+    # ([5], [7d], [8d], [9c], [10b]); the GEMMs their like-for-like yardstick, torch.addmm ([5], [7d], [10b])
+    launch_of = {"flash_fwd": (ftimes, "flash_fwd"), "attention": (times, "attention"),
+                 "attention[train]": (ttimes, "attention[train]"), "attention[w8a8]": (wtimes, "attention[w8a8]")}
+    like_of = {"linear": (times, "linear"), "linear[train]": (times, "linear")}
     for entry in kernels:
-        if entry["name"] == "flash_fwd":
-            entry["launch"] = ftimes["intra"]["flash_fwd"]["launch"]
-            entry["inter"]["launch"] = ftimes["inter"]["flash_fwd"]["launch"]
-        elif entry["name"] == "kp_attention":
+        name = entry["name"]
+        if name in launch_of:
+            tset, key = launch_of[name]
+            entry["launch"] = tset["intra"][key]["launch"]
+            entry["inter"]["launch"] = tset["inter"][key]["launch"]
+        elif name == "kp_attention":
             entry["launch"] = parts["times"]["kp_attention"]["launch"]
+        if name in like_of:
+            tset, key = like_of[name]
+            entry["library_like_ms"] = tset["intra"][key]["library_like_ms"]
+            entry["inter"]["library_like_ms"] = tset["inter"][key]["library_like_ms"]
+        elif name == "linear[kernel_parts]":
+            entry["library_like_ms"] = parts["times"]["linear[kernel_parts]"]["library_like_ms"]
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel of the path was not launched: {[k['name'] for k in kernels if k['launches'] <= 0]}")
     log(f"  whole run {time.time() - t_start:.1f} s")
@@ -1625,7 +1950,8 @@ def main() -> int:
                       "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3),
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
-                      "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer}), flush=True)
+                      "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,7 @@
 // L padded to a multiple of 128 (one product, one exp). An SM has 227 KB of
 // shared memory and the registers are the scarcer store, so here scores live
 // only in registers and no padding is stored: keys past L are masked (p = 0)
-// and rows past L are not written. Any L; head width DH in {16, 32, 48, 64}.
+// and rows past L are not written. Any L; head width DH in {8, 16, 32, 48, 64}.
 //
 // Arithmetic, that of the TPU kernels:
 //   forward  s = (q . k^T) * scale in fp32 (the scale after the product),
@@ -75,9 +75,6 @@ constexpr int KT = 256;   // keys per shared-memory tile (bf16 kernels)
 constexpr int QT = 128;   // queries per shared-memory tile (bf16 dk/dv)
 constexpr int T32 = 64;   // keys or queries per shared-memory tile (fp32 kernels)
 
-template <int DH>
-__host__ __device__ constexpr int ldh() { return DH + 8; }  // bf16 row stride of the tiles: ldmatrix conflict-free
-
 __device__ __forceinline__ unsigned ld_pair(const bf16* p) { return *reinterpret_cast<const unsigned*>(p); }
 
 // x = hi + lo, both bf16, packed as two pairs for an A fragment
@@ -95,52 +92,23 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int r
     const int r = e / C, c = (e % C) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r0 + r < L) v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * DH + c);
-    *reinterpret_cast<uint4*>(dst + r * ldh<DH>() + c) = v;
+    *reinterpret_cast<uint4*>(dst + r * Head<DH>::LD + c) = v;
   }
 }
 
-// A fragments (m16 x k16 each, DH / 16 of them) of rows ra, ra + 8 of x [L, DH]
+// A fragments (m16 x k16 each, Head<DH>::KS of them) of rows ra, ra + 8 of x [L, DH]
 template <int DH>
-__device__ __forceinline__ void load_afrag(unsigned (&f)[DH / 16][4], const bf16* x, int ra, int L, int lane) {
+__device__ __forceinline__ void load_afrag(unsigned (&f)[Head<DH>::KS][4], const bf16* x, int ra, int L, int lane) {
   const int rb = ra + 8;
 #pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
+  for (int ks = 0; ks < Head<DH>::KS; ++ks)
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-      f[ks][hi * 2] = ra < L ? ld_pair(x + (long long)ra * DH + d) : 0u;
-      f[ks][hi * 2 + 1] = rb < L ? ld_pair(x + (long long)rb * DH + d) : 0u;
+      const bool in = ks * 16 + hi * 8 < DH;  // a half k-step is zero
+      f[ks][hi * 2] = in && ra < L ? ld_pair(x + (long long)ra * DH + d) : 0u;
+      f[ks][hi * 2 + 1] = in && rb < L ? ld_pair(x + (long long)rb * DH + d) : 0u;
     }
-}
-
-// s[j] = X . Y^T for 16 columns cb .. cb + 15 of the tile Ys [.][LDH] (n8 tiles j = 0, 1)
-template <int DH>
-__device__ __forceinline__ void prod16(float (&s)[2][4], const unsigned (&xa)[DH / 16][4], const bf16* Ys, int cb,
-                                       int lane) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    unsigned f[4];
-    ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * ldh<DH>() + ks * 16 + ((lane >> 3) & 1) * 8);
-    mma_bf16_16816(s[0], xa[ks], f[0], f[1]);
-    mma_bf16_16816(s[1], xa[ks], f[2], f[3]);
-  }
-}
-
-// acc[DH / 8] += A[16 x 16] . Zs[cb .. cb + 15][0 .. DH)  (Zs row-major [.][LDH])
-template <int DH>
-__device__ __forceinline__ void mma_rows(float (&acc)[DH / 8][4], const unsigned (&a)[4], const bf16* Zs, int cb,
-                                         int lane) {
-#pragma unroll
-  for (int d2 = 0; d2 < DH / 16; ++d2) {
-    unsigned f[4];
-    ldmatrix_x4_trans(f, Zs + (cb + (lane & 15)) * ldh<DH>() + d2 * 16 + (lane >> 4) * 8);
-    mma_bf16_16816(acc[d2 * 2], a, f[0], f[1]);
-    mma_bf16_16816(acc[d2 * 2 + 1], a, f[2], f[3]);
-  }
 }
 
 template <int DH>
@@ -165,7 +133,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
                       bf16* __restrict__ o, float* __restrict__ lse, int L, float scale, int kt_rows) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
-  bf16* Vs = Ks + kt_rows * ldh<DH>();
+  bf16* Vs = Ks + kt_rows * Head<DH>::LD;
   const int ntile = (L + RT - 1) / RT;
   const long long bh = blockIdx.x / ntile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -177,7 +145,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   const int q0 = (blockIdx.x % ntile) * RT + warp * 16;
   const int ra = q0 + (lane >> 2), rb = ra + 8;
   const bool active = q0 < L;  // warp-uniform
-  unsigned qa[DH / 16][4];
+  unsigned qa[Head<DH>::KS][4];
   load_afrag<DH>(qa, qb, ra, L, lane);
 
   auto load_kv = [&](int k0, bool with_v) {
@@ -265,14 +233,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
 // per row (j, e & 1) for the same reason. The next strip's q fragments are
 // loaded while this one computes.
 template <int DH, int NB>
-constexpr size_t strip_smem() { return sizeof(bf16) * 2 * NB * 16 * ldh<DH>(); }
+constexpr size_t strip_smem() { return sizeof(bf16) * 2 * NB * 16 * Head<DH>::LD; }
 
 template <int DH, int NB>
 __global__ void __launch_bounds__(256, 1)
 flash_fwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                             bf16* __restrict__ o, float* __restrict__ lse, int L, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = ldh<DH>(), C = DH / 8;
+  constexpr int LD = Head<DH>::LD, C = DH / 8;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LD]
   bf16* Vs = Ks + NB * 16 * LD;
   const long long bh = blockIdx.x;
@@ -288,16 +256,16 @@ flash_fwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const float NEG_INF = __int_as_float(0xff800000);
   const float c2 = scale * 1.4426950408889634f;  // scale * log2(e): the exponent is taken of the raw s
   int q0 = warp * 16;
-  unsigned qn[DH / 16][4];
+  unsigned qn[Head<DH>::KS][4];
   if (q0 < L) load_afrag<DH>(qn, q + off, q0 + (lane >> 2), L, lane);
   cp_async_wait<0>();
   __syncthreads();
 
   for (; q0 < L; q0 += nw * 16) {
     const int ra = q0 + (lane >> 2), rb = ra + 8;
-    unsigned qa[DH / 16][4];
+    unsigned qa[Head<DH>::KS][4];
 #pragma unroll
-    for (int i = 0; i < DH / 16; ++i)
+    for (int i = 0; i < Head<DH>::KS; ++i)
 #pragma unroll
       for (int f = 0; f < 4; ++f) qa[i][f] = qn[i][f];
     if (q0 + nw * 16 < L) load_afrag<DH>(qn, q + off, ra + nw * 16, L, lane);
@@ -467,7 +435,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ dout, bf16* __restrict__ dq, int L, float scale, int kt_rows) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
-  bf16* Vs = Ks + kt_rows * ldh<DH>();
+  bf16* Vs = Ks + kt_rows * Head<DH>::LD;
   const int ntile = (L + RT - 1) / RT;
   const long long bh = blockIdx.x / ntile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -476,7 +444,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (blockIdx.x % ntile) * RT + warp * 16;
   const int ra = q0 + (lane >> 2), rb = ra + 8;
   const bool active = q0 < L;
-  unsigned qa[DH / 16][4], da[DH / 16][4];
+  unsigned qa[Head<DH>::KS][4], da[Head<DH>::KS][4];
   load_afrag<DH>(qa, q + off, ra, L, lane);
   load_afrag<DH>(da, dout + off, ra, L, lane);
   const float la = ra < L ? lse[bh * L + ra] : 0.f, lb = rb < L ? lse[bh * L + rb] : 0.f;
@@ -523,7 +491,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // sT = k . q^T, dpT = v . do^T give pT and dsT in the accumulators, which
 // go on as A fragments: dv += pT . do, dk += dsT . q (each split hi + lo).
 template <int DH>
-constexpr size_t dkdv_bf16_smem() { return sizeof(bf16) * 2 * QT * ldh<DH>() + sizeof(float) * 2 * QT; }
+constexpr size_t dkdv_bf16_smem() { return sizeof(bf16) * 2 * QT * Head<DH>::LD + sizeof(float) * 2 * QT; }
 
 template <int DH>
 __global__ void __launch_bounds__(128)
@@ -533,8 +501,8 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][LDH]
-  bf16* Os = Qs + QT * ldh<DH>();            // do
-  float* ql = reinterpret_cast<float*>(Os + QT * ldh<DH>());
+  bf16* Os = Qs + QT * Head<DH>::LD;            // do
+  float* ql = reinterpret_cast<float*>(Os + QT * Head<DH>::LD);
   float* qd = ql + QT;
   const int ntile = (L + RT - 1) / RT;
   const long long bh = blockIdx.x / ntile;
@@ -542,7 +510,7 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const long long off = bh * L * DH;
   const int k0 = (blockIdx.x % ntile) * RT + warp * 16;
   const int ka = k0 + (lane >> 2);
-  unsigned kf[DH / 16][4], vf[DH / 16][4];
+  unsigned kf[Head<DH>::KS][4], vf[Head<DH>::KS][4];
   load_afrag<DH>(kf, k + off, ka, L, lane);
   load_afrag<DH>(vf, v + off, ka, L, lane);
   float gk[DH / 8][4], gv[DH / 8][4];
@@ -790,9 +758,9 @@ FwdPlan plan_fwd_bf16(int L) {
   if (L <= 128) return strip_plan<DH, 8>();
   if (L <= STRIP_MAX_L) return strip_plan<DH, 16>();
   static bool ready = false;
-  const cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready);
+  const cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * Head<DH>::LD, ready);
   return {reinterpret_cast<const void*>(flash_fwd_bf16_kernel<DH>), 0, 128, RT,
-          sizeof(bf16) * 2 * ((min(L, KT) + 15) / 16 * 16) * ldh<DH>(), e};
+          sizeof(bf16) * 2 * ((min(L, KT) + 15) / 16 * 16) * Head<DH>::LD, e};
 }
 
 template <int DH>
@@ -851,9 +819,9 @@ cudaError_t launch_bwd(int bf, const void* q, const void* k, const void* v, cons
     flash_delta_kernel<bf16><<<dblocks, 256, 0, st>>>(static_cast<const bf16*>(o), db, delta, rows, DH);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    if ((e = allow_smem(flash_bwd_dq_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * ldh<DH>(), ready_q)) != cudaSuccess)
+    if ((e = allow_smem(flash_bwd_dq_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * Head<DH>::LD, ready_q)) != cudaSuccess)
       return e;
-    flash_bwd_dq_bf16_kernel<DH><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * ldh<DH>(), st>>>(
+    flash_bwd_dq_bf16_kernel<DH><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * Head<DH>::LD, st>>>(
         qb, kb, vb, lse, delta, db, static_cast<bf16*>(dq), L, scale, kt_rows);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if ((e = allow_smem(flash_bwd_dkdv_bf16_kernel<DH>, dkdv_bf16_smem<DH>(), ready_k)) != cudaSuccess) return e;
@@ -881,18 +849,14 @@ cudaError_t launch_bwd(int bf, const void* q, const void* k, const void* v, cons
 extern "C" {
 
 // o [BH, L, dh] (bf16 when bf16 else fp32), lse [BH, L] fp32 = flash forward
-// of q, k, v [BH, L, dh] (same type); dh in {16, 32, 48, 64}.
+// of q, k, v [BH, L, dh] (same type); dh in {8, 16, 32, 48, 64}.
 int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bf, int BH, int L, int dh,
                   float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  switch (dh) {
-    case 16: return (int)launch_fwd<16>(bf, q, k, v, o, l, BH, L, scale, st);
-    case 32: return (int)launch_fwd<32>(bf, q, k, v, o, l, BH, L, scale, st);
-    case 48: return (int)launch_fwd<48>(bf, q, k, v, o, l, BH, L, scale, st);
-    case 64: return (int)launch_fwd<64>(bf, q, k, v, o, l, BH, L, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_head_width(FlashHeadWidths{}, dh, [&](auto w) {
+    return launch_fwd<decltype(w)::value>(bf, q, k, v, o, l, BH, L, scale, st);
+  });
 }
 
 // info[7] of the bf16 forward cse_flash_fwd launches at (L, dh): key blocks
@@ -900,13 +864,7 @@ int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
 // shared bytes, registers a thread, local-memory bytes a thread, resident
 // blocks per SM.
 int cse_flash_fwd_info(int L, int dh, int* info) {
-  switch (dh) {
-    case 16: return (int)fwd_info<16>(L, info);
-    case 32: return (int)fwd_info<32>(L, info);
-    case 48: return (int)fwd_info<48>(L, info);
-    case 64: return (int)fwd_info<64>(L, info);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_head_width(FlashHeadWidths{}, dh, [&](auto w) { return fwd_info<decltype(w)::value>(L, info); });
 }
 
 // dq, dk, dv [BH, L, dh] of the flash attention from q, k, v, o, do (all one
@@ -917,15 +875,9 @@ int cse_flash_bwd(const void* q, const void* k, const void* v, const void* o, co
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-#define CSE_FLASH_BWD(DH) (int)launch_bwd<DH>(bf, q, k, v, o, l, dout, dl, dq, dk, dv, BH, L, scale, st)
-  switch (dh) {
-    case 16: return CSE_FLASH_BWD(16);
-    case 32: return CSE_FLASH_BWD(32);
-    case 48: return CSE_FLASH_BWD(48);
-    case 64: return CSE_FLASH_BWD(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CSE_FLASH_BWD
+  return by_head_width(FlashHeadWidths{}, dh, [&](auto w) {
+    return launch_bwd<decltype(w)::value>(bf, q, k, v, o, l, dout, dl, dq, dk, dv, BH, L, scale, st);
+  });
 }
 
 }  // extern "C"

@@ -1,14 +1,21 @@
 // Device helpers shared by the kernel sources: type conversion, warp
-// reductions, cp.async, ldmatrix and the bf16 mma.sync m16n8k16, ex2, the
-// row max and exp of a warp's score strip, a kernel's attributes and
-// occupancy, and the fixed-order column reduction that turns per-block
-// partial sums into one row (every cross-block sum of the port goes through
-// it, so no result depends on the order in which blocks run).
+// reductions, cp.async, ldmatrix and the bf16 mma.sync m16n8k16, the
+// head-width fragments of the attention kernels (any head width that is a
+// multiple of 8: a half k-step is zero-padded inside the fragment), ex2, the
+// row max and exp of a warp's score strip, the staging of a sequence's q, k
+// and v from the packed fp32 qkv, Hopper's mbarrier, TMA and wgmma, a
+// kernel's attributes and occupancy, and the fixed-order column reduction
+// that turns per-block partial sums into one row (every cross-block sum of
+// the port goes through it, so no result depends on the order in which
+// blocks run).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -71,6 +78,103 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// ---------------------------------------------------------------- head widths
+// A head of HD columns (HD % 8 == 0) on mma.sync m16n8k16: a product that
+// contracts over the head takes KS k-steps of 16, the last one half zero when
+// HD % 16 == 8 (its upper eight columns are set to zero in both fragments, so
+// the padding columns of a shared-memory tile are never read into a sum); a
+// product whose output spans the head has HD / 8 n8 tiles. Tiles in shared
+// memory are bf16 rows of HD + 8 elements (ldmatrix without bank conflicts).
+template <int HD>
+struct Head {
+  static_assert(HD % 8 == 0 && HD >= 8, "head width must be a multiple of 8");
+  static constexpr int KS = (HD + 15) / 16;
+  static constexpr int NT = HD / 8;
+  static constexpr int LD = HD + 8;
+  static constexpr bool HALF = HD % 16 == 8;
+};
+
+// The head widths the attention kernels are instantiated for, listed once:
+// HeadWidths (ops/fused_stack.py::HEAD_WIDTHS) and, for the flash kernels,
+// FlashHeadWidths (ops/attention.py::HEAD_WIDTHS). by_head_width(list, hd, f)
+// returns (int)f(std::integral_constant<int, HD>{}) for the listed HD equal to
+// hd, and cudaErrorInvalidValue for any other hd.
+template <int... W>
+struct Widths {};
+using HeadWidths = Widths<8, 16, 32, 64>;
+using FlashHeadWidths = Widths<8, 16, 32, 48, 64>;
+
+template <int... W, class F>
+int by_head_width(Widths<W...>, int hd, F&& f) {
+  int r = (int)cudaErrorInvalidValue;
+  (void)((hd == W && (r = (int)f(std::integral_constant<int, W>{}), true)) || ...);
+  return r;
+}
+
+// s[j] = X . Ys^T for the 16 rows cb .. cb + 15 of Ys [.][LD] (n8 tiles j = 0, 1);
+// xa: the A fragments of 16 rows of X over the head
+template <int HD>
+__device__ __forceinline__ void prod16(float (&s)[2][4], const unsigned (&xa)[Head<HD>::KS][4], const bf16* Ys,
+                                       int cb, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < Head<HD>::KS; ++ks) {
+    unsigned f[4];  // {b0, b1} of rows cb .. cb + 7, then of rows cb + 8 .. cb + 15
+    ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * Head<HD>::LD + ks * 16 + ((lane >> 3) & 1) * 8);
+    if (Head<HD>::HALF && ks == Head<HD>::KS - 1) f[1] = f[3] = 0u;
+    mma_bf16_16816(s[0], xa[ks], f[0], f[1]);
+    mma_bf16_16816(s[1], xa[ks], f[2], f[3]);
+  }
+}
+
+// acc[HD / 8] += A[16 x 16] . Zs[cb .. cb + 15][0 .. HD)  (Zs row-major [.][LD])
+template <int HD>
+__device__ __forceinline__ void mma_rows(float (&acc)[Head<HD>::NT][4], const unsigned (&a)[4], const bf16* Zs,
+                                         int cb, int lane) {
+#pragma unroll
+  for (int d2 = 0; d2 < Head<HD>::KS; ++d2) {
+    unsigned f[4];
+    ldmatrix_x4_trans(f, Zs + (cb + (lane & 15)) * Head<HD>::LD + d2 * 16 + (lane >> 4) * 8);
+    mma_bf16_16816(acc[d2 * 2], a, f[0], f[1]);
+    if (d2 * 2 + 1 < Head<HD>::NT) mma_bf16_16816(acc[d2 * 2 + 1], a, f[2], f[3]);
+  }
+}
+
+// The A fragments of 16 rows (r0 .. r0 + 15) of a bf16 tile [.][LD] in shared memory
+template <int HD>
+__device__ __forceinline__ void afrag_smem(unsigned (&f)[Head<HD>::KS][4], const bf16* Xs, int r0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < Head<HD>::KS; ++ks) {
+    ldmatrix_x4(f[ks], Xs + (r0 + (lane & 15)) * Head<HD>::LD + ks * 16 + (lane >> 4) * 8);
+    if (Head<HD>::HALF && ks == Head<HD>::KS - 1) f[ks][2] = f[ks][3] = 0u;
+  }
+}
+
+// The A fragments of rows ra and ra + 8 from fp32 rows in device memory
+// (row r at x + r * stride, the head's columns 0 .. HD), times mul, rounded
+// to bf16; zero for rows >= L and columns >= HD
+template <int HD>
+__device__ __forceinline__ void afrag_f32(unsigned (&f)[Head<HD>::KS][4], const float* x, long long stride, int ra,
+                                          int L, float mul, int lane) {
+  const int rb = ra + 8;
+#pragma unroll
+  for (int ks = 0; ks < Head<HD>::KS; ++ks)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
+      float2 xa = make_float2(0.f, 0.f), xb = xa;
+      if (ks * 16 + hi * 8 < HD) {
+        if (ra < L) xa = *reinterpret_cast<const float2*>(x + (long long)ra * stride + d);
+        if (rb < L) xb = *reinterpret_cast<const float2*>(x + (long long)rb * stride + d);
+      }
+      f[ks][hi * 2] = pack_bf16(xa.x * mul, xa.y * mul);
+      f[ks][hi * 2 + 1] = pack_bf16(xb.x * mul, xb.y * mul);
+    }
+}
+
 // 2^x on the special-function unit, one instruction (results below 2^-126 flush to 0)
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -128,6 +232,156 @@ __device__ __forceinline__ void strip_exp(float (&s)[NB][2][4], const float (&m)
       for (int x = 1; x < 4; x <<= 1) z[h] += __shfl_xor_sync(FULL, z[h], x);
     }
   }
+}
+
+// One sequence-head's q * scale, k and v (rows 0 .. NR - 1 of base, the
+// packed fp32 qkv [L, 3D] at the head's columns) as bf16 into Qs, Ks, Vs
+// [NR][HD + 8], zero past L: eight lanes to a row's 128 bytes (at HD 32),
+// BATCH rows' loads a thread in flight, so that the block waits on the
+// memory once per batch and not once per load.
+template <int HD, int NR, int BATCH>
+__device__ __forceinline__ void stage_qkv_bf16(const float* __restrict__ base, int D, int L, float scale,
+                                               bf16* Qs, bf16* Ks, bf16* Vs) {
+  constexpr int C = HD / 4, N = NR * C, LD = Head<HD>::LD;
+  const long long D3 = 3LL * D;
+  for (int e0 = threadIdx.x; e0 < N; e0 += BATCH * blockDim.x) {
+    float4 t[BATCH][3];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / C, c = (e % C) * 4;
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        t[b][u] = e < N && r < L ? *reinterpret_cast<const float4*>(base + r * D3 + u * D + c)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int e = e0 + b * blockDim.x, r = e / C, c = (e % C) * 4;
+      if (e >= N) continue;
+      const float4 qq = t[b][0];
+      *reinterpret_cast<uint2*>(Qs + r * LD + c) =
+          make_uint2(pack_bf16(qq.x * scale, qq.y * scale), pack_bf16(qq.z * scale, qq.w * scale));
+#pragma unroll
+      for (int u = 1; u < 3; ++u)
+        *reinterpret_cast<uint2*>((u == 1 ? Ks : Vs) + r * LD + c) =
+            make_uint2(pack_bf16(t[b][u].x, t[b][u].y), pack_bf16(t[b][u].z, t[b][u].w));
+    }
+  }
+}
+
+// Keys past L in a strip's scores -> fill (-inf before a softmax); for
+// NB = 16 the strip kernels run only at L > 128, so blocks 0-7 hold none.
+template <int NB>
+__device__ __forceinline__ void strip_mask(float (&s)[NB][2][4], int L, int lane, float fill) {
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb) {
+    const bool edge = cb >= (NB == 16 ? 8 : 0) && cb * 16 + 16 > L;  // warp-uniform
+    const int lim = L - cb * 16 - (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (edge && j * 8 + (e & 1) >= lim) s[cb][j][e] = fill;
+  }
+}
+
+// ---------------------------------------------------------------- Hopper: mbarrier, TMA, wgmma
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// one arrival that also announces the bytes the TMA copies bound to this phase will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of the given parity has completed (a fresh barrier
+// counts its phase "before" the first, parity 1, as complete)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory -> visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// 2-D tile: global (c0 = inner coordinate, c1 = outer) -> shared, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+// 2-D tile: shared -> global (clipped at the tensor's edge), in the issuing thread's bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1, const void* src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(smem_addr(src))
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// the shared-memory source of every committed store has been read
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// every committed store has completed
+__device__ __forceinline__ void tma_store_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units); the tiles start on
+// 1024-byte boundaries, so the base offset is 0
+__device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// keep the compiler from moving reads or writes of the accumulators across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 operands from shared memory
+// (A K-major, B N-major: the transpose bit), fp32 accumulators. Thread t of
+// the warpgroup holds, for n8 tile j, d[4j + e] at row 16 (t / 32) + (t % 32)
+// / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // The function attributes and occupancy of a kernel as chip_smoke.py and the

@@ -19,22 +19,29 @@
 //   (b) linear_*_kernel: C = A[M,K] . W[K,N] with cd operands and fp32
 //       accumulation, epilogue +bias (fp32 out), +bias+relu (cd out), or
 //       +bias added into the fp32 residual in place (and EPI_RELU_GRAD,
-//       below). bf16 runs on the tensor
-//       cores through mma.sync (128x128x32 tiles, a 4-stage cp.async ring,
-//       ldmatrix) with the epilogue applied from registers; fp32 runs on
+//       below). bf16 runs on Hopper's wgmma with TMA loads and stores in a
+//       persistent, warp-specialised kernel (its design below); fp32 runs on
 //       CUDA-core FMAs (64x64 tiles), never TF32. At M ~ 5e5 rows and
 //       K, N <= 1024 the bytes bound it: the fp32 qkv write and the fp32
 //       residual read-modify-write outweigh the operations.
-//   (c) attention_*_kernel: one block per (sequence, head), head width 32.
-//       K and V of the head go to shared memory in cd, in tiles of 256 keys.
-//       Two passes over the keys: the first finds the row max, the second
-//       computes p = exp(s-m), z = sum p and cd(p).cd(v) in fp32, divided by
-//       z after PV -- the TPU kernel's arithmetic, with p rounded relative to
-//       the row's global max (no online softmax), for any sequence length.
-//       bf16 runs the score and PV products on the tensor cores (mma.sync)
-//       with the scores in registers, recomputed in the second pass rather
-//       than stored; fp32 runs them on CUDA-core FMAs. At the serving shapes
-//       the fp32 qkv read (bytes) bounds it.
+//   (c) attention_*_kernel: masked MHSA of one (sequence, head) per block
+//       over the packed fp32 qkv, head width HD a template argument (8, 16,
+//       32, 64). The TPU kernel's arithmetic: q*scale, k and v rounded to
+//       cd, fp32 scores, m = max over the L keys, p = exp(s - m), z summed
+//       from the unrounded p, cd(p).cd(v) in fp32, divided by z after PV.
+//       bf16, routed by L alone:
+//         L <= 256, attention_strip_bf16_kernel: the block stages q, k and v
+//           of all its rows as bf16 in shared memory once (common.cuh's
+//           stage_qkv_bf16, shared with kernel_parts.cu); a warp owns 16
+//           queries and keeps their scores against every key in registers
+//           (s[NB][2][4], NB = 8 or 16 blocks of 16 keys): one product, one
+//           exponential per score (p = 2^(s log2(e) - m log2(e)) in one FMA
+//           and one ex2), the row max and sum by quad shuffles, one PV.
+//         L > 256, attention_bf16_kernel: K and V in tiles of 256 keys and
+//           two passes (the row max; then p, z and PV), the scores
+//           recomputed in the second rather than stored.
+//       fp32 (the parity path) runs CUDA-core FMAs with expf. At the
+//       serving shapes the fp32 qkv read (bytes) bounds it.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -69,171 +76,263 @@ layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // ---------------------------------------------------------------- (b) GEMM
 // EPI_RELU_GRAD (the training backward's dX GEMM through the FFN's ReLU):
 // C (cd) = where(mask > 0, acc + bias, 0) with mask the forward's relu output
-// (cd), and the fp32 column sums of that value over the block's rows written
-// to colsum[blockIdx.x / nN][N] -- the bias gradient's per-block partials.
+// (cd), and the fp32 column sums of that value over each 128-row M tile
+// written to colsum[tile][N] -- the bias gradient's per-tile partials.
 enum Epilogue { EPI_BIAS = 0, EPI_RELU = 1, EPI_RESIDUAL = 2, EPI_RELU_GRAD = 3 };
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
-constexpr int LDA_S = BK + 8;   // bf16 elements: 80-byte rows, ldmatrix conflict-free
-constexpr int LDB_S = BN + 8;   // 272-byte rows, likewise
-constexpr int A_STAGE = BM * LDA_S, B_STAGE = BK * LDB_S;
-constexpr size_t LINEAR_BF16_SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
+// bf16 x bf16 -> fp32 on Hopper's tensor cores: wgmma + TMA, persistent and
+// warp-specialised. At the main path's shapes (M ~ 5e5 rows, K, N <= 1024)
+// the bytes bound it (the fp32 outputs and the residual's read-modify-write
+// outweigh the operations ~2.4x), so the design keeps device memory busy:
+//   - one block per SM walks 128-row panels of A (blockIdx.x, + gridDim.x,
+//     ...), and within a panel every 128-column tile of the output;
+//   - warp 0 loads by TMA: for K <= 256 the panel's A (128 x K) stays in
+//     shared memory across all the panel's N tiles (each A row is read from
+//     device memory once); beyond, A's 64-wide k-chunks stream through the
+//     same four slots, and two N tiles share each pass over K (NG = 2, two
+//     sets of accumulators), so A is still read once per panel. W's chunks
+//     (64 x 128) stream through a five-slot ring; W is small and is read
+//     from L2. Out-of-range rows and columns of a box are zero-filled, so
+//     ragged M, N and K need no code;
+//   - two consumer warpgroups run wgmma m64n128k16 on 64 rows each (A
+//     K-major, W N-major through the transpose bit, both 128-byte swizzled
+//     as TMA writes them) and release each slot as its products retire;
+//   - the epilogue adds bias (and the residual, or applies the ReLU or the
+//     ReLU-gradient mask) from registers into a swizzled tile in shared
+//     memory, which warp 1 writes out by TMA in whole lines while the
+//     consumers run the next tile; for EPI_RESIDUAL and EPI_RELU_GRAD warp 1
+//     first loads the residual or mask tile into that buffer by TMA, ahead
+//     of the epilogue, as soon as the previous tile's store has read it;
+//   - setmaxnreg hands the producer warpgroup's registers to the consumers.
+// Numerics, as linear_plain's: bf16 products summed in fp32, then
+// (acc + bias) [+ residual], rounded once to the output type.
+namespace gemm {
+constexpr int BM = 128, BN = 128, BK = 64;  // output tile; k-chunk (64 bf16 = one 128-byte swizzle row)
+constexpr int SLOTS = 4;                     // A chunk slots
+constexpr int W_SLOTS = 5;                   // W chunk slots (5 beat 4 by 1-4%, PERF.md)
+constexpr int A_CHUNK = BM * BK * 2;         // 16 KB: 128 rows x 64 k
+constexpr int W_BOX = BK * 64 * 2;           // 8 KB: 64 k rows x 64 columns
+constexpr int W_CHUNK = 2 * W_BOX;           // 16 KB: 64 k rows x 128 columns
+constexpr int STAGE = BM * BN * 4;           // 64 KB: the epilogue tile (fp32; bf16 uses half)
+constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
+// shared memory: A slots | W slots | epilogue tile | column-sum scratch | barriers, after 1 KB alignment
+constexpr int OFF_W = SLOTS * A_CHUNK, OFF_STAGE = OFF_W + W_SLOTS * W_CHUNK, OFF_RED = OFF_STAGE + STAGE;
+constexpr int OFF_BAR = OFF_RED + 8 * BN * 4;
+constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (2 * SLOTS + 2 * W_SLOTS + 2);
+}  // namespace gemm
 
-// Store two neighbouring columns (c, c + 1) of one output row (bias and
-// residual already added).
-template <int EPI>
-__device__ __forceinline__ void store2(float v0, float v1, long long idx, void* __restrict__ C) {
-  if (EPI == EPI_RELU)
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + idx) =
-        __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-  else if (EPI == EPI_RELU_GRAD)
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + idx) = __floats2bfloat162_rn(v0, v1);
-  else
-    *reinterpret_cast<float2*>(static_cast<float*>(C) + idx) = make_float2(v0, v1);
+// byte offset of element (r, c) of the epilogue tile: fp32 as four 32-column
+// boxes, bf16 as two 64-column boxes, each [128 rows][128 bytes] with TMA's
+// 128-byte swizzle (16-byte chunk index XOR row % 8)
+__device__ __forceinline__ int stage_off_f32(int r, int c) {
+  return (c >> 5) * 16384 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+__device__ __forceinline__ int stage_off_bf16(int r, int c) {
+  return (c >> 6) * 16384 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
 }
 
-// bf16 x bf16 -> fp32 on the tensor cores (mma.sync m16n8k16, operands by
-// ldmatrix from a 4-stage cp.async ring). 8 warps as 2 (M) x 4 (N), each
-// 64 x 32 of the 128 x 128 tile. The epilogue works on the accumulators in
-// registers: each thread owns column pairs, so a warp's store covers eight
-// full 32-byte sectors. Requires K % 8 == 0, N % 8 == 0 and 16-byte aligned
-// A and W (checked by the host wrapper).
-template <int EPI>
-__global__ void __launch_bounds__(256, 2)
-linear_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                   const float* __restrict__ bias, void* __restrict__ C, int M, int N, int K,
-                   const bf16* __restrict__ mask, float* __restrict__ colsum) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][LDA_S]
-  bf16* Bs = As + STAGES * A_STAGE;          // [STAGES][BK][LDB_S]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nN = (N + BN - 1) / BN;
-  const int bm = (blockIdx.x / nN) * BM, bn = (blockIdx.x % nN) * BN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+template <int EPI, int NG>
+__global__ void __launch_bounds__(gemm::THREADS, 1)
+linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+                   const __grid_constant__ CUtensorMap tmC, const __grid_constant__ CUtensorMap tmX,
+                   const float* __restrict__ bias, float* __restrict__ colsum, int M, int N, int K) {
+  using namespace gemm;
+  constexpr bool F32_OUT = EPI == EPI_BIAS || EPI == EPI_RESIDUAL;
+  constexpr bool LOADS_X = EPI == EPI_RESIDUAL || EPI == EPI_RELU_GRAD;  // tmX: the residual (= C) or the mask
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* As = smem;
+  unsigned char* Ws = smem + OFF_W;
+  unsigned char* Cs = smem + OFF_STAGE;
+  float* red = reinterpret_cast<float*>(smem + OFF_RED);  // [8 warps][BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t *afull = bars, *aempty = bars + SLOTS, *wfull = bars + 2 * SLOTS, *wempty = wfull + W_SLOTS;
+  uint64_t *sready = wempty + W_SLOTS, *sfull = sready + 1;
 
-  float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* as = As + stage * A_STAGE;
-    bf16* bs = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 128 rows x 4 chunks of 8
-      const int c = tid + i * 256, r = c >> 2, kc = (c & 3) * 8;
-      const int gr = bm + r, gk = k0 + kc;
-      const bool p = gr < M && gk < K;
-      cp_async16(as + r * LDA_S + kc, p ? A + (long long)gr * K + gk : A, p);
+  const int panels = (M + BM - 1) / BM, NT = (N + BN - 1) / BN, KC = (K + BK - 1) / BK;
+  const bool resident = KC <= SLOTS;  // A's panel stays for all its N tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(&afull[i], 1);
+      mbar_init(&aempty[i], 8);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // W: 32 rows x 16 chunks of 8
-      const int c = tid + i * 256, r = c >> 4, nc = (c & 15) * 8;
-      const int gk = k0 + r, gn = bn + nc;
-      const bool p = gk < K && gn < N;
-      cp_async16(bs + r * LDB_S + nc, p ? W + (long long)gk * N + gn : W, p);
+    for (int i = 0; i < W_SLOTS; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], 8);
     }
-  };
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {  // one commit group per stage, even if empty
-    if (s < nk) load_tile(s, s * BK);
-    cp_async_commit();
+    mbar_init(sready, 1);
+    mbar_init(sfull, 8);
+    fence_barrier_init();
   }
-  // lane's row (A) / k row (W) and 8-column offset for ldmatrix x4
-  const int lr = lane & 15, lc = (lane >> 4) * 8;
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // ... for every thread; stage (kt - 1) is free
-    if (kt + STAGES - 1 < nk) load_tile((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * BK);
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * A_STAGE;
-    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned af[4][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4(af[i], as + (wm + i * 16 + lr) * LDA_S + kk + lc);
-      // bfr[j]: {b0, b1} of n8 tile 2j, then {b0, b1} of n8 tile 2j + 1
-#pragma unroll
-      for (int j = 0; j < 2; ++j) ldmatrix_x4_trans(bfr[j], bs + (kk + lr) * LDB_S + wn + j * 16 + lc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2], bfr[j >> 1][(j & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // accumulator fragment: {0, 1} at (lane / 4, 2 * (lane % 4) + {0, 1}), {2, 3}
-  // eight rows down. Bias and residual go into the accumulators first, so
-  // that every residual load is in flight before the first store.
-  const int r0 = bm + wm + (lane >> 2), c0 = bn + wn + (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + i * 16, c = c0 + j * 8;
-      if (c >= N) continue;  // N % 8 == 0: c < N implies c + 1 < N
-      const float b0 = bias[c], b1 = bias[c + 1];
-      float2 x0 = make_float2(0.f, 0.f), x1 = x0;
-      if (EPI == EPI_RESIDUAL) {
-        const float* res = static_cast<const float*>(C);
-        if (r < M) x0 = *reinterpret_cast<const float2*>(res + (long long)r * N + c);
-        if (r + 8 < M) x1 = *reinterpret_cast<const float2*>(res + (long long)(r + 8) * N + c);
-      }
-      acc[i][j][0] = (acc[i][j][0] + b0) + x0.x;
-      acc[i][j][1] = (acc[i][j][1] + b1) + x0.y;
-      acc[i][j][2] = (acc[i][j][2] + b0) + x1.x;
-      acc[i][j][3] = (acc[i][j][3] + b1) + x1.y;
-      if (EPI == EPI_RELU_GRAD) {  // rows past M get mask 0, so they add nothing below
-        float2 m0 = make_float2(0.f, 0.f), m1 = m0;
-        if (r < M) m0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mask + (long long)r * N + c));
-        if (r + 8 < M) m1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mask + (long long)(r + 8) * N + c));
-        acc[i][j][0] = m0.x > 0.f ? acc[i][j][0] : 0.f;
-        acc[i][j][1] = m0.y > 0.f ? acc[i][j][1] : 0.f;
-        acc[i][j][2] = m1.x > 0.f ? acc[i][j][2] : 0.f;
-        acc[i][j][3] = m1.y > 0.f ? acc[i][j][3] : 0.f;
+  if (warp < 4) {  // ---- producer warpgroup: warp 0 loads, warp 1 stores
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 0 && lane == 0) {
+      int ai = 0, wi = 0;
+      for (int p = blockIdx.x; p < panels; p += gridDim.x)
+        for (int n0 = 0; n0 < NT; n0 += NG) {
+          const bool fresh = !resident || n0 == 0;
+          for (int kc = 0; kc < KC; ++kc) {
+            if (fresh) {
+              const int s = ai % SLOTS;
+              mbar_wait(&aempty[s], ((ai / SLOTS) & 1) ^ 1);
+              mbar_expect_tx(&afull[s], A_CHUNK);
+              tma_load_2d(As + s * A_CHUNK, &tmA, kc * BK, p * BM, &afull[s]);
+              ++ai;
+            }
+            for (int gi = 0; gi < NG; ++gi, ++wi) {
+              const int s = wi % W_SLOTS, nt = n0 + gi;
+              mbar_wait(&wempty[s], ((wi / W_SLOTS) & 1) ^ 1);
+              mbar_expect_tx(&wfull[s], W_CHUNK);
+              tma_load_2d(Ws + s * W_CHUNK, &tmW, nt * BN, kc * BK, &wfull[s]);
+              tma_load_2d(Ws + s * W_CHUNK + W_BOX, &tmW, nt * BN + 64, kc * BK, &wfull[s]);
+            }
+          }
+        }
+    } else if (warp == 1 && lane == 0) {
+      // tile i's store, then (ahead of tile i + 1's epilogue) its residual or mask
+      constexpr int NBOX = F32_OUT ? 4 : 2, BOXC = F32_OUT ? 32 : 64;
+      auto store = [&](int p, int nt) {
+        for (int b = 0; b < NBOX; ++b)
+          if (nt * BN + b * BOXC < N) tma_store_2d(&tmC, nt * BN + b * BOXC, p * BM, Cs + b * 16384);
+        tma_store_commit();
+      };
+      int i = 0, pp = 0, pnt = 0;
+      for (int p = blockIdx.x; p < panels; p += gridDim.x)
+        for (int nt = 0; nt < NT; ++nt, ++i) {
+          if (i > 0) {
+            mbar_wait(sfull, (i - 1) & 1);
+            store(pp, pnt);
+            tma_store_wait_read();
+          }
+          if (LOADS_X) {
+            mbar_expect_tx(sready, NBOX * 16384);
+            for (int b = 0; b < NBOX; ++b) tma_load_2d(Cs + b * 16384, &tmX, nt * BN + b * BOXC, p * BM, sready);
+          } else {
+            mbar_arrive(sready);
+          }
+          pp = p;
+          pnt = nt;
+        }
+      if (i > 0) {
+        mbar_wait(sfull, (i - 1) & 1);
+        store(pp, pnt);
+        tma_store_wait_all();
       }
     }
-  if (EPI == EPI_RELU_GRAD) {
-    // column sums of this block's 128 rows: over the thread's 8 rows, over
-    // the 8 lanes that share a column (lane / 4), then over the 2 warps in M
-    float cs[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float t = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) t += acc[i][j][e] + acc[i][j][2 + e];
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) t += __shfl_xor_sync(FULL, t, o);
-        cs[j][e] = t;
-      }
-    __syncthreads();  // every warp is done reading the operand ring
-    float* red = reinterpret_cast<float*>(smem);  // [2][BN]
-    if (lane < 4)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        red[(warp >> 2) * BN + wn + j * 8 + lane * 2] = cs[j][0];
-        red[(warp >> 2) * BN + wn + j * 8 + lane * 2 + 1] = cs[j][1];
-      }
-    __syncthreads();
-    if (tid < BN && bn + tid < N) colsum[(long long)(blockIdx.x / nN) * N + bn + tid] = red[tid] + red[BN + tid];
+    return;
   }
+
+  // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = (warp >> 2) - 1, cw = warp - 4;  // warpgroup 0 / 1; consumer warp 0 .. 7
+  const int g = lane >> 2, q = lane & 3;
+  const int row0 = c * 64 + (warp & 3) * 16 + g;  // the thread's rows in the tile: row0, row0 + 8
+  int ai = 0, wi = 0, t = 0, pbase = 0;
+  float acc[NG][64];
+  for (int p = blockIdx.x; p < panels; p += gridDim.x)
+    for (int n0 = 0; n0 < NT; n0 += NG) {
+      const bool fresh = !resident || n0 == 0, last = !resident || n0 + NG >= NT;
+      if (fresh) pbase = ai;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int gi = 0; gi < NG; ++gi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + i * 16, c = c0 + j * 8;
-      if (c >= N) continue;
-      if (r < M) store2<EPI>(acc[i][j][0], acc[i][j][1], (long long)r * N + c, C);
-      if (r + 8 < M) store2<EPI>(acc[i][j][2], acc[i][j][3], (long long)(r + 8) * N + c, C);
+        for (int i = 0; i < 64; ++i) acc[gi][i] = 0.f;
+      for (int kc = 0; kc < KC; ++kc) {
+        const int aidx = pbase + kc, as = aidx % SLOTS;
+        if (fresh) mbar_wait(&afull[as], (aidx / SLOTS) & 1);
+        const unsigned char* a = As + as * A_CHUNK + c * (64 * 128);
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) mbar_wait(&wfull[(wi + gi) % W_SLOTS], ((wi + gi) / W_SLOTS) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) {
+          const unsigned char* w = Ws + ((wi + gi) % W_SLOTS) * W_CHUNK;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)  // A: +32 bytes along the swizzled row; W: +16 k rows
+            wgmma_m64n128k16_tb(acc[gi], gmma_desc_sw128(a + kk * 32, 16, 1024),
+                                gmma_desc_sw128(w + kk * 2048, W_BOX, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait0();  // the slots go back as soon as the chunk's products retire
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) fence_regs(acc[gi]);
+        if (lane == 0) {
+#pragma unroll
+          for (int gi = 0; gi < NG; ++gi) mbar_arrive(&wempty[(wi + gi) % W_SLOTS]);
+          if (last) mbar_arrive(&aempty[as]);
+        }
+        wi += NG;
+      }
+      if (fresh) ai += KC;
+
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi, ++t) {
+        const int nt = n0 + gi;
+        // epilogue: (acc + bias) [+ residual | relu | mask] into the staged tile
+        mbar_wait(sready, t & 1);
+        float cs[16][2];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 8 * j + 2 * q, gc = nt * BN + col;
+          const float b0 = gc < N ? bias[gc] : 0.f, b1 = gc + 1 < N ? bias[gc + 1] : 0.f;
+          cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = row0 + 8 * h;
+            float v0 = acc[gi][4 * j + 2 * h] + b0, v1 = acc[gi][4 * j + 2 * h + 1] + b1;
+            if (F32_OUT) {
+              float2* pc = reinterpret_cast<float2*>(Cs + stage_off_f32(r, col));
+              if (EPI == EPI_RESIDUAL) {
+                const float2 x = *pc;
+                v0 += x.x;
+                v1 += x.y;
+              }
+              *pc = make_float2(v0, v1);
+            } else {
+              __nv_bfloat162* pc = reinterpret_cast<__nv_bfloat162*>(Cs + stage_off_bf16(r, col));
+              if (EPI == EPI_RELU) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              } else {  // EPI_RELU_GRAD: the mask is 0 past M and N, so those add nothing below
+                const float2 m = __bfloat1622float2(*pc);
+                v0 = m.x > 0.f ? v0 : 0.f;
+                v1 = m.y > 0.f ? v1 : 0.f;
+                cs[j][0] += v0;
+                cs[j][1] += v1;
+              }
+              *pc = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sfull);
+        if (EPI == EPI_RELU_GRAD) {
+          // column sums over the tile's 128 rows: the thread's 2 rows, the 8
+          // lanes of a column (lane / 4), then the 8 consumer warps in order
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float v = cs[j][e];
+#pragma unroll
+              for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
+              if (g == 0) red[cw * BN + 8 * j + 2 * q + e] = v;
+            }
+          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+          const int ct = threadIdx.x - 128;
+          if (ct < BN && nt * BN + ct < N) {
+            float v = red[ct];
+#pragma unroll
+            for (int w = 1; w < 8; ++w) v += red[w * BN + ct];
+            colsum[(long long)p * N + nt * BN + ct] = v;
+          }
+          asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        }
+      }
     }
 }
 
@@ -319,28 +418,31 @@ linear_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------- (c) attention
-// Both kernels: block b handles sequence b / H, head b % H of qkv [G*L, 3*D]
+// Every kernel: block b handles sequence b / H, head b % H of qkv [G*L, 3*D]
 // fp32 (q | k | v, head h at columns h*HD of each third) and writes
-// out [G*L, D] in cd. Two passes over the keys in tiles of KT; keys past L
-// are zero in shared memory and masked (p = 0). With ``stats`` (training's
-// replay; serving passes null) each row's max m and 1/z go to stats[0][row][h]
-// and stats[1][row][h] ([2, G*L, H] fp32) for the backward to recompute p.
-constexpr int HD = 32;                  // head width
-constexpr int KT = 256;                 // keys per shared-memory tile
+// out [G*L, D] in cd (or fp32). With ``stats`` (training's replay; serving
+// passes null) each row's max m and 1/z go to stats[0][row][h] and
+// stats[1][row][h] ([2, G*L, H] fp32) for the backward to recompute p.
+constexpr int KT = 256;                 // keys per shared-memory tile (L > 256)
+constexpr int STRIP_MAX_L = 256;        // the bf16 route: one pass up to here
+constexpr int STRIP_WARPS = 4;          // warps a strip block (4 beat 8, PERF.md)
+constexpr int ATT_WARPS = 4;            // warps a two-pass block
 
 // fp32 (the parity path): CUDA-core FMAs, one warp per query row, lane j
-// scores key c + j and owns output column j.
+// scores key c + j and owns output columns j, j + 32.
 constexpr int QT32 = 128;               // query rows per tile
 constexpr int ROWS32 = QT32 / 8;        // query rows per warp per tile
-constexpr int LDK32 = HD + 1;           // 33-word K rows: conflict-free
-constexpr size_t ATT_F32_SMEM = sizeof(float) * (KT * LDK32 + KT * HD + QT32 * HD);
+template <int HD>
+constexpr size_t att_f32_smem() { return sizeof(float) * (KT * (HD + 1) + KT * HD + QT32 * HD); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int L, int H,
                      float scale, float* __restrict__ stats) {
+  constexpr int LK = HD + 1, NC = (HD + 31) / 32;  // 33-word K rows at HD 32: conflict-free
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [KT][LDK32]
-  float* Vs = Ks + KT * LDK32;                 // [KT][HD]
+  float* Ks = reinterpret_cast<float*>(smem);  // [KT][LK]
+  float* Vs = Ks + KT * LK;                    // [KT][HD]
   float* Qs = Vs + KT * HD;                    // [QT32][HD]
 
   const int g = blockIdx.x / H, h = blockIdx.x % H;
@@ -353,14 +455,14 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
     for (int e = tid; e < KT * HD; e += blockDim.x) {
       const int r = e / HD, d = e % HD, key = k0 + r;
       const float* row = base + (long long)key * D3 + h * HD + d;
-      Ks[r * LDK32 + d] = key < L ? row[D] : 0.f;
+      Ks[r * LK + d] = key < L ? row[D] : 0.f;
       Vs[r * HD + d] = key < L ? row[2 * D] : 0.f;
     }
   };
   auto score = [&](const float* q, int key) {
     float s = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(q[d], Ks[key * LDK32 + d], s);
+    for (int d = 0; d < HD; ++d) s = fmaf(q[d], Ks[key * LK + d], s);
     return s;
   };
   if (nkt == 1) load_kv(0);
@@ -373,12 +475,13 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
     }
     __syncthreads();
 
-    float m[ROWS32], z[ROWS32], acc[ROWS32];
+    float m[ROWS32], z[ROWS32], acc[ROWS32][NC];
 #pragma unroll
     for (int r = 0; r < ROWS32; ++r) {
       m[r] = __int_as_float(0xff800000);  // -inf
       z[r] = 0.f;
-      acc[r] = 0.f;
+#pragma unroll
+      for (int u = 0; u < NC; ++u) acc[r][u] = 0.f;
     }
     // pass 1: the row max over all keys
     for (int kt = 0; kt < nkt; ++kt) {
@@ -424,8 +527,12 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
           const float p = c + lane < nk ? expf(s - m[r]) : 0.f;
           z[r] += p;
 #pragma unroll
-          for (int j = 0; j < 32; ++j)
-            acc[r] = fmaf(__shfl_sync(FULL, p, j), Vs[(c + j) * HD + lane], acc[r]);
+          for (int j = 0; j < 32; ++j) {
+            const float pj = __shfl_sync(FULL, p, j);
+#pragma unroll
+            for (int u = 0; u < NC; ++u)
+              if (lane + 32 * u < HD) acc[r][u] = fmaf(pj, Vs[(c + j) * HD + lane + 32 * u], acc[r][u]);
+          }
         }
       }
     }
@@ -435,7 +542,9 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
       const float zr = warp_sum(z[r]);
       if (q0 + qr >= L) continue;
       const long long row = (long long)g * L + q0 + qr;
-      out[row * D + h * HD + lane] = acc[r] / zr;
+#pragma unroll
+      for (int u = 0; u < NC; ++u)
+        if (lane + 32 * u < HD) out[row * D + h * HD + lane + 32 * u] = acc[r][u] / zr;
       if (stats && lane == 0) {
         const long long MH = (long long)(gridDim.x / H) * L * H;
         stats[row * H + h] = m[r];
@@ -445,20 +554,6 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
   }
 }
 
-// bf16: score and PV products on the tensor cores (mma.sync m16n8k16, fp32
-// accumulate), with the scores kept in registers. 4 warps; each warp owns 16
-// query rows at a time, with q*scale rounded to bf16 in A fragments. K and V
-// of up to KT keys sit in shared memory in bf16. Keys go 16 at a time: pass 1
-// takes the row max over all keys; pass 2 recomputes the scores, forms
-// p = exp(s - m) (z summed from the unrounded p), and feeds bf16(p) straight
-// from the score fragments into the PV product as its A operand. For L > KT
-// both passes walk the key tiles, so p is rounded relative to the row's
-// global max.
-// The output is bf16, or fp32 (TO = float: the w8a8 stack, whose attention
-// output is quantized again from fp32).
-constexpr int ATT_WARPS = 4;
-constexpr int LDH = HD + 8;             // bf16 row stride of the K, V tiles: ldmatrix conflict-free
-
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
@@ -466,13 +561,51 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename TO>
+// rows ra, ra + 8 of a warp's output o[HD / 8][4] / z into out (row stride D),
+// and with stats each row's max and 1/z
+template <int HD, typename TO>
+__device__ __forceinline__ void store_strip(TO* out, float* stats, const float (&o)[Head<HD>::NT][4],
+                                            const float (&m)[2], const float (&z)[2], long long row_a, int ra,
+                                            int L, int D, int H, int h, long long MH, int lane) {
+#pragma unroll
+  for (int j = 0; j < Head<HD>::NT; ++j) {
+    const int d = h * HD + j * 8 + (lane & 3) * 2;
+    if (ra < L) store_pair(out + row_a * D + d, o[j][0] / z[0], o[j][1] / z[0]);
+    if (ra + 8 < L) store_pair(out + (row_a + 8) * D + d, o[j][2] / z[1], o[j][3] / z[1]);
+  }
+  if (stats && (lane & 3) == 0) {
+    if (ra < L) {
+      stats[row_a * H + h] = m[0];
+      stats[MH + row_a * H + h] = 1.f / z[0];
+    }
+    if (ra + 8 < L) {
+      stats[(row_a + 8) * H + h] = m[1];
+      stats[MH + (row_a + 8) * H + h] = 1.f / z[1];
+    }
+  }
+}
+
+// bf16, L > 256: score and PV products on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulate), with the scores kept in registers. 4 warps;
+// each warp owns 16 query rows at a time, with q*scale rounded to bf16 in A
+// fragments. K and V of up to KT keys sit in shared memory in bf16. Keys go
+// 16 at a time: pass 1 takes the row max over all keys; pass 2 recomputes
+// the scores, forms p = exp(s - m) (z summed from the unrounded p), and feeds
+// bf16(p) straight from the score fragments into the PV product as its A
+// operand; p is rounded relative to the row's global max. The output is
+// bf16, or fp32 (TO = float: the w8a8 stack, whose attention output is
+// quantized again from fp32).
+template <int HD>
+constexpr size_t att_passes_smem(int kt_rows) { return sizeof(bf16) * 2 * kt_rows * Head<HD>::LD; }
+
+template <typename TO, int HD>
 __global__ void __launch_bounds__(ATT_WARPS * 32, 4)
 attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L, int H,
                       float scale, int kt_rows, float* __restrict__ stats) {
+  constexpr int LD = Head<HD>::LD, NT = Head<HD>::NT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
-  bf16* Vs = Ks + kt_rows * LDH;             // [kt_rows][LDH]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LD]
+  bf16* Vs = Ks + kt_rows * LD;              // [kt_rows][LD]
 
   const int g = blockIdx.x / H, h = blockIdx.x % H;
   const int D = H * HD, D3 = 3 * D;
@@ -480,6 +613,7 @@ attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nkt = (L + KT - 1) / KT;
   const float NEG_INF = __int_as_float(0xff800000);
+  const long long MH = (long long)(gridDim.x / H) * L * H;
 
   // keys k0 .. k0 + kt_rows - 1 of K (and V) into shared memory, bf16, zero past L
   auto load_kv = [&](int k0, bool with_v) {
@@ -491,23 +625,9 @@ attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L
         k = *reinterpret_cast<const float4*>(row + D);
         if (with_v) v = *reinterpret_cast<const float4*>(row + 2 * D);
       }
-      *reinterpret_cast<uint2*>(Ks + r * LDH + c) = make_uint2(pack_bf16(k.x, k.y), pack_bf16(k.z, k.w));
+      *reinterpret_cast<uint2*>(Ks + r * LD + c) = make_uint2(pack_bf16(k.x, k.y), pack_bf16(k.z, k.w));
       if (with_v)
-        *reinterpret_cast<uint2*>(Vs + r * LDH + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
-  };
-  // s[j] = q . k for the 16 keys kb .. kb + 15 of the tile (n8 tiles j = 0, 1)
-  auto scores16 = [&](float (&s)[2][4], const unsigned (&qa)[2][4], int kb) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {  // head width 32 = 2 k-steps
-      unsigned kf[4];  // {b0, b1} of keys kb .. kb + 7, then of kb + 8 .. kb + 15
-      ldmatrix_x4(kf, Ks + (kb + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[0], qa[ks], kf[0], kf[1]);
-      mma_bf16_16816(s[1], qa[ks], kf[2], kf[3]);
+        *reinterpret_cast<uint2*>(Vs + r * LD + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
     }
   };
 
@@ -517,24 +637,13 @@ attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L
   }
   for (int q0 = 0; q0 < L; q0 += ATT_WARPS * 16) {
     // this warp's rows: ra (fragment elements 0, 1) and ra + 8 (elements 2, 3)
-    const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
+    const int ra = q0 + warp * 16 + (lane >> 2);
     const bool active = q0 + warp * 16 < L;  // warp-uniform
-    unsigned qa[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {  // A fragment: {rows ra, rb} x {d, d + 8}
-        const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-        float2 xa = make_float2(0.f, 0.f), xb = xa;
-        if (ra < L) xa = *reinterpret_cast<const float2*>(base + (long long)ra * D3 + d);
-        if (rb < L) xb = *reinterpret_cast<const float2*>(base + (long long)rb * D3 + d);
-        // q * scale rounded to bf16, as the TPU kernel does before the score dot
-        qa[ks][hi * 2] = pack_bf16(xa.x * scale, xa.y * scale);
-        qa[ks][hi * 2 + 1] = pack_bf16(xb.x * scale, xb.y * scale);
-      }
+    unsigned qa[Head<HD>::KS][4];  // q * scale rounded to bf16, as the TPU kernel does before the score dot
+    afrag_f32<HD>(qa, base, D3, ra, L, scale, lane);
 
     // pass 1: the row max over all keys
-    float ma = NEG_INF, mb = NEG_INF;
+    float m[2] = {NEG_INF, NEG_INF};
     for (int kt = 0; kt < nkt; ++kt) {
       if (nkt > 1) {
         __syncthreads();
@@ -545,28 +654,28 @@ attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L
       if (!active) continue;
       for (int kb = 0; kb < nk; kb += 16) {
         float s[2][4];
-        scores16(s, qa, kb);
+        prod16<HD>(s, qa, Ks, kb, lane);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             if (kb + j * 8 + (lane & 3) * 2 + e < nk) {
-              ma = fmaxf(ma, s[j][e]);
-              mb = fmaxf(mb, s[j][2 + e]);
+              m[0] = fmaxf(m[0], s[j][e]);
+              m[1] = fmaxf(m[1], s[j][2 + e]);
             }
       }
     }
     // the four lanes of a quad share a row
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, o));
-      mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, o));
+    for (int x = 1; x < 4; x <<= 1) {
+      m[0] = fmaxf(m[0], __shfl_xor_sync(FULL, m[0], x));
+      m[1] = fmaxf(m[1], __shfl_xor_sync(FULL, m[1], x));
     }
 
     // pass 2: p, z and O = bf16(p) . V
-    float za = 0.f, zb = 0.f, o[4][4];
+    float z[2] = {0.f, 0.f}, o[NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
     for (int kt = 0; kt < nkt; ++kt) {
@@ -579,92 +688,240 @@ attention_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L
       if (!active) continue;
       for (int kb = 0; kb < nk; kb += 16) {
         float s[2][4];
-        scores16(s, qa, kb);
+        prod16<HD>(s, qa, Ks, kb, lane);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const bool valid = kb + j * 8 + (lane & 3) * 2 + e < nk;
-            s[j][e] = valid ? expf(s[j][e] - ma) : 0.f;
-            s[j][2 + e] = valid ? expf(s[j][2 + e] - mb) : 0.f;
-            za += s[j][e];
-            zb += s[j][2 + e];
+            s[j][e] = valid ? expf(s[j][e] - m[0]) : 0.f;
+            s[j][2 + e] = valid ? expf(s[j][2 + e] - m[1]) : 0.f;
+            z[0] += s[j][e];
+            z[1] += s[j][2 + e];
           }
         // the score fragments of keys kb .. kb + 15 are the A fragment of this k-step
         const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                                 pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-        for (int dp = 0; dp < 2; ++dp) {  // output columns dp * 16 .. dp * 16 + 15
-          unsigned vf[4];
-          ldmatrix_x4_trans(vf, Vs + (kb + (lane & 15)) * LDH + dp * 16 + (lane >> 4) * 8);
-          mma_bf16_16816(o[dp * 2], pa, vf[0], vf[1]);
-          mma_bf16_16816(o[dp * 2 + 1], pa, vf[2], vf[3]);
-        }
+        mma_rows<HD>(o, pa, Vs, kb, lane);
       }
     }
     if (!active) continue;
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      za += __shfl_xor_sync(FULL, za, off);
-      zb += __shfl_xor_sync(FULL, zb, off);
+    for (int x = 1; x < 4; x <<= 1) {
+      z[0] += __shfl_xor_sync(FULL, z[0], x);
+      z[1] += __shfl_xor_sync(FULL, z[1], x);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = h * HD + j * 8 + (lane & 3) * 2;
-      if (ra < L) store_pair(out + ((long long)g * L + ra) * D + d, o[j][0] / za, o[j][1] / za);
-      if (rb < L) store_pair(out + ((long long)g * L + rb) * D + d, o[j][2] / zb, o[j][3] / zb);
-    }
-    if (stats && (lane & 3) == 0) {
-      const long long MH = (long long)(gridDim.x / H) * L * H;
-      if (ra < L) {
-        stats[((long long)g * L + ra) * H + h] = ma;
-        stats[MH + ((long long)g * L + ra) * H + h] = 1.f / za;
-      }
-      if (rb < L) {
-        stats[((long long)g * L + rb) * H + h] = mb;
-        stats[MH + ((long long)g * L + rb) * H + h] = 1.f / zb;
-      }
-    }
+    store_strip<HD>(out, stats, o, m, z, (long long)g * L + ra, ra, L, D, H, h, MH, lane);
   }
+}
+
+// bf16, L <= 256: one pass. Block: one (sequence, head), its q * scale, k
+// and v staged in shared memory as bf16 once; warp w takes the 16-query
+// strips w, w + STRIP_WARPS, ... The scores of key block cb sit in s[cb];
+// every phase runs over all NB blocks without a branch (K and V are zero
+// past L, those scores -inf), so the compiler interleaves the blocks' work,
+// and the row max and sum keep four partials per row.
+template <int HD, int NB>
+constexpr size_t att_strip_smem() { return sizeof(bf16) * 3 * NB * 16 * Head<HD>::LD; }
+
+// Blocks an SM: at NB = 8 and HD <= 32 the strip fits 128 registers and
+// four blocks run (inter 0.599 against 0.650 ms at three); at NB = 16 a
+// third block would cap a thread at 168 registers and spill (PERF.md).
+template <int HD, int NB>
+__host__ __device__ constexpr int att_strip_min_blocks() { return NB == 8 && HD <= 32 ? 4 : 1; }
+
+template <typename TO, int HD, int NB>
+__global__ void __launch_bounds__(32 * STRIP_WARPS, att_strip_min_blocks<HD, NB>())
+attention_strip_bf16_kernel(const float* __restrict__ qkv, TO* __restrict__ out, int L, int H, float scale,
+                            float* __restrict__ stats) {
+  constexpr int LD = Head<HD>::LD, NT = Head<HD>::NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LD]
+  bf16* Vs = Ks + NB * 16 * LD;              // [NB * 16][LD]
+  bf16* Qs = Vs + NB * 16 * LD;              // [NB * 16][LD]: bf16(q * scale)
+  const int g = blockIdx.x / H, h = blockIdx.x % H;
+  const int D = H * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long MH = (long long)(gridDim.x / H) * L * H;
+  const float LOG2E = 1.4426950408889634f;
+
+  stage_qkv_bf16<HD, NB * 16, 4>(qkv + (long long)g * L * 3 * D + h * HD, D, L, scale, Qs, Ks, Vs);
+  __syncthreads();
+
+  for (int q0 = warp * 16; q0 < L; q0 += STRIP_WARPS * 16) {
+    unsigned qa[Head<HD>::KS][4];
+    afrag_smem<HD>(qa, Qs, q0, lane);
+    float s[NB][2][4];
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) prod16<HD>(s[cb], qa, Ks, cb * 16, lane);
+    strip_mask<NB>(s, L, lane, __int_as_float(0xff800000));
+    float m[2], z[2];
+    strip_row_max<NB>(s, m);
+    strip_exp<NB, true>(s, m, LOG2E, z);  // p in place of s, z from the unrounded p
+    // O = bf16(p) . V, divided by z after the product
+    float o[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      const float (&p)[2][4] = s[cb];
+      const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+      mma_rows<HD>(o, pa, Vs, cb * 16, lane);
+    }
+    const int ra = q0 + (lane >> 2);
+    store_strip<HD>(out, stats, o, m, z, (long long)g * L + ra, ra, L, D, H, h, MH, lane);
+  }
+}
+
+// One launch of the bf16 attention at L: the kernel (its shared-memory
+// limit raised once), key blocks held in registers (0: two passes), threads,
+// K and V rows in shared memory and dynamic shared bytes a block.
+struct AttPlan {
+  const void* fn;
+  int nb, threads, kt_rows;
+  size_t smem;
+  cudaError_t err;
+};
+
+template <typename TO, int HD, int NB>
+AttPlan att_strip_plan() {
+  static const cudaError_t e = cudaFuncSetAttribute(attention_strip_bf16_kernel<TO, HD, NB>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    (int)att_strip_smem<HD, NB>());
+  return {reinterpret_cast<const void*>(attention_strip_bf16_kernel<TO, HD, NB>), NB, 32 * STRIP_WARPS, NB * 16,
+          att_strip_smem<HD, NB>(), e};
+}
+
+template <typename TO, int HD>
+AttPlan plan_attention_bf16(int L) {
+  if (L <= 128) return att_strip_plan<TO, HD, 8>();
+  if (L <= STRIP_MAX_L) return att_strip_plan<TO, HD, 16>();
+  static const cudaError_t e = cudaFuncSetAttribute(attention_bf16_kernel<TO, HD>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    (int)att_passes_smem<HD>(KT));
+  const int kt_rows = (min(L, KT) + 15) / 16 * 16;  // K and V rows, whole 16-key steps
+  return {reinterpret_cast<const void*>(attention_bf16_kernel<TO, HD>), 0, ATT_WARPS * 32, kt_rows,
+          att_passes_smem<HD>(kt_rows), e};
+}
+
+template <typename TO, int HD>
+cudaError_t launch_attention_bf16(const float* qkv, TO* out, int G, int L, int H, float scale, float* stats,
+                                  cudaStream_t st) {
+  const AttPlan p = plan_attention_bf16<TO, HD>(L);
+  if (p.err != cudaSuccess) return p.err;
+  const unsigned blocks = (unsigned)(G * H);
+  if (p.nb == 8)
+    attention_strip_bf16_kernel<TO, HD, 8><<<blocks, p.threads, p.smem, st>>>(qkv, out, L, H, scale, stats);
+  else if (p.nb == 16)
+    attention_strip_bf16_kernel<TO, HD, 16><<<blocks, p.threads, p.smem, st>>>(qkv, out, L, H, scale, stats);
+  else
+    attention_bf16_kernel<TO, HD><<<blocks, p.threads, p.smem, st>>>(qkv, out, L, H, scale, p.kt_rows, stats);
+  return cudaGetLastError();
 }
 
 // mode 0: fp32 operands and output; 1: bf16 operands and output; 2: bf16
 // operands, fp32 output
+template <int HD>
 cudaError_t launch_attention(int mode, const float* qkv, void* out, int G, int L, int H, float scale,
                              float* stats, cudaStream_t st) {
-  static bool f32_ready = false;
-  cudaError_t e;
-  if (mode == 1 || mode == 2) {
-    // K and V rows for min(L, KT) keys, rounded up to whole 16-key steps: <= 40 KB
-    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    const size_t bytes = sizeof(bf16) * 2 * kt_rows * LDH;
-    if (mode == 1)
-      attention_bf16_kernel<bf16><<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<bf16*>(out), L, H,
-                                                                        scale, kt_rows, stats);
-    else
-      attention_bf16_kernel<float><<<G * H, ATT_WARPS * 32, bytes, st>>>(qkv, static_cast<float*>(out), L, H,
-                                                                         scale, kt_rows, stats);
-  } else if (mode == 0) {
-    if ((e = allow_smem(attention_f32_kernel, ATT_F32_SMEM, f32_ready)) != cudaSuccess) return e;
-    attention_f32_kernel<<<G * H, 256, ATT_F32_SMEM, st>>>(qkv, static_cast<float*>(out), L, H, scale, stats);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  if (L < 1) return cudaErrorInvalidValue;
+  if (mode == 1) return launch_attention_bf16<bf16, HD>(qkv, static_cast<bf16*>(out), G, L, H, scale, stats, st);
+  if (mode == 2) return launch_attention_bf16<float, HD>(qkv, static_cast<float*>(out), G, L, H, scale, stats, st);
+  if (mode != 0) return cudaErrorInvalidValue;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(attention_f32_kernel<HD>, att_f32_smem<HD>(), ready);
+  if (e != cudaSuccess) return e;
+  attention_f32_kernel<HD><<<G * H, 256, att_f32_smem<HD>(), st>>>(qkv, static_cast<float*>(out), L, H, scale, stats);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t attention_info(int mode, int L, int* info) {
+  if (L < 1 || (mode != 1 && mode != 2)) return cudaErrorInvalidValue;
+  const AttPlan p = mode == 1 ? plan_attention_bf16<bf16, HD>(L) : plan_attention_bf16<float, HD>(L);
+  if (p.err != cudaSuccess) return p.err;
+  info[0] = p.nb;
+  info[1] = p.threads;
+  info[2] = L;  // query rows a block: the whole sequence
+  info[3] = (int)p.smem;
+  return kernel_info(p.fn, p.threads, p.smem, info + 4);
+}
+
+// ---------------------------------------------------------------- host side of the GEMM
+// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
+// address, so the library links against nothing new.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major [outer][inner] tensor of elem-byte values, read and written in
+// [box_outer][box_inner] boxes with the 128-byte swizzle (box_inner * elem
+// == 128), zero fill out of bounds
+bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, int elem, long long inner,
+                long long outer, unsigned box_inner, unsigned box_outer) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)(inner * elem)};
+  const cuuint32_t box[2] = {box_inner, box_outer}, es[2] = {1, 1};
+  return enc(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int d = 0, c = 0;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, d);
+    return c > 0 ? c : 132;
+  }();
+  return n;
 }
 
 template <int EPI>
 cudaError_t launch_linear(int bf, const void* a, const void* w, const float* bias, void* c,
                           int M, int N, int K, cudaStream_t st, const void* mask = nullptr,
                           float* colsum = nullptr) {
+  if (M < 1 || N < 1 || K < 1) return cudaErrorInvalidValue;
   if (bf) {
-    static bool ready = false;
-    const cudaError_t e = allow_smem(linear_bf16_kernel<EPI>, LINEAR_BF16_SMEM, ready);
+    using namespace gemm;
+    if (K % 8 || N % 8) return cudaErrorInvalidValue;  // TMA: 16-byte row strides
+    static bool ready1 = false, ready2 = false;
+    cudaError_t e = allow_smem(linear_bf16_kernel<EPI, 1>, SMEM, ready1);
+    if (e == cudaSuccess) e = allow_smem(linear_bf16_kernel<EPI, 2>, SMEM, ready2);
     if (e != cudaSuccess) return e;
-    const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-    linear_bf16_kernel<EPI><<<(unsigned)blocks, 256, LINEAR_BF16_SMEM, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w), bias, c, M, N, K,
-        static_cast<const bf16*>(mask), colsum);
+    constexpr bool F32_OUT = EPI == EPI_BIAS || EPI == EPI_RESIDUAL;
+    const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    CUtensorMap ta, tw, tc, tx;
+    bool ok = tensor_map(&ta, BF, a, 2, K, M, 64, BM) && tensor_map(&tw, BF, w, 2, N, K, 64, BK) &&
+              (F32_OUT ? tensor_map(&tc, F32, c, 4, N, M, 32, BM) : tensor_map(&tc, BF, c, 2, N, M, 64, BM));
+    if (EPI == EPI_RELU_GRAD) ok = ok && tensor_map(&tx, BF, mask, 2, N, M, 64, BM);
+    else tx = tc;
+    if (!ok) return cudaErrorInvalidValue;
+    const int blocks = min((M + BM - 1) / BM, sm_count()), NT = (N + BN - 1) / BN;
+    // A streamed (K > 256): two N tiles a pass over K, so each A chunk is read once for both
+    if ((K + BK - 1) / BK > SLOTS && NT % 2 == 0)
+      linear_bf16_kernel<EPI, 2><<<blocks, THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
+    else
+      linear_bf16_kernel<EPI, 1><<<blocks, THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
   } else {
     const long long blocks = (long long)((M + 63) / 64) * ((N + 63) / 64);
     linear_f32_kernel<EPI><<<(unsigned)blocks, 256, 0, st>>>(
@@ -695,7 +952,8 @@ int cse_layer_norm(const void* x, const void* g, const void* b, void* out, int o
 
 // c = epilogue(a[M, K] . w[K, N] + bias[N]); a and w bf16 when bf16 else
 // fp32. epilogue 0: c fp32 = acc + bias; 1: c (a's dtype) = relu(acc + bias);
-// 2: c fp32 += acc + bias.
+// 2: c fp32 += acc + bias. bf16 needs K % 8 == N % 8 == 0 and 16-byte
+// aligned a, w and c.
 int cse_linear(const void* a, const void* w, const void* bias, void* c, int bf16_operands,
                int epi, long long M, int N, int K, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -708,20 +966,30 @@ int cse_linear(const void* a, const void* w, const void* bias, void* c, int bf16
   }
 }
 
-// out[G*L, H*hd] = masked MHSA of qkv[G*L, 3*H*hd]; mode: see launch_attention
-// (0: fp32, 1: bf16, 2: bf16 operands with an fp32 out); stats (null, or
-// [2, G*L, H] fp32) receives each row's max and 1/z.
+// out[G*L, H*hd] = masked MHSA of qkv[G*L, 3*H*hd], hd in {8, 16, 32, 64};
+// mode: see launch_attention (0: fp32, 1: bf16, 2: bf16 operands with an
+// fp32 out); stats (null, or [2, G*L, H] fp32) receives each row's max and 1/z.
 int cse_attention(const void* qkv, void* out, int mode, int G, int L, int H, int hd,
                   float scale, void* stats, void* stream) {
-  if (hd != HD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
-  return (int)launch_attention(mode, q, out, G, L, H, scale, static_cast<float*>(stats), st);
+  float* sm = static_cast<float*>(stats);
+  return by_head_width(HeadWidths{}, hd, [&](auto w) {
+    return launch_attention<decltype(w)::value>(mode, q, out, G, L, H, scale, sm, st);
+  });
+}
+
+// info[7] of the bf16 attention cse_attention launches for (mode 1 or 2, L,
+// hd), in cse_flash_fwd_info's order: key blocks held in registers (0: two
+// passes), threads, query rows a block, dynamic shared bytes, registers a
+// thread, local-memory bytes a thread, resident blocks per SM.
+int cse_attention_info(int mode, int L, int hd, int* info) {
+  return by_head_width(HeadWidths{}, hd, [&](auto w) { return attention_info<decltype(w)::value>(mode, L, info); });
 }
 
 // Training's dX GEMM through the FFN's ReLU: out (a's dtype) =
 // where(mask > 0, a[M, K] . w[K, N] + bias, 0); colsum[N] (fp32) = the column
-// sums of that value, reduced in a fixed order from per-block partials
+// sums of that value, reduced in a fixed order from per-tile partials
 // (partials: ceil(M / 128) rows for bf16, ceil(M / 64) for fp32, times N).
 int cse_linear_relu_grad(const void* a, const void* w, const void* bias, const void* mask, void* out,
                          void* partials, void* colsum, int bf16_operands, long long M, int N, int K,
@@ -731,7 +999,7 @@ int cse_linear_relu_grad(const void* a, const void* w, const void* bias, const v
   cudaError_t e = launch_linear<EPI_RELU_GRAD>(bf16_operands, a, w, static_cast<const float*>(bias), out,
                                                (int)M, N, K, st, mask, part);
   if (e != cudaSuccess) return (int)e;
-  const int rows = (int)((M + (bf16_operands ? BM : 64) - 1) / (bf16_operands ? BM : 64));
+  const int rows = (int)((M + (bf16_operands ? gemm::BM : 64) - 1) / (bf16_operands ? gemm::BM : 64));
   return (int)launch_sum_rows(part, static_cast<float*>(colsum), rows, N, st);
 }
 

@@ -35,7 +35,9 @@
 //       the tensor cores with the [16 x 16] score, p, dp and ds tiles in
 //       registers; fp32 on CUDA-core FMAs. Both write cd(dqkv) and per-tile
 //       column partials of the fp32 dq | dk | dv (the qkv bias gradient).
-//       Bound by bytes at head width 32 (fp32 qkv and dattn in, cd dqkv out).
+//       Head width HD in {8, 16, 32, 64} (a template argument; common.cuh's
+//       fragments zero-pad a half k-step). Bound by bytes at head width 32
+//       (fp32 qkv and dattn in, cd dqkv out).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -269,11 +271,10 @@ layer_norm_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- (c) attention backward
-constexpr int HD = 32;     // head width
+// Head width HD (8, 16, 32, 64) is a template argument throughout.
 constexpr int KT = 256;    // keys per shared-memory tile (dq kernels)
 constexpr int QT = 128;    // queries per shared-memory tile (dk/dv kernels)
 constexpr int RT = 64;     // rows (queries or keys) per block
-constexpr int LDH = HD + 8;
 
 // Shared layout of the inputs. qkv [G*L, 3D] fp32; dattn (the out-proj's
 // input gradient) [G*L, D] fp32; stats [2, G*L, H] fp32 (max, 1/z);
@@ -281,14 +282,16 @@ constexpr int LDH = HD + 8;
 // dqkv [G*L, 3D] cd; part [G * ceil(L / RT), 3D] fp32 column partials.
 
 // bf16 dq: 4 warps x 16 query rows. K, V of KT keys in shared memory (bf16).
+template <int HD>
 __global__ void __launch_bounds__(128, 4)
 attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                              const float* __restrict__ stats, float* __restrict__ delta_out,
                              bf16* __restrict__ dqkv, float* __restrict__ part, int L, int H,
                              float scale, int kt_rows) {
+  constexpr int LD = Head<HD>::LD, NT = Head<HD>::NT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
-  bf16* Vs = Ks + kt_rows * LDH;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LD]
+  bf16* Vs = Ks + kt_rows * LD;
   __shared__ float red[4][HD];
   const int ntile = (L + RT - 1) / RT;
   const int gh = blockIdx.x / ntile, qt = blockIdx.x % ntile, g = gh / H, h = gh % H;
@@ -308,56 +311,25 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
         k = *reinterpret_cast<const float4*>(row + D);
         v = *reinterpret_cast<const float4*>(row + 2 * D);
       }
-      *reinterpret_cast<uint2*>(Ks + r * LDH + c) = make_uint2(pack_bf16(k.x, k.y), pack_bf16(k.z, k.w));
-      *reinterpret_cast<uint2*>(Vs + r * LDH + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
-  };
-  // s[j] (x . y^T for 16 keys kb.. of the tile Ys, n8 tiles j = 0, 1)
-  auto prod16 = [&](float (&s)[2][4], const unsigned (&xa)[2][4], const bf16* Ys, int kb) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      unsigned f[4];
-      ldmatrix_x4(f, Ys + (kb + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[0], xa[ks], f[0], f[1]);
-      mma_bf16_16816(s[1], xa[ks], f[2], f[3]);
+      *reinterpret_cast<uint2*>(Ks + r * LD + c) = make_uint2(pack_bf16(k.x, k.y), pack_bf16(k.z, k.w));
+      *reinterpret_cast<uint2*>(Vs + r * LD + c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
     }
   };
 
   const int q0 = qt * RT + warp * 16;
   const int ra = q0 + (lane >> 2), rb = ra + 8;
   const bool active = q0 < L;  // warp-uniform
-  unsigned qa[2][4], da[2][4];  // cd(q * scale), cd(do) A fragments of rows ra, rb
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-      float2 xa = make_float2(0.f, 0.f), xb = xa, ya = xa, yb = xa;
-      if (ra < L) {
-        xa = *reinterpret_cast<const float2*>(base + (long long)ra * D3 + d);
-        ya = *reinterpret_cast<const float2*>(dbase + (long long)ra * D + d);
-      }
-      if (rb < L) {
-        xb = *reinterpret_cast<const float2*>(base + (long long)rb * D3 + d);
-        yb = *reinterpret_cast<const float2*>(dbase + (long long)rb * D + d);
-      }
-      qa[ks][hi * 2] = pack_bf16(xa.x * scale, xa.y * scale);
-      qa[ks][hi * 2 + 1] = pack_bf16(xb.x * scale, xb.y * scale);
-      da[ks][hi * 2] = pack_bf16(ya.x, ya.y);
-      da[ks][hi * 2 + 1] = pack_bf16(yb.x, yb.y);
-    }
+  unsigned qa[Head<HD>::KS][4], da[Head<HD>::KS][4];  // cd(q * scale), cd(do) A fragments of rows ra, rb
+  afrag_f32<HD>(qa, base, D3, ra, L, scale, lane);
+  afrag_f32<HD>(da, dbase, D, ra, L, 1.f, lane);
   const long long ia = ((long long)g * L + ra) * H + h, ib = ((long long)g * L + rb) * H + h;
   const float ma = ra < L ? stats[ia] : 0.f, mb = rb < L ? stats[ib] : 0.f;
   const float za = ra < L ? stats[MH + ia] : 0.f, zb = rb < L ? stats[MH + ib] : 0.f;  // 1/z
 
   // p and dp of keys kb .. kb + 15 (p = 0 past the tile's nk keys)
   auto p_dp = [&](float (&p)[2][4], float (&dp)[2][4], int kb, int nk) {
-    prod16(p, qa, Ks, kb);
-    prod16(dp, da, Vs, kb);
+    prod16<HD>(p, qa, Ks, kb, lane);
+    prod16<HD>(dp, da, Vs, kb, lane);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -406,9 +378,9 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
     if (rb < L) delta_out[ib] = dlb;
   }
   // pass 2: ds = p * (dp - delta) * invz; dq = cd(ds) . cd(k)
-  float dq[4][4];
+  float dq[NT][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
@@ -431,19 +403,13 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
         }
       const unsigned sa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                               pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-      for (int dp2 = 0; dp2 < 2; ++dp2) {
-        unsigned kf[4];
-        ldmatrix_x4_trans(kf, Ks + (kb + (lane & 15)) * LDH + dp2 * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(dq[dp2 * 2], sa, kf[0], kf[1]);
-        mma_bf16_16816(dq[dp2 * 2 + 1], sa, kf[2], kf[3]);
-      }
+      mma_rows<HD>(dq, sa, Ks, kb, lane);
     }
   }
   // write cd(dq) and the column partials of the fp32 dq over the block's rows
-  float cs[4][2];
+  float cs[NT][2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const int d = j * 8 + (lane & 3) * 2;
     float v[4];
 #pragma unroll
@@ -464,7 +430,7 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
   }
   if (lane < 4)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NT; ++j) {
       red[warp][j * 8 + lane * 2] = cs[j][0];
       red[warp][j * 8 + lane * 2 + 1] = cs[j][1];
     }
@@ -475,18 +441,21 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
 
 // bf16 dk, dv: 4 warps x 16 keys. Queries in tiles of QT in shared memory:
 // cd(q*scale), cd(do), cd(do*invz) and the rows' m, invz, delta.
-constexpr size_t DKDV_BF16_SMEM = sizeof(bf16) * 3 * QT * LDH + sizeof(float) * 3 * QT;
+template <int HD>
+constexpr size_t dkdv_bf16_smem() { return sizeof(bf16) * 3 * QT * Head<HD>::LD + sizeof(float) * 3 * QT; }
 
+template <int HD>
 __global__ void __launch_bounds__(128, 4)
 attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                                const float* __restrict__ stats, const float* __restrict__ delta,
                                bf16* __restrict__ dqkv, float* __restrict__ part, int L, int H,
                                float scale) {
+  constexpr int LD = Head<HD>::LD, NT = Head<HD>::NT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][LDH]
-  bf16* Os = Qs + QT * LDH;                  // cd(do)
-  bf16* Zs = Os + QT * LDH;                  // cd(do * invz)
-  float* qm = reinterpret_cast<float*>(Zs + QT * LDH);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][LD]
+  bf16* Os = Qs + QT * LD;                   // cd(do)
+  bf16* Zs = Os + QT * LD;                   // cd(do * invz)
+  float* qm = reinterpret_cast<float*>(Zs + QT * LD);
   float* qz = qm + QT;
   float* qd = qz + QT;
   __shared__ float red[4][2 * HD];
@@ -500,29 +469,12 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
 
   const int k0 = kt * RT + warp * 16;
   const int ka_ = k0 + (lane >> 2), kb_ = ka_ + 8;  // this thread's two key rows
-  unsigned kf[2][4], vf[2][4];                        // cd(k), cd(v) A fragments
+  unsigned kf[Head<HD>::KS][4], vf[Head<HD>::KS][4];  // cd(k), cd(v) A fragments
+  afrag_f32<HD>(kf, base + D, D3, ka_, L, 1.f, lane);
+  afrag_f32<HD>(vf, base + 2 * D, D3, ka_, L, 1.f, lane);
+  float dk[NT][4], dv[NT][4];
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-      float2 xa = make_float2(0.f, 0.f), xb = xa, ya = xa, yb = xa;
-      if (ka_ < L) {
-        xa = *reinterpret_cast<const float2*>(base + (long long)ka_ * D3 + D + d);
-        ya = *reinterpret_cast<const float2*>(base + (long long)ka_ * D3 + 2 * D + d);
-      }
-      if (kb_ < L) {
-        xb = *reinterpret_cast<const float2*>(base + (long long)kb_ * D3 + D + d);
-        yb = *reinterpret_cast<const float2*>(base + (long long)kb_ * D3 + 2 * D + d);
-      }
-      kf[ks][hi * 2] = pack_bf16(xa.x, xa.y);
-      kf[ks][hi * 2 + 1] = pack_bf16(xb.x, xb.y);
-      vf[ks][hi * 2] = pack_bf16(ya.x, ya.y);
-      vf[ks][hi * 2 + 1] = pack_bf16(yb.x, yb.y);
-    }
-  float dk[4][4], dv[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
@@ -537,10 +489,10 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
         y = *reinterpret_cast<const float4*>(dbase + (long long)q * D + c);
         iz = stats[MH + ((long long)g * L + q) * H + h];
       }
-      *reinterpret_cast<uint2*>(Qs + r * LDH + c) =
+      *reinterpret_cast<uint2*>(Qs + r * LD + c) =
           make_uint2(pack_bf16(x.x * scale, x.y * scale), pack_bf16(x.z * scale, x.w * scale));
-      *reinterpret_cast<uint2*>(Os + r * LDH + c) = make_uint2(pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
-      *reinterpret_cast<uint2*>(Zs + r * LDH + c) =
+      *reinterpret_cast<uint2*>(Os + r * LD + c) = make_uint2(pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+      *reinterpret_cast<uint2*>(Zs + r * LD + c) =
           make_uint2(pack_bf16(y.x * iz, y.y * iz), pack_bf16(y.z * iz, y.w * iz));
     }
     for (int r = tid; r < QT; r += 128) {
@@ -556,21 +508,8 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
     for (int qb = 0; qb < nq; qb += 16) {
       // sT[key][query] = cd(k) . cd(q*scale); dpT = cd(v) . cd(do)
       float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        unsigned f[4], fo[4];
-        const int off = (qb + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(f, Qs + off);
-        ldmatrix_x4(fo, Os + off);
-        mma_bf16_16816(s[0], kf[ks], f[0], f[1]);
-        mma_bf16_16816(s[1], kf[ks], f[2], f[3]);
-        mma_bf16_16816(dp[0], vf[ks], fo[0], fo[1]);
-        mma_bf16_16816(dp[1], vf[ks], fo[2], fo[3]);
-      }
+      prod16<HD>(s, kf, Qs, qb, lane);
+      prod16<HD>(dp, vf, Os, qb, lane);
       // column (query) index of fragment element e of n8 tile j: qb + j*8 + 2*(lane&3) + (e&1)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -585,25 +524,16 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
                               pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
       const unsigned sa[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
                               pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
-#pragma unroll
-      for (int d2 = 0; d2 < 2; ++d2) {
-        unsigned zf[4], qf[4];
-        const int off = (qb + (lane & 15)) * LDH + d2 * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(zf, Zs + off);
-        ldmatrix_x4_trans(qf, Qs + off);
-        mma_bf16_16816(dv[d2 * 2], pa, zf[0], zf[1]);
-        mma_bf16_16816(dv[d2 * 2 + 1], pa, zf[2], zf[3]);
-        mma_bf16_16816(dk[d2 * 2], sa, qf[0], qf[1]);
-        mma_bf16_16816(dk[d2 * 2 + 1], sa, qf[2], qf[3]);
-      }
+      mma_rows<HD>(dv, pa, Zs, qb, lane);
+      mma_rows<HD>(dk, sa, Qs, qb, lane);
     }
   }
   // write cd(dk), cd(dv) and their column partials over the block's keys
-  float cs[2][4][2];
+  float cs[2][NT][2];
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const float* v = t == 0 ? dk[j] : dv[j];
       const int col = (t + 1) * D + h * HD + j * 8 + (lane & 3) * 2;
       if (ka_ < L)
@@ -624,7 +554,7 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NT; ++j) {
         red[warp][t * HD + j * 8 + lane * 2] = cs[t][j][0];
         red[warp][t * HD + j * 8 + lane * 2 + 1] = cs[t][j][1];
       }
@@ -637,19 +567,21 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
 }
 
 // fp32 (the parity path), CUDA-core FMAs. dq: 8 warps x 8 query rows, lane j
-// takes key c + j and owns output column j. K (33-word rows) and V of KT keys
-// in shared memory.
-constexpr int LDK32 = HD + 1;
-constexpr size_t DQ_F32_SMEM = sizeof(float) * 2 * KT * LDK32;
+// takes key c + j and owns output columns j, j + 32. K (HD + 1-word rows)
+// and V of KT keys in shared memory.
+template <int HD>
+constexpr size_t dq_f32_smem() { return sizeof(float) * 2 * KT * (HD + 1); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                             const float* __restrict__ stats, float* __restrict__ delta_out,
                             float* __restrict__ dqkv, float* __restrict__ part, int L, int H,
                             float scale) {
+  constexpr int LK = HD + 1, NC = (HD + 31) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [KT][LDK32]
-  float* Vs = Ks + KT * LDK32;
+  float* Ks = reinterpret_cast<float*>(smem);  // [KT][LK]
+  float* Vs = Ks + KT * LK;
   __shared__ float red[8][HD];
   constexpr int ROWS = RT / 8;
   const int ntile = (L + RT - 1) / RT;
@@ -664,13 +596,17 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
     for (int e = tid; e < KT * HD; e += 256) {
       const int r = e / HD, d = e % HD, key = k0 + r;
       const float* row = base + (long long)key * D3 + d;
-      Ks[r * LDK32 + d] = key < L ? row[D] : 0.f;
-      Vs[r * LDK32 + d] = key < L ? row[2 * D] : 0.f;
+      Ks[r * LK + d] = key < L ? row[D] : 0.f;
+      Vs[r * LK + d] = key < L ? row[2 * D] : 0.f;
     }
   };
-  float dl[ROWS], acc[ROWS];
+  float dl[ROWS], acc[ROWS][NC];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) dl[r] = acc[r] = 0.f;
+  for (int r = 0; r < ROWS; ++r) {
+    dl[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NC; ++u) acc[r][u] = 0.f;
+  }
   auto row_of = [&](int r) { return qt * RT + warp + r * 8; };
 
   for (int pass = 0; pass < 2; ++pass) {
@@ -696,8 +632,8 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
           float s = 0.f, dp = 0.f;
 #pragma unroll
           for (int d = 0; d < HD; ++d) {
-            s = fmaf(qv[d], Ks[key * LDK32 + d], s);
-            dp = fmaf(dv[d], Vs[key * LDK32 + d], dp);
+            s = fmaf(qv[d], Ks[key * LK + d], s);
+            dp = fmaf(dv[d], Vs[key * LK + d], dp);
           }
           const float p = key < nk ? expf(s - m) : 0.f;
           if (pass == 0) {
@@ -705,8 +641,12 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
           } else {
             const float ds = p * (dp - dl[r]) * iz;
 #pragma unroll
-            for (int j = 0; j < 32; ++j)
-              acc[r] = fmaf(__shfl_sync(FULL, ds, j), Ks[(c + j) * LDK32 + lane], acc[r]);
+            for (int j = 0; j < 32; ++j) {
+              const float dj = __shfl_sync(FULL, ds, j);
+#pragma unroll
+              for (int u = 0; u < NC; ++u)
+                if (lane + 32 * u < HD) acc[r][u] = fmaf(dj, Ks[(c + j) * LK + lane + 32 * u], acc[r][u]);
+            }
           }
         }
       }
@@ -723,16 +663,22 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
         }
       }
   }
-  float cs = 0.f;
+  float cs[NC] = {};
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int q = row_of(r);
     if (q >= L) continue;
-    const float v = scale * acc[r];
-    dqkv[((long long)g * L + q) * D3 + h * HD + lane] = v;
-    cs += v;
+#pragma unroll
+    for (int u = 0; u < NC; ++u)
+      if (lane + 32 * u < HD) {
+        const float v = scale * acc[r][u];
+        dqkv[((long long)g * L + q) * D3 + h * HD + lane + 32 * u] = v;
+        cs[u] += v;
+      }
   }
-  red[warp][lane] = cs;
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if (lane + 32 * u < HD) red[warp][lane + 32 * u] = cs[u];
   __syncthreads();
   if (tid < HD) {
     float t = red[0][tid];
@@ -743,19 +689,22 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ qkv, const float* __restri
 }
 
 // fp32 dk, dv: 8 warps x 8 keys, lane j takes query c + j and owns output
-// column j. Queries in tiles of QT: q*scale and do (33-word rows), m, invz,
-// delta.
-constexpr size_t DKDV_F32_SMEM = sizeof(float) * (2 * QT * LDK32 + 3 * QT);
+// columns j, j + 32. Queries in tiles of QT: q*scale and do (HD + 1-word
+// rows), m, invz, delta.
+template <int HD>
+constexpr size_t dkdv_f32_smem() { return sizeof(float) * (2 * QT * (HD + 1) + 3 * QT); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 attention_bwd_dkdv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
                               const float* __restrict__ stats, const float* __restrict__ delta,
                               float* __restrict__ dqkv, float* __restrict__ part, int L, int H,
                               float scale) {
+  constexpr int LK = HD + 1, NC = (HD + 31) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [QT][LDK32]
-  float* Os = Qs + QT * LDK32;
-  float* qm = Os + QT * LDK32;
+  float* Qs = reinterpret_cast<float*>(smem);  // [QT][LK]
+  float* Os = Qs + QT * LK;
+  float* qm = Os + QT * LK;
   float* qz = qm + QT;
   float* qd = qz + QT;
   __shared__ float red[8][2 * HD];
@@ -767,17 +716,19 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ qkv, const float* __rest
   const float* base = qkv + (long long)g * L * D3 + h * HD;
   const float* dbase = dattn + (long long)g * L * D + h * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float dk[ROWS], dv[ROWS];
+  float dk[ROWS][NC], dv[ROWS][NC];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) dk[r] = dv[r] = 0.f;
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int u = 0; u < NC; ++u) dk[r][u] = dv[r][u] = 0.f;
   auto key_of = [&](int r) { return kt * RT + warp + r * 8; };
 
   for (int q0 = 0; q0 < L; q0 += QT) {
     __syncthreads();
     for (int e = tid; e < QT * HD; e += 256) {
       const int r = e / HD, d = e % HD, q = q0 + r;
-      Qs[r * LDK32 + d] = q < L ? base[(long long)q * D3 + d] * scale : 0.f;
-      Os[r * LDK32 + d] = q < L ? dbase[(long long)q * D + d] : 0.f;
+      Qs[r * LK + d] = q < L ? base[(long long)q * D3 + d] * scale : 0.f;
+      Os[r * LK + d] = q < L ? dbase[(long long)q * D + d] : 0.f;
     }
     for (int r = tid; r < QT; r += 256) {
       const int q = q0 + r;
@@ -803,33 +754,46 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ qkv, const float* __rest
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int d = 0; d < HD; ++d) {
-          s = fmaf(kv[d], Qs[q * LDK32 + d], s);
-          dp = fmaf(vv[d], Os[q * LDK32 + d], dp);
+          s = fmaf(kv[d], Qs[q * LK + d], s);
+          dp = fmaf(vv[d], Os[q * LK + d], dp);
         }
         const float p = q < nq ? expf(s - qm[q]) : 0.f;
         const float ds = p * (dp - qd[q]) * qz[q];
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int qj = c + j;
-          dv[r] = fmaf(__shfl_sync(FULL, p, j), Os[qj * LDK32 + lane] * qz[qj], dv[r]);
-          dk[r] = fmaf(__shfl_sync(FULL, ds, j), Qs[qj * LDK32 + lane], dk[r]);
+          const float pj = __shfl_sync(FULL, p, j), dj = __shfl_sync(FULL, ds, j);
+#pragma unroll
+          for (int u = 0; u < NC; ++u)
+            if (lane + 32 * u < HD) {
+              dv[r][u] = fmaf(pj, Os[qj * LK + lane + 32 * u] * qz[qj], dv[r][u]);
+              dk[r][u] = fmaf(dj, Qs[qj * LK + lane + 32 * u], dk[r][u]);
+            }
         }
       }
     }
   }
-  float ck = 0.f, cv = 0.f;
+  float ck[NC] = {}, cv[NC] = {};
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int key = key_of(r);
     if (key >= L) continue;
-    const long long o = ((long long)g * L + key) * D3 + h * HD + lane;
-    dqkv[o + D] = dk[r];
-    dqkv[o + 2 * D] = dv[r];
-    ck += dk[r];
-    cv += dv[r];
+    const long long o = ((long long)g * L + key) * D3 + h * HD;
+#pragma unroll
+    for (int u = 0; u < NC; ++u)
+      if (lane + 32 * u < HD) {
+        dqkv[o + D + lane + 32 * u] = dk[r][u];
+        dqkv[o + 2 * D + lane + 32 * u] = dv[r][u];
+        ck[u] += dk[r][u];
+        cv[u] += dv[r][u];
+      }
   }
-  red[warp][lane] = ck;
-  red[warp][HD + lane] = cv;
+#pragma unroll
+  for (int u = 0; u < NC; ++u)
+    if (lane + 32 * u < HD) {
+      red[warp][lane + 32 * u] = ck[u];
+      red[warp][HD + lane + 32 * u] = cv[u];
+    }
   __syncthreads();
   if (tid < 2 * HD) {
     float t = red[0][tid];
@@ -838,6 +802,37 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ qkv, const float* __rest
     const int which = tid / HD, c = tid % HD;
     part[((long long)g * ntile + kt) * D3 + (which + 1) * D + h * HD + c] = t;
   }
+}
+
+template <int HD>
+cudaError_t launch_attention_bwd(int bf, const float* q, const float* da, const float* sm, float* dl, void* dqkv,
+                                 float* part, int G, int L, int H, float scale, cudaStream_t st) {
+  const int ntile = (L + RT - 1) / RT;
+  const unsigned blocks = (unsigned)(G * H * ntile);
+  cudaError_t e;
+  if (bf) {
+    static bool ready_q = false, ready_k = false;
+    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
+    if ((e = allow_smem(attention_bwd_dq_bf16_kernel<HD>, sizeof(bf16) * 2 * KT * Head<HD>::LD, ready_q)) !=
+        cudaSuccess)
+      return e;
+    attention_bwd_dq_bf16_kernel<HD><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * Head<HD>::LD, st>>>(
+        q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale, kt_rows);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = allow_smem(attention_bwd_dkdv_bf16_kernel<HD>, dkdv_bf16_smem<HD>(), ready_k)) != cudaSuccess) return e;
+    attention_bwd_dkdv_bf16_kernel<HD><<<blocks, 128, dkdv_bf16_smem<HD>(), st>>>(
+        q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale);
+  } else {
+    static bool ready_q = false, ready_k = false;
+    if ((e = allow_smem(attention_bwd_dq_f32_kernel<HD>, dq_f32_smem<HD>(), ready_q)) != cudaSuccess) return e;
+    attention_bwd_dq_f32_kernel<HD><<<blocks, 256, dq_f32_smem<HD>(), st>>>(q, da, sm, dl, static_cast<float*>(dqkv),
+                                                                             part, L, H, scale);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = allow_smem(attention_bwd_dkdv_f32_kernel<HD>, dkdv_f32_smem<HD>(), ready_k)) != cudaSuccess) return e;
+    attention_bwd_dkdv_f32_kernel<HD><<<blocks, 256, dkdv_f32_smem<HD>(), st>>>(
+        q, da, sm, dl, static_cast<float*>(dqkv), part, L, H, scale);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -895,42 +890,23 @@ int cse_layer_norm_bwd(const void* dh, const void* x, const void* scale, const v
 }
 
 // Attention backward, see (c). dqkv: [G*L, 3*H*hd] (bf16 when bf16 else
-// fp32); delta: [G*L, H] fp32 scratch; partials: [G * ceil(L / 64), 3*H*hd];
-// dbias: [3*H*hd] fp32, the column sums of the fp32 dq | dk | dv.
+// fp32), hd in {8, 16, 32, 64}; delta: [G*L, H] fp32 scratch; partials:
+// [G * ceil(L / 64), 3*H*hd]; dbias: [3*H*hd] fp32, the column sums of the
+// fp32 dq | dk | dv.
 int cse_attention_bwd(const void* qkv, const void* dattn, const void* stats, void* delta, void* dqkv,
                       void* partials, void* dbias, int bf16_out, int G, int L, int H, int hd, float scale,
                       void* stream) {
-  if (hd != HD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
   const float* da = static_cast<const float*>(dattn);
   const float* sm = static_cast<const float*>(stats);
   float* dl = static_cast<float*>(delta);
   float* part = static_cast<float*>(partials);
-  const int ntile = (L + RT - 1) / RT;
-  const unsigned blocks = (unsigned)(G * H * ntile);
-  cudaError_t e;
-  if (bf16_out) {
-    static bool ready = false;
-    const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    attention_bwd_dq_bf16_kernel<<<blocks, 128, sizeof(bf16) * 2 * kt_rows * LDH, st>>>(
-        q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale, kt_rows);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if ((e = allow_smem(attention_bwd_dkdv_bf16_kernel, DKDV_BF16_SMEM, ready)) != cudaSuccess) return (int)e;
-    attention_bwd_dkdv_bf16_kernel<<<blocks, 128, DKDV_BF16_SMEM, st>>>(
-        q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale);
-  } else {
-    static bool ready_q = false, ready_k = false;
-    if ((e = allow_smem(attention_bwd_dq_f32_kernel, DQ_F32_SMEM, ready_q)) != cudaSuccess) return (int)e;
-    attention_bwd_dq_f32_kernel<<<blocks, 256, DQ_F32_SMEM, st>>>(q, da, sm, dl, static_cast<float*>(dqkv),
-                                                                   part, L, H, scale);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if ((e = allow_smem(attention_bwd_dkdv_f32_kernel, DKDV_F32_SMEM, ready_k)) != cudaSuccess) return (int)e;
-    attention_bwd_dkdv_f32_kernel<<<blocks, 256, DKDV_F32_SMEM, st>>>(q, da, sm, dl, static_cast<float*>(dqkv),
-                                                                       part, L, H, scale);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)launch_sum_rows(part, static_cast<float*>(dbias), G * ntile, 3LL * H * hd, st);
+  const int e = by_head_width(HeadWidths{}, hd, [&](auto w) {
+    return launch_attention_bwd<decltype(w)::value>(bf16_out, q, da, sm, dl, dqkv, part, G, L, H, scale, st);
+  });
+  if (e != (int)cudaSuccess) return e;
+  return (int)launch_sum_rows(part, static_cast<float*>(dbias), G * ((L + RT - 1) / RT), 3LL * H * hd, st);
 }
 
 }  // extern "C"

@@ -25,8 +25,8 @@
 //                     cd(v), lo = cd(v - hi), two products summed.
 //       For cd = fp32 the rounding to cd is the identity (lo = 0), so the
 //       three J modes share the fp32 path.
-//   (b) kp_attention_*: one block per (sequence, head), head width 32, over
-//       qkv [G*L, 3D] fp32. q is scaled BEFORE the score product (the
+//   (b) kp_attention_*: one block per (sequence, head), head width 8, 16,
+//       32 or 64 (a template argument), over qkv [G*L, 3D] fp32. q is scaled BEFORE the score product (the
 //       serving kernel of fused_stack.cu scales and rounds alike; the fp32
 //       twin multiplies in fp32). No mask. The softmax by mode:
 //         SM_SKIP  p = s * 1e-4, no max / exp / sum;
@@ -46,7 +46,8 @@
 //         L <= 256, kp_attention_strip_bf16_kernel: q, k and v (and J's
 //           first eight columns, transposed) of all rows converted to bf16
 //           in shared memory once per block, each row's fp32 head slice
-//           read once, coalesced, many reads in flight; a warp owns 16
+//           read once, coalesced, many reads in flight (common.cuh's
+//           stage_qkv_bf16, shared with fused_stack.cu's attention); a warp owns 16
 //           queries and keeps their scores against every key in registers
 //           (s[NB][2][4], NB = 8 or 16 blocks of 16 keys, 64 or 128 fp32
 //           registers a thread; the kernel 186-242 at NB 16, no local
@@ -183,19 +184,23 @@ kp_ln_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ J, int ld
 }
 
 // ---------------------------------------------------------------- (b) attention
-constexpr int HD = 32;   // head width
+// Head width HD in {8, 16, 32, 64}: a template argument of every kernel.
 constexpr int KT = 256;  // keys per shared-memory tile
 
 // fp32 twin: one warp per query row, lane j scores key c + j and owns output
-// column j. Passes over the keys: max (not SM_SKIP), z (not SM_SKIP), PV. The
-// mode and the pass are run-time values here (one instantiation: this is the
-// parity path, and its branches are uniform over the block).
-constexpr int QT32 = 64, ROWS32 = QT32 / 8, LDK32 = HD + 1;
-constexpr size_t KP_ATT_F32_SMEM = sizeof(float) * (KT * LDK32 + KT * HD + QT32 * HD + KT);
+// columns j, j + 32. Passes over the keys: max (not SM_SKIP), z (not
+// SM_SKIP), PV. The mode and the pass are run-time values here (one
+// instantiation per head width: this is the parity path, and its branches
+// are uniform over the block).
+constexpr int QT32 = 64, ROWS32 = QT32 / 8;
+template <int HD>
+constexpr size_t kp_att_f32_smem() { return sizeof(float) * (KT * (HD + 1) + KT * HD + QT32 * HD + KT); }
 
+template <int HD>
 __global__ void __launch_bounds__(256)
 kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ J, int ldj,
                         float* __restrict__ x, int L, int H, float scale, int sm) {
+  constexpr int LDK32 = HD + 1, NC = (HD + 31) / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // [KT][LDK32]
   float* Vs = Ks + KT * LDK32;                 // [KT][HD]
@@ -229,12 +234,13 @@ kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
     }
     __syncthreads();
 
-    float m[ROWS32], z[ROWS32], acc[ROWS32];
+    float m[ROWS32], z[ROWS32], acc[ROWS32][NC];
 #pragma unroll
     for (int r = 0; r < ROWS32; ++r) {
       m[r] = __int_as_float(0xff800000);  // -inf
       z[r] = 0.f;
-      acc[r] = 0.f;
+#pragma unroll
+      for (int u = 0; u < NC; ++u) acc[r][u] = 0.f;
     }
     // pass 0: row max; pass 1: z; pass 2: PV with the normalised p
 #pragma unroll 1
@@ -268,8 +274,12 @@ kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
               else p = expf(s - m[r]) / z[r];
               p = valid ? p : 0.f;
 #pragma unroll
-              for (int j = 0; j < 32; ++j)
-                acc[r] = fmaf(__shfl_sync(FULL, p, j), Vs[(c + j) * HD + lane], acc[r]);
+              for (int j = 0; j < 32; ++j) {
+                const float pj = __shfl_sync(FULL, p, j);
+#pragma unroll
+                for (int u = 0; u < NC; ++u)
+                  if (lane + 32 * u < HD) acc[r][u] = fmaf(pj, Vs[(c + j) * HD + lane + 32 * u], acc[r][u]);
+              }
             }
           }
         }
@@ -289,7 +299,9 @@ kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
     for (int r = 0; r < ROWS32; ++r) {
       const int qr = warp + r * 8;
       if (q0 + qr >= L) continue;
-      x[((long long)g * L + q0 + qr) * D + h * HD + lane] += acc[r];
+#pragma unroll
+      for (int u = 0; u < NC; ++u)
+        if (lane + 32 * u < HD) x[((long long)g * L + q0 + qr) * D + h * HD + lane + 32 * u] += acc[r][u];
     }
   }
 }
@@ -300,13 +312,13 @@ kp_attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
 // fragments; K, V and J[:, 0:8] (transposed) of up to KT keys in shared
 // memory in bf16.
 constexpr int ATT_WARPS = 4;
-constexpr int LDH = HD + 8;    // bf16 row stride of the K, V tiles: ldmatrix conflict-free
 constexpr int LDJT = KT + 8;   // bf16 row stride of the transposed J tile
 
-template <int SM>
+template <int SM, int HD>
 __global__ void __launch_bounds__(ATT_WARPS * 32, 4)
 kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__ J, int ldj,
                          float* __restrict__ x, int L, int H, float scale) {
+  constexpr int LDH = Head<HD>::LD, NT = Head<HD>::NT;
   extern __shared__ __align__(128) unsigned char smem[];
   const int kt_rows = (min(L, KT) + 15) / 16 * 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kt_rows][LDH]
@@ -340,19 +352,6 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
         Jt[nn * LDJT + r] = k0 + r < L ? J[(long long)(k0 + r) * ldj + nn] : __float2bfloat16_rn(0.f);
       }
   };
-  auto scores16 = [&](float (&s)[2][4], const unsigned (&qa)[2][4], int kb) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      unsigned kf[4];
-      ldmatrix_x4(kf, Ks + (kb + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[0], qa[ks], kf[0], kf[1]);
-      mma_bf16_16816(s[1], qa[ks], kf[2], kf[3]);
-    }
-  };
 
   if (nkt == 1) {
     load_kv(0, true);
@@ -361,24 +360,14 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
   for (int q0 = 0; q0 < L; q0 += ATT_WARPS * 16) {
     const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
     const bool active = q0 + warp * 16 < L;  // warp-uniform
-    unsigned qa[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-        float2 xa = make_float2(0.f, 0.f), xb = xa;
-        if (ra < L) xa = *reinterpret_cast<const float2*>(base + (long long)ra * D3 + d);
-        if (rb < L) xb = *reinterpret_cast<const float2*>(base + (long long)rb * D3 + d);
-        qa[ks][hi * 2] = pack_bf16(xa.x * scale, xa.y * scale);
-        qa[ks][hi * 2 + 1] = pack_bf16(xb.x * scale, xb.y * scale);
-      }
+    unsigned qa[Head<HD>::KS][4];
+    afrag_f32<HD>(qa, base, D3, ra, L, scale, lane);
 
     float ma = NEG_INF, mb = NEG_INF, za = 0.f, zb = 0.f;
     float zh[4] = {0.f, 0.f, 0.f, 0.f}, zl[4] = {0.f, 0.f, 0.f, 0.f};
-    float o[4][4];
+    float o[NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
@@ -395,7 +384,7 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
         if (!active) continue;
         for (int kb = 0; kb < nk; kb += 16) {
           float s[2][4];
-          scores16(s, qa, kb);
+          prod16<HD>(s, qa, Ks, kb, lane);
           if (pass == 0) {
 #pragma unroll
             for (int j = 0; j < 2; ++j)
@@ -458,13 +447,7 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
           }
           const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                                   pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-          for (int dp = 0; dp < 2; ++dp) {
-            unsigned vf[4];
-            ldmatrix_x4_trans(vf, Vs + (kb + (lane & 15)) * LDH + dp * 16 + (lane >> 4) * 8);
-            mma_bf16_16816(o[dp * 2], pa, vf[0], vf[1]);
-            mma_bf16_16816(o[dp * 2 + 1], pa, vf[2], vf[3]);
-          }
+          mma_rows<HD>(o, pa, Vs, kb, lane);
         }
       }
       if (!active) continue;
@@ -493,7 +476,7 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
     }
     if (!active) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int d = h * HD + j * 8 + (lane & 3) * 2;
       if (ra < L) {
         float2* p = reinterpret_cast<float2*>(x + ((long long)g * L + ra) * D + d);
@@ -520,15 +503,17 @@ kp_attention_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__
 // keep four partials per row.
 constexpr int KP_BATCH = 4;  // rows' loads a thread keeps in flight while the block stages q, k, v
 
-constexpr int LDO = HD + 8;   // fp32 row stride of the head-output tile: conflict-free float2 writes
+// fp32 row stride of the head-output tile (HD + 8: conflict-free float2 writes)
+template <int HD, int NB>
+constexpr size_t kp_strip_smem() {
+  return sizeof(bf16) * (3 * NB * 16 * Head<HD>::LD + 8 * LDJT) + sizeof(float) * NB * 16 * (HD + 8);
+}
 
-template <int NB>
-constexpr size_t kp_strip_smem() { return sizeof(bf16) * (3 * NB * 16 * LDH + 8 * LDJT) + sizeof(float) * NB * 16 * LDO; }
-
-template <int SM, int NB>
+template <int SM, int HD, int NB>
 __global__ void __launch_bounds__(256, 1)
 kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __restrict__ J, int ldj,
                                float* __restrict__ x, int L, int H, float scale) {
+  constexpr int LDH = Head<HD>::LD, LDO = HD + 8, NT = Head<HD>::NT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LDH]
   bf16* Vs = Ks + NB * 16 * LDH;             // [NB * 16][LDH]
@@ -537,39 +522,13 @@ kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __rest
   float* Os = reinterpret_cast<float*>(Jt + 8 * LDJT);  // [NB * 16][LDO]: the head's output, added into x at the end
   constexpr bool USE_J = SM == SM_CD || SM == SM_X2;
   const int g = blockIdx.x / H, h = blockIdx.x % H;
-  const int D = H * HD, D3 = 3 * D;
-  const float* base = qkv + (long long)g * L * D3 + h * HD;
+  const int D = H * HD;
+  const float* base = qkv + (long long)g * L * 3 * D + h * HD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const float NEG_INF = __int_as_float(0xff800000);
   const float LOG2E = 1.4426950408889634f;
 
-  // each row's q, k, v head slices once, eight lanes to a row's 128 bytes, in
-  // batches of KP_BATCH loads a thread in flight; bf16(q * scale), bf16(k),
-  // bf16(v) into shared memory, zero past L
-  constexpr int N = NB * 16 * (HD / 4);
-  for (int e0 = threadIdx.x; e0 < N; e0 += KP_BATCH * blockDim.x) {
-    float4 t[KP_BATCH][3];
-#pragma unroll
-    for (int b = 0; b < KP_BATCH; ++b) {
-      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
-#pragma unroll
-      for (int u = 0; u < 3; ++u)
-        t[b][u] = e < N && r < L ? *reinterpret_cast<const float4*>(base + (long long)r * D3 + u * D + c)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int b = 0; b < KP_BATCH; ++b) {
-      const int e = e0 + b * blockDim.x, r = e / (HD / 4), c = (e % (HD / 4)) * 4;
-      if (e >= N) continue;
-      const float4 qq = t[b][0];
-      *reinterpret_cast<uint2*>(Qs + r * LDH + c) =
-          make_uint2(pack_bf16(qq.x * scale, qq.y * scale), pack_bf16(qq.z * scale, qq.w * scale));
-#pragma unroll
-      for (int u = 1; u < 3; ++u)
-        *reinterpret_cast<uint2*>((u == 1 ? Ks : Vs) + r * LDH + c) =
-            make_uint2(pack_bf16(t[b][u].x, t[b][u].y), pack_bf16(t[b][u].z, t[b][u].w));
-    }
-  }
+  stage_qkv_bf16<HD, NB * 16, KP_BATCH>(base, D, L, scale, Qs, Ks, Vs);
   if (USE_J)
     for (int r = threadIdx.x; r < NB * 16; r += blockDim.x)
 #pragma unroll
@@ -579,24 +538,11 @@ kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __rest
 
   for (int q0 = warp * 16; q0 < L; q0 += nw * 16) {
     const int ra = q0 + (lane >> 2), rb = ra + 8;
-    unsigned qa[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) ldmatrix_x4(qa[ks], Qs + (q0 + (lane & 15)) * LDH + ks * 16 + (lane >> 4) * 8);
+    unsigned qa[Head<HD>::KS][4];
+    afrag_smem<HD>(qa, Qs, q0, lane);
     float s[NB][2][4];
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[cb][j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        unsigned kf[4];
-        ldmatrix_x4(kf, Ks + (cb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[cb][0], qa[ks], kf[0], kf[1]);
-        mma_bf16_16816(s[cb][1], qa[ks], kf[2], kf[3]);
-      }
-    }
+    for (int cb = 0; cb < NB; ++cb) prod16<HD>(s[cb], qa, Ks, cb * 16, lane);
     // keys past L -> 0 (SM_SKIP) or -inf (for NB = 16, L > 128: blocks 0-7 hold none)
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) {
@@ -649,9 +595,9 @@ kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __rest
             s[cb][j][e] *= iz[e >> 1];
     }
     // O = bf16(normalised p) . V into the block's output tile
-    float o[4][4];
+    float o[NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 #pragma unroll
@@ -659,16 +605,10 @@ kp_attention_strip_bf16_kernel(const float* __restrict__ qkv, const bf16* __rest
       const float (&p)[2][4] = s[cb];
       const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                               pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, Vs + (cb * 16 + (lane & 15)) * LDH + dp * 16 + (lane >> 4) * 8);
-        mma_bf16_16816(o[dp * 2], pa, vf[0], vf[1]);
-        mma_bf16_16816(o[dp * 2 + 1], pa, vf[2], vf[3]);
-      }
+      mma_rows<HD>(o, pa, Vs, cb * 16, lane);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int d = j * 8 + (lane & 3) * 2;
       *reinterpret_cast<float2*>(Os + ra * LDO + d) = make_float2(o[j][0], o[j][1]);
       *reinterpret_cast<float2*>(Os + rb * LDO + d) = make_float2(o[j][2], o[j][3]);
@@ -712,44 +652,49 @@ struct KpPlan {
   cudaError_t err;
 };
 
-template <int SM, int NB>
+template <int SM, int HD, int NB>
 KpPlan kp_strip_plan() {
-  static const cudaError_t e = cudaFuncSetAttribute(kp_attention_strip_bf16_kernel<SM, NB>,
+  static const cudaError_t e = cudaFuncSetAttribute(kp_attention_strip_bf16_kernel<SM, HD, NB>,
                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                    (int)kp_strip_smem<NB>());
-  return {kp_attention_strip_bf16_kernel<SM, NB>, NB, 32 * STRIP_WARPS, kp_strip_smem<NB>(), e};
+                                                    (int)kp_strip_smem<HD, NB>());
+  return {kp_attention_strip_bf16_kernel<SM, HD, NB>, NB, 32 * STRIP_WARPS, kp_strip_smem<HD, NB>(), e};
 }
 
-template <int SM>
+template <int HD>
+constexpr size_t kp_passes_smem(int kt_rows) { return sizeof(bf16) * (2 * kt_rows * Head<HD>::LD + 8 * LDJT); }
+
+template <int SM, int HD>
 KpPlan plan_kp_bf16(int L) {
-  if (L <= 128) return kp_strip_plan<SM, 8>();
-  if (L <= STRIP_MAX_L) return kp_strip_plan<SM, 16>();
-  return {kp_attention_bf16_kernel<SM>, 0, ATT_WARPS * 32,
-          sizeof(bf16) * (2 * ((min(L, KT) + 15) / 16 * 16) * LDH + 8 * LDJT), cudaSuccess};  // <= 45 KB
+  if (L <= 128) return kp_strip_plan<SM, HD, 8>();
+  if (L <= STRIP_MAX_L) return kp_strip_plan<SM, HD, 16>();
+  static const cudaError_t e = cudaFuncSetAttribute(kp_attention_bf16_kernel<SM, HD>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    (int)kp_passes_smem<HD>(KT));
+  return {kp_attention_bf16_kernel<SM, HD>, 0, ATT_WARPS * 32, kp_passes_smem<HD>((min(L, KT) + 15) / 16 * 16), e};
 }
 
-template <int SM>
+template <int SM, int HD>
 cudaError_t launch_kp_attention(int bf, const float* qkv, const void* J, int ldj, float* x, int G, int L,
                                 int H, float scale, cudaStream_t st) {
+  if (L < 1) return cudaErrorInvalidValue;
   if (bf) {
-    if (L < 1) return cudaErrorInvalidValue;
-    const KpPlan p = plan_kp_bf16<SM>(L);
+    const KpPlan p = plan_kp_bf16<SM, HD>(L);
     if (p.err != cudaSuccess) return p.err;
     p.kern<<<G * H, p.threads, p.smem, st>>>(qkv, static_cast<const bf16*>(J), ldj, x, L, H, scale);
   } else {
     static bool ready = false;
-    const cudaError_t e = allow_smem(kp_attention_f32_kernel, KP_ATT_F32_SMEM, ready);
+    const cudaError_t e = allow_smem(kp_attention_f32_kernel<HD>, kp_att_f32_smem<HD>(), ready);
     if (e != cudaSuccess) return e;
-    kp_attention_f32_kernel<<<G * H, 256, KP_ATT_F32_SMEM, st>>>(
+    kp_attention_f32_kernel<HD><<<G * H, 256, kp_att_f32_smem<HD>(), st>>>(
         qkv, static_cast<const float*>(J), ldj, x, L, H, scale, SM);
   }
   return cudaGetLastError();
 }
 
-template <int SM>
+template <int SM, int HD>
 cudaError_t kp_attention_info(int L, int* info) {
   if (L < 1) return cudaErrorInvalidValue;
-  const KpPlan p = plan_kp_bf16<SM>(L);
+  const KpPlan p = plan_kp_bf16<SM, HD>(L);
   if (p.err != cudaSuccess) return p.err;
   info[0] = p.nb;
   info[1] = p.threads;
@@ -806,35 +751,41 @@ int cse_kp_layer_norm(const void* x, const void* j, int ldj, void* out, int bf16
 }
 
 // x[G*L, H*hd] (fp32, in place) += the mode's attention of qkv[G*L, 3*H*hd]
-// fp32 (SmMode above). bf16_operands: products on the tensor cores with J
-// bf16; else fp32 FMAs with J fp32. J [>= L, ldj] is read for SM_CD, SM_X2.
+// fp32 (SmMode above), hd in {8, 16, 32, 64}. bf16_operands: products on the
+// tensor cores with J bf16; else fp32 FMAs with J fp32. J [>= L, ldj] is read
+// for SM_CD, SM_X2.
 int cse_kp_attention(const void* qkv, const void* j, int ldj, void* x, int bf16_operands, int mode,
                      int G, int L, int H, int hd, float scale, void* stream) {
-  if (hd != HD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
   float* xf = static_cast<float*>(x);
-  switch (mode) {
-    case SM_SKIP: return (int)launch_kp_attention<SM_SKIP>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
-    case SM_SUM: return (int)launch_kp_attention<SM_SUM>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
-    case SM_CD: return (int)launch_kp_attention<SM_CD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
-    case SM_X2: return (int)launch_kp_attention<SM_X2>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_head_width(HeadWidths{}, hd, [&](auto w) {
+    constexpr int HD = decltype(w)::value;
+    switch (mode) {
+      case SM_SKIP: return launch_kp_attention<SM_SKIP, HD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+      case SM_SUM: return launch_kp_attention<SM_SUM, HD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+      case SM_CD: return launch_kp_attention<SM_CD, HD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+      case SM_X2: return launch_kp_attention<SM_X2, HD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
-// info[7] of the bf16 attention cse_kp_attention launches for (mode, L), in
-// cse_flash_fwd_info's order: key blocks held in registers (0: multi-pass),
-// threads, query rows a block, dynamic shared bytes, registers a thread,
-// local-memory bytes a thread, resident blocks per SM.
-int cse_kp_attention_info(int mode, int L, int* info) {
-  switch (mode) {
-    case SM_SKIP: return (int)kp_attention_info<SM_SKIP>(L, info);
-    case SM_SUM: return (int)kp_attention_info<SM_SUM>(L, info);
-    case SM_CD: return (int)kp_attention_info<SM_CD>(L, info);
-    case SM_X2: return (int)kp_attention_info<SM_X2>(L, info);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// info[7] of the bf16 attention cse_kp_attention launches for (mode, L, hd),
+// in cse_flash_fwd_info's order: key blocks held in registers (0:
+// multi-pass), threads, query rows a block, dynamic shared bytes, registers
+// a thread, local-memory bytes a thread, resident blocks per SM.
+int cse_kp_attention_info(int mode, int L, int hd, int* info) {
+  return by_head_width(HeadWidths{}, hd, [&](auto w) {
+    constexpr int HD = decltype(w)::value;
+    switch (mode) {
+      case SM_SKIP: return kp_attention_info<SM_SKIP, HD>(L, info);
+      case SM_SUM: return kp_attention_info<SM_SUM, HD>(L, info);
+      case SM_CD: return kp_attention_info<SM_CD, HD>(L, info);
+      case SM_X2: return kp_attention_info<SM_X2, HD>(L, info);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // extern "C"

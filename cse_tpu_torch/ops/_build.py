@@ -35,6 +35,7 @@ SIGNATURES = {
     "cse_layer_norm": (P, P, P, P, I, LL, I, F, P),
     "cse_linear": (P, P, P, P, I, I, LL, I, I, P),
     "cse_attention": (P, P, I, I, I, I, I, F, P, P),
+    "cse_attention_info": (I, I, I, P),
     "cse_linear_relu_grad": (P, P, P, P, P, P, P, I, LL, I, I, P),
     # fused_train.cu
     "cse_weight_grad": (P, P, P, P, I, LL, I, I, I, I, P),
@@ -50,7 +51,7 @@ SIGNATURES = {
     # kernel_parts.cu
     "cse_kp_layer_norm": (P, P, I, P, I, I, LL, I, F, P),
     "cse_kp_attention": (P, P, I, P, I, I, I, I, I, I, F, P),
-    "cse_kp_attention_info": (I, I, P),
+    "cse_kp_attention_info": (I, I, I, P),
 }
 
 

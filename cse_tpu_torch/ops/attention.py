@@ -33,7 +33,8 @@ from cse_tpu_torch.ops import _build
 from cse_tpu_torch.ops import fused_stack as fs
 from cse_tpu_torch.ops.fused_stack import wide
 
-MAX_HEAD_WIDTH = 64
+# head widths the flash kernels are instantiated for
+HEAD_WIDTHS = (8, 16, 32, 48, 64)
 
 
 def _chunks(bh: int, L: int):
@@ -98,8 +99,7 @@ def _check_qkv(q, *others):
         if t.shape != q.shape:
             raise ValueError(f"operand {i + 1} is {tuple(t.shape)}, q is {tuple(q.shape)}")
     B, H, L, dh = q.shape
-    if dh % 16 or dh > MAX_HEAD_WIDTH:
-        raise ValueError(f"flash attention kernels take head widths 16, 32, 48, 64; got {dh}")
+    fs.check_head_width(dh, "flash attention", HEAD_WIDTHS)
     if any(t.data_ptr() % 16 for t in (q, *others)):
         raise ValueError("flash attention kernels need 16-byte aligned operands")
     return B * H, L, dh

@@ -258,6 +258,16 @@ def linear(a, w, bias, epilogue, residual=None):
     return out
 
 
+# head widths the attention kernels are instantiated for (the Pallas kernels
+# take any width; ROADMAP.md records the deviation)
+HEAD_WIDTHS = (8, 16, 32, 64)
+
+
+def check_head_width(hd: int, what: str, widths=HEAD_WIDTHS):
+    if hd not in widths:
+        raise ValueError(f"{what} kernels take head widths {', '.join(map(str, widths))}; got {hd}")
+
+
 ATT_MODES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
              (torch.bfloat16, torch.float32): 2}  # (operands, output) -> cse_attention mode
 
@@ -277,8 +287,7 @@ def attention(qkv, seq_len, nhead, out_dtype, stats=None, operand_dtype=None):
     if D3 % 3 or D % nhead or M % seq_len:
         raise ValueError(f"qkv {tuple(qkv.shape)} does not split into L={seq_len}, {nhead} heads")
     hd = D // nhead
-    if hd != 32:
-        raise ValueError(f"attention kernel is written for head width 32, got {hd}")
+    check_head_width(hd, "attention")
     if qkv.data_ptr() % 16:
         raise ValueError("attention kernel needs a 16-byte aligned qkv")
     if stats is not None:
@@ -292,6 +301,15 @@ def attention(qkv, seq_len, nhead, out_dtype, stats=None, operand_dtype=None):
     _check_launch("attention", err)
     attention.launches += 1
     return out
+
+
+def attention_info(seq_len: int, hd: int = 32, out_dtype=torch.bfloat16) -> dict:
+    """How :func:`attention` launches the bf16 attention (bf16 or fp32 out)
+    at this L and head width: see :func:`cse_tpu_torch.ops._build.launch_info`
+    ("strip" for L <= 256)."""
+    check_head_width(hd, "attention")
+    mode = ATT_MODES[(torch.bfloat16, out_dtype)]
+    return _build.launch_info("cse_attention_info", mode, seq_len, hd)
 
 
 KERNELS = {"layer_norm": layer_norm, "linear": linear, "attention": attention}

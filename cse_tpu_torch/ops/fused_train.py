@@ -251,8 +251,7 @@ def attention_backward(qkv, dattn, stats, seq_len, nhead, cd):
         raise ValueError(f"qkv {tuple(qkv.shape)}, dattn {tuple(dattn.shape)}, stats {tuple(stats.shape)} "
                          f"do not fit L={seq_len}, {nhead} heads")
     hd = D // nhead
-    if hd != 32:
-        raise ValueError(f"attention backward kernel is written for head width 32, got {hd}")
+    fs.check_head_width(hd, "attention backward")
     if qkv.data_ptr() % 16 or dattn.data_ptr() % 16:
         raise ValueError("attention backward kernel needs 16-byte aligned qkv and dattn")
     G = M // seq_len

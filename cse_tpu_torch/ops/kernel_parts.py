@@ -184,8 +184,7 @@ def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):
     if D3 % 3 or D % nhead or M % seq_len or tuple(x.shape) != (M, D):
         raise ValueError(f"qkv {tuple(qkv.shape)}, x {tuple(x.shape)} do not split into L={seq_len}, {nhead} heads")
     hd = D // nhead
-    if hd != 32:
-        raise ValueError(f"kp_attention kernel is written for head width 32, got {hd}")
+    fs.check_head_width(hd, "kp_attention")
     if qkv.data_ptr() % 16 or x.data_ptr() % 8:
         raise ValueError("kp_attention kernel needs a 16-byte aligned qkv and an 8-byte aligned x")
     _check_jmat(jmat, cd, seq_len if sm_mode in JMAT_SOFTMAX else 0)
@@ -197,11 +196,12 @@ def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):
     return x
 
 
-def kp_attention_info(seq_len: int, sm_mode: str) -> dict:
-    """How :func:`kp_attention` launches the bf16 attention: see
-    :func:`cse_tpu_torch.ops._build.launch_info`."""
+def kp_attention_info(seq_len: int, sm_mode: str, hd: int = 32) -> dict:
+    """How :func:`kp_attention` launches the bf16 attention at this L, mode
+    and head width: see :func:`cse_tpu_torch.ops._build.launch_info`."""
     _check_mode(SOFTMAX_MODES, sm_mode, "softmax mode")
-    return _build.launch_info("cse_kp_attention_info", SOFTMAX_MODES[sm_mode], seq_len)
+    fs.check_head_width(hd, "kp_attention")
+    return _build.launch_info("cse_kp_attention_info", SOFTMAX_MODES[sm_mode], seq_len, hd)
 
 
 KERNELS = {"kp_layer_norm": kp_layer_norm, "kp_attention": kp_attention}

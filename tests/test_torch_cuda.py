@@ -60,9 +60,17 @@ def test_attention_matches_plain(gen, cd, seq_len):
     _close(fs.attention(qkv, seq_len, 8, cd), fs.attention_plain(qkv, seq_len, 8, cd), cd)
 
 
+# the GEMM's shapes: the main path's (K, N) pairs (QKV, out-proj, FFN1, FFN2),
+# the backward's dX products, ragged M (not a multiple of 128), several
+# 128-row panels a block, and the tiny model's widths (K = 32)
+LINEAR_SHAPES = [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 40, 24), (1000, 256, 256),
+                 (1000, 256, 1024), (1000, 768, 256), (40000, 256, 768), (77, 32, 32), (77, 32, 64), (77, 32, 96),
+                 (300, 64, 96)]
+
+
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("epilogue", ["bias", "relu", "residual"])
-@pytest.mark.parametrize("mkn", [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 40, 24)])
+@pytest.mark.parametrize("mkn", LINEAR_SHAPES)
 def test_linear_matches_plain(gen, cd, epilogue, mkn):
     m, k, n = mkn
     a = torch.randn(m, k, device="cuda", generator=gen).to(cd)
@@ -93,9 +101,9 @@ def test_stack_matches_reference_and_counts(gen, cd):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
-    qkv = torch.randn(10, 3 * 128, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head width 32"):
-        fs.attention(qkv, 5, 8, torch.float32)  # head width 16
+    qkv = torch.randn(10, 3 * 96, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head widths 8, 16, 32, 64; got 12"):
+        fs.attention(qkv, 5, 8, torch.float32)  # head width 12
     with pytest.raises(TypeError):
         fs.layer_norm(torch.randn(4, 256, device="cuda"), torch.ones(256, device="cuda"),
                       torch.zeros(256, device="cuda"), torch.float16)
@@ -118,6 +126,40 @@ def _train_weights(gen, cd, d=256, ffn=1024, n_layers=1):
     for k in ("ln1_s", "ln2_s"):
         w[k] = r(n_layers, d, scale=0.1, shift=1.0)
     return w
+
+
+HEAD_WIDTHS = [8, 16, 32, 64]
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("seq_len", [1, 7, 127, 251, 256, 300])
+@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+def test_attention_head_widths_match_plain(gen, hd, seq_len, out_dtype):
+    """bf16 operands on the strip route (L <= 256) or the two-pass route
+    (300), bf16 or fp32 out, without and with the row stats; and the fp32
+    kernel, at every instantiated head width."""
+    H = 4 if hd == 64 else 8
+    qkv = 2 * torch.randn(5 * seq_len, 3 * H * hd, device="cuda", generator=gen)
+    bf = torch.bfloat16
+    _close(fs.attention(qkv, seq_len, H, out_dtype, operand_dtype=bf),
+           fs.attention_plain(qkv, seq_len, H, out_dtype, operand_dtype=bf), bf)
+    st, sp = (torch.empty(2, 5 * seq_len, H, device="cuda") for _ in range(2))
+    _close(fs.attention(qkv, seq_len, H, out_dtype, st, bf), fs.attention_plain(qkv, seq_len, H, out_dtype, sp, bf), bf)
+    _close(st, sp, torch.float32)
+    if out_dtype == torch.float32:
+        _close(fs.attention(qkv, seq_len, H, out_dtype), fs.attention_plain(qkv, seq_len, H, out_dtype), out_dtype)
+
+
+@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+@pytest.mark.parametrize("seq_len", [127, 128, 251, 256])
+def test_attention_strip_instantiations_spill_nothing(gen, seq_len, hd):
+    """cse_attention runs the one-pass strip for L <= 256 with no local
+    memory, in both output types; the two-pass route beyond."""
+    for out_dtype in DTYPES:
+        info = fs.attention_info(seq_len, hd, out_dtype)
+        assert info["route"] == "strip" and info["key_blocks"] == (8 if seq_len <= 128 else 16)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert fs.attention_info(300, hd)["route"] == "passes"
 
 
 @pytest.mark.parametrize("cd", DTYPES)
@@ -146,6 +188,22 @@ def test_attention_backward_matches_plain(gen, cd, seq_len):
 
 
 @pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len", [7, 127, 251, 300])
+@pytest.mark.parametrize("hd", [8, 16, 64])
+def test_attention_backward_head_widths_match_plain(gen, cd, seq_len, hd):
+    H = 4
+    M = 5 * seq_len
+    qkv = 2 * torch.randn(M, 3 * H * hd, device="cuda", generator=gen)
+    stats = torch.empty(2, M, H, device="cuda")
+    fs.attention_plain(qkv, seq_len, H, cd, stats)
+    dattn = torch.randn(M, H * hd, device="cuda", generator=gen)
+    got, got_b = ft.attention_backward(qkv, dattn, stats, seq_len, H, cd)
+    want, want_b = ft.attention_backward_plain(qkv, dattn, stats, seq_len, H, cd)
+    _close(got, want, cd)
+    _close(got_b, want_b, cd)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("mkn", [(1000, 256, 768), (777, 1024, 256), (5000, 256, 256), (33, 40, 24)])
 def test_weight_grad_matches_plain_and_repeats(gen, cd, mkn):
     m, k, n = mkn
@@ -158,8 +216,10 @@ def test_weight_grad_matches_plain_and_repeats(gen, cd, mkn):
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("mkn", [(1000, 256, 1024), (77, 40, 24)])
+@pytest.mark.parametrize("mkn", [(1000, 256, 1024), (77, 40, 24), (40000, 256, 1024), (77, 32, 96), (300, 32, 64)])
 def test_linear_relu_grad_matches_plain(gen, cd, mkn):
+    """Also: the column sums come from fixed-order per-tile partials, so a
+    second run gives the same bits."""
     m, k, n = mkn
     dy = torch.randn(m, k, device="cuda", generator=gen).to(cd)
     wt = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(cd)
@@ -168,6 +228,8 @@ def test_linear_relu_grad_matches_plain(gen, cd, mkn):
     assert got.dtype == cd
     _close(got, want, cd)
     _close(got_s, want_s, cd)
+    again, again_s = ft.linear_relu_grad(dy, wt, mask)
+    assert torch.equal(again, got) and torch.equal(again_s, got_s)
 
 
 @pytest.mark.parametrize("cd", DTYPES)
@@ -265,11 +327,12 @@ def _flash_inputs(gen, cd, bh, seq_len, dh):
 
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("seq_len,dh", [(16, 32), (17, 32), (128, 32), (129, 32), (251, 32), (256, 32), (257, 32),
-                                        (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
+                                        (300, 32), (600, 32), (127, 16), (130, 64), (77, 48), (7, 8), (127, 8),
+                                        (251, 8), (300, 8), (251, 16), (300, 16)])
 def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
     """Any length: bf16 on the strip route (L <= 128: 8 key blocks in
     registers, L <= 256: 16) or the three-pass route (257 and on, one key tile
-    or several); head widths 16-64."""
+    or several); head widths 8-64."""
     from cse_tpu_torch.ops import attention as at
 
     q, k, v, _ = _flash_inputs(gen, cd, 12, seq_len, dh)
@@ -280,7 +343,8 @@ def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48)])
+@pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48),
+                                        (7, 8), (251, 8), (300, 8), (251, 16)])
 def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
     from cse_tpu_torch.ops import attention as at
 
@@ -291,7 +355,7 @@ def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
         _close(got, want, cd)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
 @pytest.mark.parametrize("seq_len", [128, 256])
 def test_flash_strip_instantiations_spill_nothing(gen, seq_len, dh):
     """Each L <= 256 instantiation keeps its score strip in registers: no
@@ -428,12 +492,29 @@ def test_kp_attention_matches_plain(gen, cd, sm_mode, seq_len):
     _close(got - x, want - x, cd)
 
 
-@pytest.mark.parametrize("seq_len", [128, 256])
-@pytest.mark.parametrize("sm_mode", ["skip", "sum", "cd", "x2"])
-def test_kp_attention_one_pass_instantiations_spill_nothing(gen, sm_mode, seq_len):
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("sm_mode,seq_len", [("sum", 127), ("sum", 251), ("sum", 300), ("skip", 251)])
+@pytest.mark.parametrize("hd", [8, 16, 64])
+def test_kp_attention_head_widths_match_plain(gen, cd, hd, sm_mode, seq_len):
     from cse_tpu_torch.ops import kernel_parts as kp
 
-    info = kp.kp_attention_info(seq_len, sm_mode)
+    G, H = 3, 4
+    D = H * hd
+    qkv = torch.randn(G * seq_len, 3 * D, device="cuda", generator=gen)
+    x = torch.randn(G * seq_len, D, device="cuda", generator=gen)
+    got = kp.kp_attention(qkv, _kp_jmat(cd), x.clone(), seq_len, H, sm_mode, cd)
+    want = kp.kp_attention_plain(qkv, _kp_jmat(cd), x.clone(), seq_len, H, sm_mode, cd,
+                                 qk_dtype=None if cd == torch.float32 else cd)
+    _close(got - x, want - x, cd)
+
+
+@pytest.mark.parametrize("seq_len", [128, 256])
+@pytest.mark.parametrize("sm_mode", ["skip", "sum", "cd", "x2"])
+@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+def test_kp_attention_one_pass_instantiations_spill_nothing(gen, sm_mode, seq_len, hd):
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    info = kp.kp_attention_info(seq_len, sm_mode, hd)
     assert info["route"] == "strip" and info["key_blocks"] == seq_len // 16
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
 
@@ -460,8 +541,8 @@ def test_kernel_parts_wrappers_refuse_what_the_kernels_do_not_take(gen):
     from cse_tpu_torch.ops import kernel_parts as kp
 
     j = _kp_jmat(torch.bfloat16)
-    with pytest.raises(ValueError, match="head width 32"):
-        kp.kp_attention(torch.zeros(64, 3 * 64, device="cuda"), j, torch.zeros(64, 64, device="cuda"), 64, 8, "sum",
+    with pytest.raises(ValueError, match="head widths 8, 16, 32, 64; got 12"):
+        kp.kp_attention(torch.zeros(64, 3 * 96, device="cuda"), j, torch.zeros(64, 96, device="cuda"), 64, 8, "sum",
                         torch.bfloat16)
     with pytest.raises(ValueError, match="jmat"):  # the jmat softmax sums need a row of jmat per key
         kp.kp_attention(torch.zeros(600, 768, device="cuda"), j, torch.zeros(600, 256, device="cuda"), 300, 8, "cd",
@@ -472,16 +553,17 @@ def test_kernel_parts_wrappers_refuse_what_the_kernels_do_not_take(gen):
         kp.kp_layer_norm(torch.zeros(4, 256, device="cuda"), j.cpu(), "centred", torch.bfloat16)
 
 
-def test_trainer_on_the_card_tiny(gen, tmp_path):
-    """train_net on the card at the tiny width (head width 8, which the fused
-    and flash kernels do not take: the layer-by-layer path, forced), and a
+@pytest.mark.parametrize("path", [[], ["--no_fused_train", "--flash_attention", "--remat", "layer"]])
+def test_trainer_on_the_card_tiny(gen, tmp_path, path):
+    """train_net on the card at the tiny width (head width 8), on the card's
+    default fused step and layer by layer with the flash kernels, and a
     checkpoint resumes."""
     from cse_tpu_torch.core.flags import parse_train_args
     from cse_tpu_torch.train.loop import train_net
 
     argv = ["--synthetic_smoke", "--debug_tiny_model", "--train_data", "dailytalk", "--tot_iters", "3",
             "--batch_size", "2", "--eval_step", "2", "--max_sp_len", "2", "--max_ctx_tokens", "16", "--workers", "2",
-            "--no_fused_train", "--checkpoint_dir", str(tmp_path)]
+            *path, "--checkpoint_dir", str(tmp_path)]
     with torch.enable_grad():
         stats = {}
         model = train_net(parse_train_args(argv), "base", stats=stats)
