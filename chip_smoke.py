@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels of cse_tpu_torch/csrc from the checkout;
+  2. build the CUDA kernels of cse_tpu_torch/csrc from the checkout; the
+     ptxas report of the two wgmma kernels (the GEMM, the weight gradient):
+     no spills, no serialised wgmma;
   3. hold each kernel (LayerNorm, GEMM with its three epilogues, attention)
      and the whole fused stack against its plain PyTorch version at the
      serving shapes (intra G=2016 L=251, inter G=4000 L=127) in fp32 and bf16;
@@ -24,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
      gradient, ReLU-gradient GEMM, LayerNorm backward) and the whole 8-layer
      fused_stack_train forward and backward against their plain versions at
      the training shapes (intra, inter, and L=300 for the attention backward's
-     several tiles) in fp32 and bf16;
+     two-kernel route) in fp32 and bf16; the attention backward and the
+     weight gradient also give the same bits on a repeat;
   7. the training path: (a) loss and every gradient of make_loss_fn(fused=True)
      against the plain Sepformer under autograd, fp32, full width, B=2,
      T=125000; (b) 20 bf16 steps on one batch, fused against plain; (c) the
@@ -33,7 +36,11 @@ Phases (any failure exits non-zero and prints no result line):
      one step split into forward, backward and optimizer, and one step under
      torch.profiler (device time by kernel, the device's busy share); (d) each
      training kernel's time beside its plain version, a library call and its
-     bound;
+     bound; each weight-gradient product's time and TB/s beside
+     torch.matmul(a.t(), dy); the attention backward beside PyTorch's flash
+     backward alone (and forward plus backward), with its launch (route,
+     registers, local memory, blocks per SM; every L <= 256 instantiation must
+     have no local memory); the times before this slice's redesigns;
   8. the flash path (use_flash_attention=True, remat='layer'): (a) the flash
      forward and backward kernels against their plain versions at intra,
      inter, L=300 and L=600, fp32 and bf16; (b) fp32 loss and every gradient
@@ -42,8 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
      against the formula, median step time, mixtures/s, peak memory, one
      profiled step; make_eval_step(fused=False): forward time, output against
      the fused serving engine on the same weights; (d) kernel times beside
-     the plain versions, SDPA and the bounds, the forward's time before its
-     redesign, and the forward launch's route, registers, local memory and
+     the plain versions, SDPA (the backward beside PyTorch's flash backward
+     alone and SDPA forward + backward) and the bounds, the forward's time
+     before its redesign, and the forward launch's route, registers, local memory and
      resident blocks per SM (every L <= 256 instantiation must have no local
      memory);
   9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
@@ -77,9 +85,10 @@ Phases (any failure exits non-zero and prints no result line):
      its backward, flash forward and backward, the GEMM's epilogues at K 32,
      64, 96, the ReLU-gradient GEMM, the weight gradients) against its plain
      version at the model's own shapes, including inter L 1282 (the two-pass
-     route); (b) its trainer at 16 s in fp32 on the default fused step, layer
-     by layer with --flash_attention --remat layer, and layer by layer
-     without either (the reference): losses before the first update and
+     route), the attention backward and the weight gradients also for the
+     same bits on a repeat; (b) its trainer at 16 s in fp32 on the default
+     fused step, layer by layer with --flash_attention --remat layer, and
+     layer by layer without either (the reference): losses before the first update and
      after each of three (lr 1e-3), held against the reference's; (c) both
      kernel paths in bf16: finite losses, the kernels launched.
 The second-to-last lines are the kernels' JSON line and the card; the last line
@@ -172,10 +181,16 @@ LINEAR_EARLIER_MS = {"linear": (4.563, 4.578), "linear_relu_grad": (2.047, 2.095
                      "linear[kernel_parts]": 2.023}
 ATTENTION_EARLIER_MS = {"attention": (1.789, 1.110), "attention[w8a8]": (1.658, 1.068),
                         "attention[train]": (1.679, 1.106)}
+# the weight gradient and the attention backward before their redesign (PERF.md section 6, rows
+# 4a and 4e; NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_EARLIER_MS = {"weight_grad": (2.614, 2.618), "attention_backward": (6.161, 3.789)}
 # the kernels' symbols in the kernels line
 GEMM_SYMBOL = "linear_bf16_kernel<EPI> (wgmma + TMA, persistent, warp-specialised)"
 ATTENTION_SYMBOL = ("attention_strip_bf16_kernel<{}, 32, 16 or 8> (L <= 256); "
                     "attention_bf16_kernel<{}, 32> (L > 256)")
+WGRAD_SYMBOL = "wgrad_bf16_kernel<NG> (wgmma + TMA, persistent, warp-specialised) + sum_rows_kernel"
+ATTENTION_BWD_SYMBOL = ("attention_bwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); attention_bwd_dq_bf16_kernel<32> + "
+                        "attention_bwd_dkdv_bf16_kernel<32> (L > 256); + sum_rows_kernel")
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
 SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
 REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
@@ -259,6 +274,19 @@ def time_like(fn):
     return time_ms(fn)
 
 
+def sdpa_backward_ms(q, k, v, do):
+    """PyTorch's flash-attention backward alone, the like-for-like yardstick of
+    a backward kernel: o and logsumexp from one forward made outside the timed
+    region, on the same bf16 q, k, v [G, H, L, hd] and dO; None where the
+    card's torch refuses the call."""
+    try:
+        o, lse, cq, ck, mq, mk, seed, off = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)[:8]
+    except (TypeError, RuntimeError):
+        return None
+    return time_like(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, False, seed, off))
+
+
 def sum_or_none(xs):
     return None if any(x is None for x in xs) else sum(xs)
 
@@ -275,6 +303,15 @@ def attention_launches():
     return {f"L={L} hd={h} {'bf16' if od == torch.bfloat16 else 'fp32'} out":
             fs.attention_info(L, h, od)["local_bytes"]
             for L in (128, 256) for h in fs.HEAD_WIDTHS for od in (torch.bfloat16, torch.float32)}
+
+
+def attention_backward_launches():
+    """The bf16 attention backward's strip launch at every instantiation (L 128,
+    256) and head width: local-memory bytes a thread (must be 0)."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+
+    return {f"L={L} hd={h}": ft.attention_backward_info(L, h)["local_bytes"] for L in (128, 256) for h in fs.HEAD_WIDTHS}
 
 
 def ptxas_of(report: str, kernel: str) -> dict:
@@ -347,6 +384,14 @@ def stack_grads(stack, x, gy, cd, ops):
     return y.detach(), grads
 
 
+def same_bits(name, first, again, failures):
+    """A repeat call's outputs against the first call's: fixed-order sums give the same bits."""
+    ok = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"  {name + ' repeat':<44s} {'same bits' if ok else 'FAIL: other bits'}")
+    if not ok:
+        failures.append(f"{name}: a repeat gives other bits")
+
+
 def phase6(gen, failures, H, F_, NL):
     """Training kernels and the whole training stack against their plain versions."""
     from cse_tpu_torch.ops import fused_stack as fs
@@ -374,6 +419,8 @@ def phase6(gen, failures, H, F_, NL):
             e = check(f"attention_backward {tag} {shape_name} G={G} L={L} dqkv", got, want, cd, failures)
             e = max(e, check(f"attention_backward {tag} {shape_name} dbias (q, v)", ft.qv_part(gb),
                              ft.qv_part(wb), cd, failures))
+            same_bits(f"attention_backward {tag} {shape_name}", (got, gb),
+                      ft.attention_backward(qkv, dattn, sp, L, H, cd), failures)
             err["attention_backward"] = max(err["attention_backward"], e)
             del qkv, sk, sp, dattn, got, want
             if shape_name == "L=300":
@@ -381,10 +428,13 @@ def phase6(gen, failures, H, F_, NL):
             for K, N in ((D, 3 * D), (D, D), (D, F_), (F_, D)):
                 a = torch.randn(M, K, device="cuda", generator=gen).to(cd)
                 dy = torch.randn(M, N, device="cuda", generator=gen).to(cd)
-                e = check(f"weight_grad {tag} {shape_name} [{M},{K}]^T x [{M},{N}]", ft.weight_grad(a, dy),
+                got = ft.weight_grad(a, dy)
+                e = check(f"weight_grad {tag} {shape_name} [{M},{K}]^T x [{M},{N}]", got,
                           ft.weight_grad_plain(a, dy), cd, failures)
+                same_bits(f"weight_grad {tag} {shape_name} [{M},{K}]^T x [{M},{N}]", (got,),
+                          (ft.weight_grad(a, dy),), failures)
                 err["weight_grad"] = max(err["weight_grad"], e)
-                del a, dy
+                del a, dy, got
             dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
             wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
             mask = torch.relu(torch.randn(M, F_, device="cuda", generator=gen)).to(cd)
@@ -650,18 +700,26 @@ def phase7_times(gen, card, H, F_, NL):
                 o = F.scaled_dot_product_attention(q, k, v)
                 torch.autograd.grad(o, (q, k, v), do)
 
+        # library_ms: PyTorch's flash backward alone; library_fwd_bwd_ms: SDPA forward + backward
         t["attention_backward"] = dict(
             ms=time_ms(lambda: ft.attention_backward(qkv, dattn, stats, L, H, cd)),
             plain_ms=time_ms(lambda: ft.attention_backward_plain(qkv, dattn, stats, L, H, cd), reps=3),
-            library_ms=time_ms(sdpa_fwd_bwd),
+            library_ms=sdpa_backward_ms(q.detach(), k.detach(), v.detach(), do),
+            library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd), launch=ft.attention_backward_info(L, hd),
             **bound(M * 3 * D * 4 + M * D * 4 + 2 * M * H * 4 + M * 3 * D * 2 + 3 * D * 4,
                     5 * 2 * G * H * L * L * hd))
         del qkv, stats, dattn, q, k, v, do
         wshapes = ((D, 3 * D), (D, D), (D, F_), (F_, D))
         ops_ = [(torch.randn(M, K, device="cuda", generator=gen).to(cd),
                  torch.randn(M, N, device="cuda", generator=gen).to(cd)) for K, N in wshapes]
+        part_ms = [time_ms(lambda o=o: ft.weight_grad(*o)) for o in ops_]
+        for (K, N), ms, o in zip(wshapes, part_ms, ops_):
+            nbytes = M * K * 2 + M * N * 2 + K * N * 4
+            log(f"  {shape_name} weight_grad [{M},{K}]^T x [{M},{N}] kernel {ms:.4f} ms  {nbytes / ms / 1e9:.3f} TB/s  "
+                f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s  bytes bound {1e3 * nbytes / HBM_BYTES_S:.4f} ms  "
+                f"torch.matmul(a.t(), dy) {time_ms(lambda o=o: torch.matmul(o[0].t(), o[1])):.4f} ms")
         t["weight_grad"] = dict(
-            ms=sum(time_ms(lambda o=o: ft.weight_grad(*o)) for o in ops_),
+            ms=sum(part_ms),
             plain_ms=time_ms(lambda: [ft.weight_grad_plain(*o) for o in ops_], reps=3),
             library_ms=time_ms(lambda: [torch.matmul(a.t(), dy) for a, dy in ops_]),
             **bound(sum(M * K * 2 + M * N * 2 + K * N * 4 for K, N in wshapes),
@@ -729,11 +787,21 @@ def phase7_times(gen, card, H, F_, NL):
         rg = t["linear_relu_grad"]
         log(f"  {shape_name} linear_relu_grad {nbytes / rg['ms'] / 1e9:.3f} TB/s  "
             f"{2 * M * D * F_ / rg['ms'] / 1e9:.1f} TFLOP/s")
-        for kname in ("linear_relu_grad", "linear[dgrad]", "attention[train]"):
-            earlier = (LINEAR_EARLIER_MS.get(kname) or ATTENTION_EARLIER_MS[kname])[shape_name == "inter"]
+        ab = t["attention_backward"]
+        log(f"  {shape_name} attention_backward kernel {ab['ms']:.4f} ms  PyTorch flash backward alone "
+            f"{fmt_ms(ab['library_ms'])}  SDPA forward + backward {ab['library_fwd_bwd_ms']:.4f} ms")
+        for kname in ("linear_relu_grad", "linear[dgrad]", "attention[train]", "weight_grad", "attention_backward"):
+            earlier = (LINEAR_EARLIER_MS.get(kname) or ATTENTION_EARLIER_MS.get(kname)
+                       or TRAIN_EARLIER_MS[kname])[shape_name == "inter"]
             log(f"  {shape_name} {kname} {t[kname]['ms']:.4f} ms; before the redesign {earlier} ms "
                 "(PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         show_info(f"{shape_name} attention[train] launch", t["attention[train]"]["launch"])
+        show_info(f"{shape_name} attention_backward launch", ab["launch"])
+    spills = attention_backward_launches()
+    log(f"  attention backward strip instantiations, local-memory bytes a thread: {spills}")
+    if any(spills.values()):
+        fail(f"a strip instantiation of the attention backward spills to local memory: {spills}")
+    times["strip_local_bytes"] = spills
     return times
 
 
@@ -948,7 +1016,7 @@ def phase8_times(gen, card, H=8, hd=32):
                               **bound_of(4 * X + G * H * L * 4, 4 * G * H * L * L * hd)),
             "flash_bwd": dict(ms=time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do)),
                               plain_ms=time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do), reps=3),
-                              library_ms=time_ms(sdpa_fwd_bwd),
+                              library_ms=sdpa_backward_ms(q, k, v, do), library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd),
                               **bound_of(8 * X + G * H * L * 4, 10 * G * H * L * L * hd)),
         }
         del q, k, v, do, o, lse, qg, kg, vg
@@ -956,7 +1024,8 @@ def phase8_times(gen, card, H=8, hd=32):
         times[name] = t
         for kname, x in t.items():
             log(f"  {name} G={G} L={L} {kname:<10s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
-                f"SDPA {x['library_ms']:.4f} ms  bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+                f"SDPA {fmt_ms(x['library_ms'])}  bound {x['bound_ms']:.4f} ms ({x['bound_by']})"
+                + (f"  SDPA forward + backward {x['library_fwd_bwd_ms']:.4f} ms" if "library_fwd_bwd_ms" in x else ""))
         log(f"  {name} flash_fwd {t['flash_fwd']['ms']:.4f} ms; before the redesign "
             f"{FLASH_FWD_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         show_info(f"{name} flash_fwd launch", t["flash_fwd"]["launch"])
@@ -1472,6 +1541,8 @@ def phase12_kernels(gen, failures):
             held("attention_backward", check(f"attention_backward {tag} {shape_name} dqkv", got, want, cd, failures))
             held("attention_backward", check(f"attention_backward {tag} {shape_name} dbias (q, v)", ft.qv_part(gb),
                                              ft.qv_part(wb), cd, failures))
+            same_bits(f"attention_backward {tag} {shape_name}", (got, gb),
+                      ft.attention_backward(qkv, dattn, sp, L, H, cd), failures)
             del qkv, sk, sp, dattn, got, want
             q, k, v, do = (torch.randn(G, H, L, hd, device="cuda", generator=gen).to(cd) for _ in range(4))
             (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
@@ -1494,8 +1565,11 @@ def phase12_kernels(gen, failures):
                                      fs.linear(a, w, bias, epi, None if res is None else res.clone()),
                                      fs.linear_plain(a, w, bias, epi, res), cd, failures))
                 dy = torch.randn(M, N, device="cuda", generator=gen).to(cd)
+                dw = ft.weight_grad(a, dy)
                 held("weight_grad", check(f"weight_grad {tag} {shape_name} [{M},{Kd}]^T x [{M},{N}]",
-                                          ft.weight_grad(a, dy), ft.weight_grad_plain(a, dy), cd, failures))
+                                          dw, ft.weight_grad_plain(a, dy), cd, failures))
+                same_bits(f"weight_grad {tag} {shape_name} [{M},{Kd}]^T x [{M},{N}]", (dw,),
+                          (ft.weight_grad(a, dy),), failures)
                 del a, w, res, dy
             dy = torch.randn(M, D, device="cuda", generator=gen).to(cd)
             wt = (torch.randn(D, F_, device="cuda", generator=gen) / math.sqrt(D)).to(cd)
@@ -1604,10 +1678,11 @@ def main() -> int:
     print(report.getvalue(), flush=True)
     _build.library()
     log(f"[2] kernels built in {time.time() - t0:.1f} s -> {_build.library_path().name}")
-    gemm = ptxas_of(report.getvalue(), "linear_bf16_kernel")
-    log(f"  linear_bf16_kernel (wgmma + TMA), ptxas: {gemm}")
-    if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
-        fail(f"the GEMM spills, is serialised or is missing from the ptxas report: {gemm}")
+    for kname in ("linear_bf16_kernel", "wgrad_bf16_kernel"):
+        gemm = ptxas_of(report.getvalue(), kname)
+        log(f"  {kname} (wgmma + TMA), ptxas: {gemm}")
+        if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
+            fail(f"{kname} spills, is serialised or is missing from the ptxas report: {gemm}")
 
     failures: list[str] = []
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1847,7 +1922,7 @@ def main() -> int:
         ("attention[train]", "attention", SOURCE, REPLACES_FWD,
          ATTENTION_SYMBOL.format("bf16", "bf16") + ", with stats",
          ttimes, "attention[train]", "attention_stats", "attention writing row max and 1/z; one launch"),
-        ("weight_grad", "weight_grad", SOURCE_TRAIN, REPLACES_BWD, "wgrad_bf16_kernel + sum_rows_kernel",
+        ("weight_grad", "weight_grad", SOURCE_TRAIN, REPLACES_BWD, WGRAD_SYMBOL,
          ttimes, "weight_grad", "weight_grad", "one layer's 4 weight gradients"),
         ("linear_relu_grad", "linear_relu_grad", SOURCE, REPLACES_BWD,
          "linear_bf16_kernel<EPI_RELU_GRAD> (wgmma + TMA) + sum_rows_kernel", ttimes, "linear_relu_grad",
@@ -1856,9 +1931,9 @@ def main() -> int:
         ("layer_norm_backward", "layer_norm_backward", SOURCE_TRAIN, REPLACES_BWD,
          "layer_norm_bwd_kernel + sum_rows_kernel", ttimes, "layer_norm_backward", "layer_norm_backward",
          "one LN backward with its dscale, dbias and bias sums; one call"),
-        ("attention_backward", "attention_backward", SOURCE_TRAIN, REPLACES_BWD,
-         "attention_bwd_dq_bf16_kernel + attention_bwd_dkdv_bf16_kernel + sum_rows_kernel",
-         ttimes, "attention_backward", "attention_backward", "dq | dk | dv and their column sums; one call"),
+        ("attention_backward", "attention_backward", SOURCE_TRAIN, REPLACES_BWD, ATTENTION_BWD_SYMBOL,
+         ttimes, "attention_backward", "attention_backward",
+         "dq | dk | dv and their column sums; one call; library_ms: PyTorch's flash backward alone"),
     )
     all_err = {**max_err, **train_err}
     for name, counter, source, replaces, symbol, tset, tkey, ekey, part in train_parts:
@@ -1880,7 +1955,8 @@ def main() -> int:
          flash_err, "q/k/v [G, 8, L, 32] -> o, lse; one launch; launches per bf16 train step (remat='layer')"),
         ("flash_bwd", SOURCE_FLASH, REPLACES_FLASH_BWD,
          "flash_delta_kernel + flash_bwd_dq_bf16_kernel<32> + flash_bwd_dkdv_bf16_kernel<32>", ftimes,
-         flash_bench["launches"], flash_err, "dq, dk, dv; one call; launches per bf16 train step"),
+         flash_bench["launches"], flash_err,
+         "dq, dk, dv; one call; launches per bf16 train step; library_ms: PyTorch's flash backward alone"),
         ("quantize_rows", SOURCE_W8A8, REPLACES_W8A8, "quantize_rows_kernel", wtimes, w8_serve["launches"], w8_err,
          "fp32 [M, 256] -> int8 + row scales (_qdot :115-123); one launch; launches per w8a8 forward"),
         ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, "linear_w8a8_kernel", wtimes, w8_serve["launches"], w8_err,
@@ -1926,7 +2002,9 @@ def main() -> int:
     # the one-pass attentions carry their launch: route, registers, local memory, blocks per SM
     # ([5], [7d], [8d], [9c], [10b]); the GEMMs their like-for-like yardstick, torch.addmm ([5], [7d], [10b])
     launch_of = {"flash_fwd": (ftimes, "flash_fwd"), "attention": (times, "attention"),
-                 "attention[train]": (ttimes, "attention[train]"), "attention[w8a8]": (wtimes, "attention[w8a8]")}
+                 "attention[train]": (ttimes, "attention[train]"), "attention[w8a8]": (wtimes, "attention[w8a8]"),
+                 "attention_backward": (ttimes, "attention_backward")}
+    fwd_bwd_of = {"attention_backward": ttimes, "flash_bwd": ftimes}  # SDPA forward + backward, the second yardstick
     like_of = {"linear": (times, "linear"), "linear[train]": (times, "linear")}
     for entry in kernels:
         name = entry["name"]
@@ -1936,6 +2014,9 @@ def main() -> int:
             entry["inter"]["launch"] = tset["inter"][key]["launch"]
         elif name == "kp_attention":
             entry["launch"] = parts["times"]["kp_attention"]["launch"]
+        if name in fwd_bwd_of:
+            entry["library_fwd_bwd_ms"] = fwd_bwd_of[name]["intra"][name]["library_fwd_bwd_ms"]
+            entry["inter"]["library_fwd_bwd_ms"] = fwd_bwd_of[name]["inter"][name]["library_fwd_bwd_ms"]
         if name in like_of:
             tset, key = like_of[name]
             entry["library_like_ms"] = tset["intra"][key]["library_like_ms"]

@@ -2,12 +2,13 @@
 // reductions, cp.async, ldmatrix and the bf16 mma.sync m16n8k16, the
 // head-width fragments of the attention kernels (any head width that is a
 // multiple of 8: a half k-step is zero-padded inside the fragment), ex2, the
-// row max and exp of a warp's score strip, the staging of a sequence's q, k
-// and v from the packed fp32 qkv, Hopper's mbarrier, TMA and wgmma, a
-// kernel's attributes and occupancy, and the fixed-order column reduction
-// that turns per-block partial sums into one row (every cross-block sum of
-// the port goes through it, so no result depends on the order in which
-// blocks run).
+// row max and exp of a warp's score strip, the staging of fp32 rows as bf16
+// tiles, Hopper's mbarrier, TMA and wgmma with the TMA ring, the operand
+// descriptors and the warp-specialised register hand-over of the wgmma
+// kernels (and their host-side tensor maps), a kernel's attributes and
+// occupancy, and the fixed-order column reduction that turns per-block
+// partial sums into one row (every cross-block sum of the port goes through
+// it, so no result depends on the order in which blocks run).
 #pragma once
 
 #include <cuda.h>
@@ -130,6 +131,26 @@ __device__ __forceinline__ void prod16(float (&s)[2][4], const unsigned (&xa)[He
   }
 }
 
+// prod16 with the A fragments of rows r0 .. r0 + 15 of Xs [.][LD] read a
+// k-step at a time from shared memory (4 registers instead of 4 KS)
+template <int HD>
+__device__ __forceinline__ void prod16_smem(float (&s)[2][4], const bf16* Xs, int r0, const bf16* Ys, int cb,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < Head<HD>::KS; ++ks) {
+    unsigned a[4], f[4];
+    ldmatrix_x4(a, Xs + (r0 + (lane & 15)) * Head<HD>::LD + ks * 16 + (lane >> 4) * 8);
+    ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * Head<HD>::LD + ks * 16 + ((lane >> 3) & 1) * 8);
+    if (Head<HD>::HALF && ks == Head<HD>::KS - 1) a[2] = a[3] = f[1] = f[3] = 0u;
+    mma_bf16_16816(s[0], a, f[0], f[1]);
+    mma_bf16_16816(s[1], a, f[2], f[3]);
+  }
+}
+
 // acc[HD / 8] += A[16 x 16] . Zs[cb .. cb + 15][0 .. HD)  (Zs row-major [.][LD])
 template <int HD>
 __device__ __forceinline__ void mma_rows(float (&acc)[Head<HD>::NT][4], const unsigned (&a)[4], const bf16* Zs,
@@ -234,39 +255,50 @@ __device__ __forceinline__ void strip_exp(float (&s)[NB][2][4], const float (&m)
   }
 }
 
-// One sequence-head's q * scale, k and v (rows 0 .. NR - 1 of base, the
-// packed fp32 qkv [L, 3D] at the head's columns) as bf16 into Qs, Ks, Vs
-// [NR][HD + 8], zero past L: eight lanes to a row's 128 bytes (at HD 32),
-// BATCH rows' loads a thread in flight, so that the block waits on the
-// memory once per batch and not once per load.
-template <int HD, int NR, int BATCH>
-__device__ __forceinline__ void stage_qkv_bf16(const float* __restrict__ base, int D, int L, float scale,
-                                               bf16* Qs, bf16* Ks, bf16* Vs) {
-  constexpr int C = HD / 4, N = NR * C, LD = Head<HD>::LD;
-  const long long D3 = 3LL * D;
+// Rows 0 .. NR - 1 of NU fp32 sources (row r of source u at src[u] + r *
+// stride[u], columns 0 .. HD), zero from row L on, handed to put(u, r, c,
+// float4) four columns at a time: HD / 4 lanes to a row (eight lanes to a
+// row's 128 bytes at HD 32), BATCH rows' loads a thread in flight, so that
+// the block waits on the memory once per batch and not once per load.
+template <int HD, int NR, int BATCH, int NU, class Put>
+__device__ __forceinline__ void stage_rows(const float* const (&src)[NU], const long long (&stride)[NU], int L,
+                                           Put&& put) {
+  constexpr int C = HD / 4, N = NR * C;
   for (int e0 = threadIdx.x; e0 < N; e0 += BATCH * blockDim.x) {
-    float4 t[BATCH][3];
+    float4 t[BATCH][NU];
 #pragma unroll
     for (int b = 0; b < BATCH; ++b) {
       const int e = e0 + b * blockDim.x, r = e / C, c = (e % C) * 4;
 #pragma unroll
-      for (int u = 0; u < 3; ++u)
-        t[b][u] = e < N && r < L ? *reinterpret_cast<const float4*>(base + r * D3 + u * D + c)
+      for (int u = 0; u < NU; ++u)
+        t[b][u] = e < N && r < L ? *reinterpret_cast<const float4*>(src[u] + r * stride[u] + c)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int b = 0; b < BATCH; ++b) {
       const int e = e0 + b * blockDim.x, r = e / C, c = (e % C) * 4;
       if (e >= N) continue;
-      const float4 qq = t[b][0];
-      *reinterpret_cast<uint2*>(Qs + r * LD + c) =
-          make_uint2(pack_bf16(qq.x * scale, qq.y * scale), pack_bf16(qq.z * scale, qq.w * scale));
 #pragma unroll
-      for (int u = 1; u < 3; ++u)
-        *reinterpret_cast<uint2*>((u == 1 ? Ks : Vs) + r * LD + c) =
-            make_uint2(pack_bf16(t[b][u].x, t[b][u].y), pack_bf16(t[b][u].z, t[b][u].w));
+      for (int u = 0; u < NU; ++u) put(u, r, c, t[b][u]);
     }
   }
+}
+
+// four values times mul, rounded to bf16, to p (8-byte aligned)
+__device__ __forceinline__ void put_bf16x4(bf16* p, float4 v, float mul) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x * mul, v.y * mul), pack_bf16(v.z * mul, v.w * mul));
+}
+
+// One sequence-head's q * scale, k and v (rows 0 .. NR - 1 of base, the
+// packed fp32 qkv [L, 3D] at the head's columns) as bf16 into Qs, Ks, Vs
+// [NR][HD + 8], zero past L.
+template <int HD, int NR, int BATCH>
+__device__ __forceinline__ void stage_qkv_bf16(const float* __restrict__ base, int D, int L, float scale,
+                                               bf16* Qs, bf16* Ks, bf16* Vs) {
+  const long long D3 = 3LL * D;
+  stage_rows<HD, NR, BATCH, 3>({base, base + D, base + 2 * D}, {D3, D3, D3}, L, [&](int u, int r, int c, float4 v) {
+    put_bf16x4((u == 0 ? Qs : u == 1 ? Ks : Vs) + r * Head<HD>::LD + c, v, u == 0 ? scale : 1.f);
+  });
 }
 
 // Keys past L in a strip's scores -> fill (-inf before a softmax); for
@@ -348,6 +380,7 @@ __device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p, unsigned lbo,
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
 // keep the compiler from moving reads or writes of the accumulators across a wgmma wait
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -356,10 +389,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 operands from shared memory
-// (A K-major, B N-major: the transpose bit), fp32 accumulators. Thread t of
-// the warpgroup holds, for n8 tile j, d[4j + e] at row 16 (t / 32) + (t % 32)
-// / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
-__device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+// (A K-major, or M-major with TA = 1; B N-major: the transpose bits), fp32
+// accumulators. Thread t of the warpgroup holds, for n8 tile j, d[4j + e] at
+// row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+template <int TA>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -371,7 +405,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -381,7 +415,109 @@ __device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64], uint64_t da,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
+}
+
+// The operand tiles of the wgmma kernels, as TMA writes them with the
+// 128-byte swizzle: boxes of [rows][64 bf16] (8 KB for 64 rows, 1 KB per 8
+// rows), each starting on a 1024-byte boundary. A k16 step of a K-major tile
+// (k contiguous: the GEMM's A) moves 32 bytes along the rows; of an MN-major
+// tile (m or n contiguous: the GEMM's W, both operands of the weight
+// gradient) 16 rows, with its 64-wide column boxes SW_BOX bytes apart.
+constexpr int SW_BOX = 8192;
+__device__ __forceinline__ uint64_t desc_k_major(const unsigned char* tile, int kk) {
+  return gmma_desc_sw128(tile + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile, int kk) {
+  return gmma_desc_sw128(tile + kk * 2048, SW_BOX, 1024);
+}
+
+// d[64 x 128] += A . B over one 64-deep chunk (four k16 steps): A's 64 rows
+// K-major (TA 0) or M-major (TA 1), B's 128 columns N-major (two boxes)
+template <int TA>
+__device__ __forceinline__ void wgmma_chunk64(float (&d)[64], const unsigned char* a, const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16<TA>(d, TA ? desc_mn_major(a, kk) : desc_k_major(a, kk), desc_mn_major(b, kk), 1);
+}
+
+// A ring of S slots in shared memory that TMA fills: bars[s] (full)
+// completes when fill i = s, s + S, ... has landed (one producer arrival that
+// announces its bytes), bars[S + s] (empty) when each of the `consumers`
+// warps has released it. Fill i takes slot i % S in phase (i / S) & 1.
+template <int S>
+struct TmaRing {
+  uint64_t* bars;  // [2 S]
+  __device__ void init(unsigned consumers) const {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[S + s], consumers);
+    }
+  }
+  // producer: wait until fill i's slot is free, announce its bytes; the barrier its TMA copies complete on
+  __device__ uint64_t* fill(int i, unsigned bytes) const {
+    const int s = i % S;
+    mbar_wait(&bars[S + s], ((i / S) & 1) ^ 1);
+    mbar_expect_tx(&bars[s], bytes);
+    return &bars[s];
+  }
+  __device__ void wait(int i) const { mbar_wait(&bars[i % S], (i / S) & 1); }  // consumer: fill i landed
+  __device__ void release(int i) const { mbar_arrive(&bars[S + i % S]); }     // consumer warp: done with fill i
+};
+
+// Warp specialisation of the wgmma kernels: WS_THREADS threads, a producer
+// warpgroup (warp 0 loads by TMA, warp 1 may store) and two consumer
+// warpgroups; setmaxnreg hands the producers' registers to the consumers
+// (the kernel is compiled at 168 registers, __launch_bounds__(WS_THREADS, 1),
+// so that 4 x 40 + 8 x 232 fit the SM's file).
+constexpr int WS_THREADS = 384;
+__device__ __forceinline__ void ws_producer_regs() { asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n"); }
+__device__ __forceinline__ void ws_consumer_regs() { asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n"); }
+
+// ---------------------------------------------------------------- host side of the wgmma kernels
+// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
+// address, so the library links against nothing new.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major [outer][inner] tensor of elem-byte values, read and written in
+// [box_outer][box_inner] boxes with the 128-byte swizzle (box_inner * elem
+// == 128), zero fill out of bounds
+inline bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, int elem, long long inner,
+                       long long outer, unsigned box_inner, unsigned box_outer) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)(inner * elem)};
+  const cuuint32_t box[2] = {box_inner, box_outer}, es[2] = {1, 1};
+  return enc(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline int sm_count() {
+  static const int n = [] {
+    int d = 0, c = 0;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, d);
+    return c > 0 ? c : 132;
+  }();
+  return n;
 }
 
 // The function attributes and occupancy of a kernel as chip_smoke.py and the

@@ -111,10 +111,8 @@ constexpr int BM = 128, BN = 128, BK = 64;  // output tile; k-chunk (64 bf16 = o
 constexpr int SLOTS = 4;                     // A chunk slots
 constexpr int W_SLOTS = 5;                   // W chunk slots (5 beat 4 by 1-4%, PERF.md)
 constexpr int A_CHUNK = BM * BK * 2;         // 16 KB: 128 rows x 64 k
-constexpr int W_BOX = BK * 64 * 2;           // 8 KB: 64 k rows x 64 columns
-constexpr int W_CHUNK = 2 * W_BOX;           // 16 KB: 64 k rows x 128 columns
+constexpr int W_CHUNK = 2 * SW_BOX;          // 16 KB: 64 k rows x 128 columns, two 64-column boxes
 constexpr int STAGE = BM * BN * 4;           // 64 KB: the epilogue tile (fp32; bf16 uses half)
-constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
 // shared memory: A slots | W slots | epilogue tile | column-sum scratch | barriers, after 1 KB alignment
 constexpr int OFF_W = SLOTS * A_CHUNK, OFF_STAGE = OFF_W + W_SLOTS * W_CHUNK, OFF_RED = OFF_STAGE + STAGE;
 constexpr int OFF_BAR = OFF_RED + 8 * BN * 4;
@@ -132,7 +130,7 @@ __device__ __forceinline__ int stage_off_bf16(int r, int c) {
 }
 
 template <int EPI, int NG>
-__global__ void __launch_bounds__(gemm::THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
 linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                    const __grid_constant__ CUtensorMap tmC, const __grid_constant__ CUtensorMap tmX,
                    const float* __restrict__ bias, float* __restrict__ colsum, int M, int N, int K) {
@@ -146,21 +144,16 @@ linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
   unsigned char* Cs = smem + OFF_STAGE;
   float* red = reinterpret_cast<float*>(smem + OFF_RED);  // [8 warps][BN]
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
-  uint64_t *afull = bars, *aempty = bars + SLOTS, *wfull = bars + 2 * SLOTS, *wempty = wfull + W_SLOTS;
-  uint64_t *sready = wempty + W_SLOTS, *sfull = sready + 1;
+  const TmaRing<SLOTS> aring{bars};                // A chunks
+  const TmaRing<W_SLOTS> wring{bars + 2 * SLOTS};  // W chunks
+  uint64_t *sready = bars + 2 * (SLOTS + W_SLOTS), *sfull = sready + 1;
 
   const int panels = (M + BM - 1) / BM, NT = (N + BN - 1) / BN, KC = (K + BK - 1) / BK;
   const bool resident = KC <= SLOTS;  // A's panel stays for all its N tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < SLOTS; ++i) {
-      mbar_init(&afull[i], 1);
-      mbar_init(&aempty[i], 8);  // one arrival per consumer warp
-    }
-    for (int i = 0; i < W_SLOTS; ++i) {
-      mbar_init(&wfull[i], 1);
-      mbar_init(&wempty[i], 8);
-    }
+    aring.init(8);  // one release per consumer warp
+    wring.init(8);
     mbar_init(sready, 1);
     mbar_init(sfull, 8);
     fence_barrier_init();
@@ -168,7 +161,7 @@ linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
   __syncthreads();
 
   if (warp < 4) {  // ---- producer warpgroup: warp 0 loads, warp 1 stores
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    ws_producer_regs();
     if (warp == 0 && lane == 0) {
       int ai = 0, wi = 0;
       for (int p = blockIdx.x; p < panels; p += gridDim.x)
@@ -176,18 +169,15 @@ linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
           const bool fresh = !resident || n0 == 0;
           for (int kc = 0; kc < KC; ++kc) {
             if (fresh) {
-              const int s = ai % SLOTS;
-              mbar_wait(&aempty[s], ((ai / SLOTS) & 1) ^ 1);
-              mbar_expect_tx(&afull[s], A_CHUNK);
-              tma_load_2d(As + s * A_CHUNK, &tmA, kc * BK, p * BM, &afull[s]);
+              uint64_t* full = aring.fill(ai, A_CHUNK);
+              tma_load_2d(As + (ai % SLOTS) * A_CHUNK, &tmA, kc * BK, p * BM, full);
               ++ai;
             }
             for (int gi = 0; gi < NG; ++gi, ++wi) {
-              const int s = wi % W_SLOTS, nt = n0 + gi;
-              mbar_wait(&wempty[s], ((wi / W_SLOTS) & 1) ^ 1);
-              mbar_expect_tx(&wfull[s], W_CHUNK);
-              tma_load_2d(Ws + s * W_CHUNK, &tmW, nt * BN, kc * BK, &wfull[s]);
-              tma_load_2d(Ws + s * W_CHUNK + W_BOX, &tmW, nt * BN + 64, kc * BK, &wfull[s]);
+              unsigned char* w = Ws + (wi % W_SLOTS) * W_CHUNK;
+              uint64_t* full = wring.fill(wi, W_CHUNK);
+              tma_load_2d(w, &tmW, (n0 + gi) * BN, kc * BK, full);
+              tma_load_2d(w + SW_BOX, &tmW, (n0 + gi) * BN + 64, kc * BK, full);
             }
           }
         }
@@ -226,7 +216,7 @@ linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
   }
 
   // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  ws_consumer_regs();
   const int c = (warp >> 2) - 1, cw = warp - 4;  // warpgroup 0 / 1; consumer warp 0 .. 7
   const int g = lane >> 2, q = lane & 3;
   const int row0 = c * 64 + (warp & 3) * 16 + g;  // the thread's rows in the tile: row0, row0 + 8
@@ -241,28 +231,22 @@ linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[gi][i] = 0.f;
       for (int kc = 0; kc < KC; ++kc) {
-        const int aidx = pbase + kc, as = aidx % SLOTS;
-        if (fresh) mbar_wait(&afull[as], (aidx / SLOTS) & 1);
-        const unsigned char* a = As + as * A_CHUNK + c * (64 * 128);
+        const int aidx = pbase + kc;
+        if (fresh) aring.wait(aidx);
+        const unsigned char* a = As + (aidx % SLOTS) * A_CHUNK + c * (64 * 128);
 #pragma unroll
-        for (int gi = 0; gi < NG; ++gi) mbar_wait(&wfull[(wi + gi) % W_SLOTS], ((wi + gi) / W_SLOTS) & 1);
+        for (int gi = 0; gi < NG; ++gi) wring.wait(wi + gi);
         wgmma_fence();
 #pragma unroll
-        for (int gi = 0; gi < NG; ++gi) {
-          const unsigned char* w = Ws + ((wi + gi) % W_SLOTS) * W_CHUNK;
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)  // A: +32 bytes along the swizzled row; W: +16 k rows
-            wgmma_m64n128k16_tb(acc[gi], gmma_desc_sw128(a + kk * 32, 16, 1024),
-                                gmma_desc_sw128(w + kk * 2048, W_BOX, 1024), 1);
-        }
+        for (int gi = 0; gi < NG; ++gi) wgmma_chunk64<0>(acc[gi], a, Ws + ((wi + gi) % W_SLOTS) * W_CHUNK);
         wgmma_commit();
         wgmma_wait0();  // the slots go back as soon as the chunk's products retire
 #pragma unroll
         for (int gi = 0; gi < NG; ++gi) fence_regs(acc[gi]);
         if (lane == 0) {
 #pragma unroll
-          for (int gi = 0; gi < NG; ++gi) mbar_arrive(&wempty[(wi + gi) % W_SLOTS]);
-          if (last) mbar_arrive(&aempty[as]);
+          for (int gi = 0; gi < NG; ++gi) wring.release(wi + gi);
+          if (last) aring.release(aidx);
         }
         wi += NG;
       }
@@ -851,51 +835,6 @@ cudaError_t attention_info(int mode, int L, int* info) {
 }
 
 // ---------------------------------------------------------------- host side of the GEMM
-// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
-// address, so the library links against nothing new.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major [outer][inner] tensor of elem-byte values, read and written in
-// [box_outer][box_inner] boxes with the 128-byte swizzle (box_inner * elem
-// == 128), zero fill out of bounds
-bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, int elem, long long inner,
-                long long outer, unsigned box_inner, unsigned box_outer) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (!enc || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)(inner * elem)};
-  const cuuint32_t box[2] = {box_inner, box_outer}, es[2] = {1, 1};
-  return enc(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int d = 0, c = 0;
-    cudaGetDevice(&d);
-    cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, d);
-    return c > 0 ? c : 132;
-  }();
-  return n;
-}
-
 template <int EPI>
 cudaError_t launch_linear(int bf, const void* a, const void* w, const float* bias, void* c,
                           int M, int N, int K, cudaStream_t st, const void* mask = nullptr,
@@ -919,9 +858,9 @@ cudaError_t launch_linear(int bf, const void* a, const void* w, const float* bia
     const int blocks = min((M + BM - 1) / BM, sm_count()), NT = (N + BN - 1) / BN;
     // A streamed (K > 256): two N tiles a pass over K, so each A chunk is read once for both
     if ((K + BK - 1) / BK > SLOTS && NT % 2 == 0)
-      linear_bf16_kernel<EPI, 2><<<blocks, THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
+      linear_bf16_kernel<EPI, 2><<<blocks, WS_THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
     else
-      linear_bf16_kernel<EPI, 1><<<blocks, THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
+      linear_bf16_kernel<EPI, 1><<<blocks, WS_THREADS, SMEM, st>>>(ta, tw, tc, tx, bias, colsum, M, N, K);
   } else {
     const long long blocks = (long long)((M + 63) / 64) * ((N + 63) / 64);
     linear_f32_kernel<EPI><<<(unsigned)blocks, 256, 0, st>>>(

@@ -12,19 +12,21 @@
 // gradients are the same on every run, with no atomics.
 //
 //   (a) wgrad_*_kernel: P[s] = A[slab s]^T . dY[slab s], the weight gradient
-//       A^T dY reduced over M ~ 5e5 rows, split into slabs of rows so that
-//       ~528 blocks fill the card; sum_rows adds the slabs. bf16 runs on the
-//       tensor cores (mma.sync m16n8k16, A^T fragments by ldmatrix.trans,
-//       128 x 128 output tiles, a 4-stage cp.async ring); fp32 on CUDA-core
-//       FMAs. Bound by operations at K, N >= 256 (2*M*K*N flops over
-//       (K + N)*M*2 bytes read).
+//       A^T dY reduced over M ~ 5e5 rows, split into slabs of rows; sum_rows
+//       adds the slabs. bf16 runs on wgmma with TMA loads, a persistent grid
+//       over (tile, slab) units (its design below); fp32 on CUDA-core FMAs,
+//       ~528 blocks of 64 x 64 tiles. Bound by bytes at the main path's
+//       shapes (2 (K + N) bytes a row against 2 K N flops).
 //   (b) layer_norm_bwd_kernel: one warp per row; recomputes xhat and 1/std
 //       from the fp32 LN input, forms dx = inv*(dxhat - mean(dxhat) -
 //       xhat*mean(dxhat*xhat)), adds it to the residual gradient
 //       (g_out = g_in + dx, fp32 and/or cd) and writes per-block partials of
 //       dscale, dbias and the column sums of g_in and g_out (the two
 //       residual-branch bias gradients). Bound by bytes.
-//   (c) attention_bwd_dq_*_kernel and attention_bwd_dkdv_*_kernel: one block
+//   (c) bf16 at L <= 256, attention_bwd_strip_bf16_kernel: one block per
+//       (sequence, head), one pass, delta kept in the block (its design
+//       below). Beyond, and for fp32, attention_bwd_dq_*_kernel and
+//       attention_bwd_dkdv_*_kernel: one block
 //       per (sequence, head, tile of 64 rows). The dq kernel walks the keys
 //       twice: delta = rowsum(dp * p) * invz first (written out), then
 //       ds = p*(dp - delta)*invz and dq = scale * cd(ds) . cd(k). The dk/dv
@@ -47,94 +49,125 @@
 namespace {
 
 // ---------------------------------------------------------------- (a) weight gradient
-constexpr int WM = 128, WN = 128, WK = 32, WSTAGES = 4;  // out tile (K x N) and rows per step
-constexpr int LDW = WM + 8;                              // bf16 row stride: ldmatrix conflict-free
-constexpr int W_STAGE = WK * LDW;
-constexpr size_t WGRAD_BF16_SMEM = sizeof(bf16) * WSTAGES * 2 * W_STAGE;
+// bf16: P[s][K][N] (fp32) = A[slab s]^T . dY[slab s] on Hopper's tensor
+// cores, the GEMM's machinery (common.cuh: TMA ring, MN-major descriptors,
+// setmaxnreg; fused_stack.cu's linear_bf16_kernel runs on the same). At the
+// main path's shapes (M ~ 5e5 rows, K, N in 256 .. 1024) the bytes bound it:
+// 2 (K + N) bytes a row read against 2 K N flops. The design:
+//   - persistent and warp-specialised: one block of WS_THREADS per SM walks
+//     work units (output tile, slab of rows): unit u is tile u % tiles of
+//     slab u / tiles, units blockIdx.x, + gridDim.x, ..., so the tiles of a
+//     slab run side by side and its A and dY rows come from device memory
+//     once, the other tiles reading them from L2;
+//   - an output tile is 128 rows of dW (K) by 128 NG columns (N): NG = 2 for
+//     N > 128 (each consumer warpgroup 64 x 256, 128 accumulators a thread),
+//     which halves the dY re-reads of 128 x 128 tiles;
+//   - warp 0 keeps TMA loads of 64-row chunks of A (two 64-column boxes) and
+//     dY (2 NG boxes) in flight through a four-stage ring; out-of-range rows
+//     and columns land as zeros, so ragged K, N and the last slab need no
+//     code (a slab is a multiple of 64 rows);
+//   - wgmma's M is the weight's K, its k the row index m: both operands are
+//     MN-major in shared memory and ride the transpose bits; consumer
+//     warpgroup c takes dW rows 64 c .. 64 c + 63 of the tile, and keeps one
+//     chunk's products in flight while the previous chunk's stage goes back;
+//   - each unit writes its fp32 partial to partials[slab] from registers;
+//     sum_rows_kernel adds the slabs in a fixed order.
+namespace wg {
+constexpr int BT = 128;                // dW rows (K) a tile
+constexpr int BR = 64;                 // rows m of A and dY a chunk: wgmma's k
+constexpr int A_CHUNK = 2 * SW_BOX;    // 16 KB: 64 rows x 128 columns of A
+constexpr int B_GROUP = 2 * SW_BOX;    // 16 KB: 64 rows x 128 columns of dY
+template <int NG>
+__host__ __device__ constexpr int stage_bytes() { return A_CHUNK + NG * B_GROUP; }
+template <int NG>
+__host__ __device__ constexpr int stages() { return 196608 / stage_bytes<NG>(); }  // a 192 KB ring
+template <int NG>
+constexpr size_t smem() { return 1024 + stages<NG>() * stage_bytes<NG>() + 16 * stages<NG>(); }
+}  // namespace wg
 
-// P[s][K][N] (fp32) = sum over rows m in [s*slab, (s+1)*slab) of A[m][k] * B[m][n]
-// for bf16 A [M, K], B [M, N]. 8 warps as 2 (K) x 4 (N), each 64 x 32 of the
-// 128 x 128 tile. The block's slab rows go through shared memory 32 at a time
-// as A[m][k] and B[m][n]; ldmatrix.trans of A gives the A^T fragment.
-__global__ void __launch_bounds__(256, 2)
-wgrad_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ P,
-                  int M, int K, int N, int slab) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [WSTAGES][WK][LDW]
-  bf16* Bs = As + WSTAGES * W_STAGE;         // [WSTAGES][WK][LDW]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nN = (N + WN - 1) / WN, nK = (K + WM - 1) / WM;
-  const int tile = blockIdx.x % (nK * nN), s = blockIdx.x / (nK * nN);
-  const int bk = (tile / nN) * WM, bn = (tile % nN) * WN;
-  const int m_lo = s * slab, m_hi = min(M, m_lo + slab);
-  const int wk = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto load = [&](int stage, int m0) {
-    bf16* as = As + stage * W_STAGE;
-    bf16* bs = Bs + stage * W_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 32 rows x 16 chunks of 8, for A and for B
-      const int c = tid + i * 256, r = c >> 4, cc = (c & 15) * 8;
-      const int gm = m0 + r;
-      const bool pa = gm < m_hi && bk + cc < K, pb = gm < m_hi && bn + cc < N;
-      cp_async16(as + r * LDW + cc, pa ? A + (long long)gm * K + bk + cc : A, pa);
-      cp_async16(bs + r * LDW + cc, pb ? B + (long long)gm * N + bn + cc : B, pb);
-    }
-  };
-
-  const int nsteps = (m_hi - m_lo + WK - 1) / WK;
-#pragma unroll
-  for (int st = 0; st < WSTAGES - 1; ++st) {
-    if (st < nsteps) load(st, m_lo + st * WK);
-    cp_async_commit();
+template <int NG>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+                  float* __restrict__ P, int M, int K, int N, int slab, int slabs) {
+  using namespace wg;
+  constexpr int STAGE = stage_bytes<NG>(), STAGES = stages<NG>(), BN = 128 * NG;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const TmaRing<STAGES> ring{reinterpret_cast<uint64_t*>(smem + STAGES * STAGE)};
+  const int tn = (N + BN - 1) / BN, tiles = ((K + BT - 1) / BT) * tn, units = tiles * slabs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    ring.init(8);  // one release per consumer warp
+    fence_barrier_init();
   }
-  const int lr = lane & 15, lc = (lane >> 4) * 8;
-  // A^T fragment by ldmatrix.trans: matrix i = lane / 8 covers rows m
-  // (i / 2) * 8 .. +7 and columns k (i % 2) * 8 .. +7 of the stored A[m][k]
-  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) * 8;
-  for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait<WSTAGES - 2>();
-    __syncthreads();
-    if (t + WSTAGES - 1 < nsteps) load((t + WSTAGES - 1) % WSTAGES, m_lo + (t + WSTAGES - 1) * WK);
-    cp_async_commit();
-    const bf16* as = As + (t % WSTAGES) * W_STAGE;
-    const bf16* bs = Bs + (t % WSTAGES) * W_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < WK; kk += 16) {
-      unsigned af[4][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4_trans(af[i], as + (kk + ar) * LDW + wk + i * 16 + ac);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) ldmatrix_x4_trans(bfr[j], bs + (kk + lr) * LDW + wn + j * 16 + lc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16_16816(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2], bfr[j >> 1][(j & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  float* out = P + (long long)s * K * N;
-  const int r0 = bk + wk + (lane >> 2), c0 = bn + wn + (lane & 3) * 2;
+  if (warp < 4) {  // ---- producer warpgroup: warp 0 loads
+    ws_producer_regs();
+    if (warp == 0 && lane == 0) {
+      int i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int t = u % tiles, k0 = (t / tn) * BT, n0 = (t % tn) * BN, s = u / tiles;
+        const int m_hi = min(M, (s + 1) * slab);
+        for (int m0 = s * slab; m0 < m_hi; m0 += BR, ++i) {
+          unsigned char* st = smem + (i % STAGES) * STAGE;
+          uint64_t* full = ring.fill(i, STAGE);
+          tma_load_2d(st, &tmA, k0, m0, full);
+          tma_load_2d(st + SW_BOX, &tmA, k0 + 64, m0, full);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + i * 16, c = c0 + j * 8;
-      if (c >= N) continue;
-      if (r < K) *reinterpret_cast<float2*>(out + (long long)r * N + c) = make_float2(acc[i][j][0], acc[i][j][1]);
-      if (r + 8 < K)
-        *reinterpret_cast<float2*>(out + (long long)(r + 8) * N + c) = make_float2(acc[i][j][2], acc[i][j][3]);
+          for (int b = 0; b < 2 * NG; ++b) tma_load_2d(st + A_CHUNK + b * SW_BOX, &tmB, n0 + 64 * b, m0, full);
+        }
+      }
     }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns dW rows 64 c .. 64 c + 63 of each tile
+  ws_consumer_regs();
+  const int c = (warp >> 2) - 1;
+  const int row0 = c * 64 + (warp & 3) * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  int i = 0;
+  float acc[NG][64];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int t = u % tiles, k0 = (t / tn) * BT, n0 = (t % tn) * BN, s = u / tiles;
+    const int m_hi = min(M, (s + 1) * slab);
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[gi][e] = 0.f;
+    const int i0 = i;
+    for (int m0 = s * slab; m0 < m_hi; m0 += BR, ++i) {
+      ring.wait(i);
+      const unsigned char* st = smem + (i % STAGES) * STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) wgmma_chunk64<1>(acc[gi], st + c * SW_BOX, st + A_CHUNK + gi * B_GROUP);
+      wgmma_commit();
+      wgmma_wait1();  // the previous chunk's products retired: its stage goes back
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) fence_regs(acc[gi]);
+      if (lane == 0 && i > i0) ring.release(i - 1);
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) fence_regs(acc[gi]);
+    if (lane == 0 && i > i0) ring.release(i - 1);
+    float* out = P + (long long)s * K * N;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + gi * 128 + 8 * j + col0;
+        if (col >= N) continue;  // N is even: col + 1 < N too
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = k0 + row0 + 8 * h;
+          if (r < K)
+            *reinterpret_cast<float2*>(out + (long long)r * N + col) =
+                make_float2(acc[gi][4 * j + 2 * h], acc[gi][4 * j + 2 * h + 1]);
+        }
+      }
+  }
 }
 
 // fp32 (the parity path): 64 x 64 output tile, 16 rows per step, 4 x 4
@@ -272,6 +305,7 @@ layer_norm_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ x,
 
 // ---------------------------------------------------------------- (c) attention backward
 // Head width HD (8, 16, 32, 64) is a template argument throughout.
+constexpr int STRIP_MAX_L = 256;  // the bf16 route: one block a (sequence, head) up to here
 constexpr int KT = 256;    // keys per shared-memory tile (dq kernels)
 constexpr int QT = 128;    // queries per shared-memory tile (dk/dv kernels)
 constexpr int RT = 64;     // rows (queries or keys) per block
@@ -566,6 +600,255 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
   }
 }
 
+// bf16, L <= 256: one block per (sequence, head), one pass. The block
+// stages K and V of the whole sequence as bf16 once (common.cuh's
+// stage_rows) with every row's m and 1/z, and warp w owns the key strip
+// w * 16 .. w * 16 + 15 (NB warps for L <= 16 NB). It walks the queries in
+// chunks of QC rows: each chunk's fp32 q and do arrive by cp.async RS chunks
+// ahead (a ring in shared memory) while the block computes, and are rounded
+// into cd(q * scale),
+// cd(do) and cd(do * invz) tiles. For each 16-query block of the chunk a
+// warp computes, in registers, the transposed scores sT = cd(k) . cd(q
+// scale)^T and dpT = cd(v) . cd(do)^T of its keys, p = exp(s - m) once per
+// score (ex2 with log2(e) folded into one FMA), and its keys' share of each
+// query's delta = rowsum(dp * p) * invz. The shares meet in shared memory and
+// are added in warp order; then ds = p (dp - delta) invz, dv += cd(p)^T .
+// cd(do * invz) and dk += cd(ds)^T . cd(q * scale) (from the registers: an
+// m16n8 accumulator tile is an A fragment), and cd(ds) goes to a
+// [keys][queries] tile of the whole sequence. dk and dv stay in registers
+// across the chunks. Last, warp w takes query strip w: dq = scale * cd(ds) .
+// cd(k) (the A fragment from the tile by ldmatrix.trans). Five products
+// (six at HD 64, where dp is recomputed rather than held, for registers);
+// delta never leaves the block; each fp32 input is read once; one fp32
+// column-partial row per block.
+template <int HD>
+__host__ __device__ constexpr int bwd_strip_qc() { return HD <= 32 ? 32 : 16; }  // query rows a chunk
+
+template <int HD, int NB>
+struct BwdStrip {
+  static constexpr int NR = NB * 16, LD = Head<HD>::LD, QC = bwd_strip_qc<HD>(), LDT = NR + 8;
+  // HD <= 32: a chunk's k and v A fragments and dp stay in registers; HD 64 reloads the fragments
+  // a k-step at a time and computes dp again for ds (six products), for registers
+  static constexpr bool REGS = HD <= 32;
+  static constexpr int RS = HD <= 32 ? 4 : 1;             // chunks of fp32 q and do in flight (shared memory)
+  // shared memory: Ks, Vs [NR][LD]; Qs, Os, Zs [QC][LD]; DsT [NR][LDT] (bf16); R [RS][2][QC][HD]
+  // (the coming chunks' fp32 q and do); then fp32 mL, iz [NR], delta [QC], red [NB][QC] (delta
+  // shares). The column sums cred [NB][3 HD] take Vs's place once the chunks are done.
+  static constexpr size_t OFF_Q = 2 * 2 * NR * LD, OFF_T = OFF_Q + 2 * 3 * QC * LD, OFF_R = OFF_T + 2 * NR * LDT;
+  static constexpr size_t OFF_F = OFF_R + 4 * RS * 2 * QC * HD;
+  static constexpr size_t SMEM = OFF_F + 4 * (2 * NR + QC + NB * QC);
+  static_assert(4 * NB * 3 * HD <= 2 * NR * LD, "the column sums fit in Vs");
+};
+
+template <int HD, int NB>
+__global__ void __launch_bounds__(32 * NB, NB == 8 ? 2 : 1)
+attention_bwd_strip_bf16_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                                const float* __restrict__ stats, bf16* __restrict__ dqkv, float* __restrict__ part,
+                                int L, int H, float scale) {
+  using S = BwdStrip<HD, NB>;
+  constexpr int LD = S::LD, QC = S::QC, LDT = S::LDT, NT = Head<HD>::NT, KS = Head<HD>::KS, QB = QC / 16;
+  constexpr int C4 = HD / 4;  // float4 a row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + S::NR * LD;
+  bf16* Qs = reinterpret_cast<bf16*>(smem + S::OFF_Q);
+  bf16* Os = Qs + QC * LD;
+  bf16* Zs = Os + QC * LD;
+  bf16* DsT = reinterpret_cast<bf16*>(smem + S::OFF_T);
+  float* R = reinterpret_cast<float*>(smem + S::OFF_R);
+  float* mL = reinterpret_cast<float*>(smem + S::OFF_F);  // m * log2(e), +inf past L (p = 0 there)
+  float* iz = mL + S::NR;                                 // 1/z, 0 past L
+  float* dl = iz + S::NR;
+  float* red = dl + QC;
+  float* cred = reinterpret_cast<float*>(Vs);
+  const int g = blockIdx.x / H, h = blockIdx.x % H, D = H * HD;
+  const long long D3 = 3LL * D, MH = (long long)(gridDim.x / H) * L * H;
+  const float* base = qkv + (long long)g * L * D3 + h * HD;
+  const float* dbase = dattn + (long long)g * L * D + h * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q4 = lane & 3;
+  const int k0 = warp * 16, nkw = (L + 15) / 16;  // this warp's keys; warps (and query strips) with rows
+  const bool keys = warp < nkw, edge = k0 + 16 > L;  // warp-uniform
+  const float LOG2E = 1.4426950408889634f;
+
+  // the fp32 q and do of chunk ci (query rows ci QC .. + QC - 1, zero past L) into R's stage
+  // ci % RS, as one cp.async group (empty past the last chunk, so that every chunk waits alike)
+  auto fetch = [&](int ci) {
+    float* Rs = R + (ci % S::RS) * 2 * QC * HD;
+    for (int e = threadIdx.x; ci * QC < L && e < 2 * QC * C4; e += blockDim.x) {
+      const int u = e / (QC * C4), r = (e / C4) % QC, c = (e % C4) * 4, q = ci * QC + r;
+      const float* src = u == 0 ? base + q * D3 + c : dbase + (long long)q * D + c;
+      cp_async16(Rs + e * 4, q < L ? src : base, q < L);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int ci = 0; ci < S::RS; ++ci) fetch(ci);
+  const int r0 = threadIdx.x;  // its row's m and 1/z (NR <= blockDim.x), loaded beside K and V
+  const float* st = stats + ((long long)g * L + r0) * H + h;
+  const float m0 = r0 < L ? st[0] : 0.f, z0 = r0 < L ? st[MH] : 0.f;
+  stage_rows<HD, S::NR, 4, 2>({base + D, base + 2 * D}, {D3, D3}, L, [&](int u, int r, int c, float4 v) {
+    put_bf16x4((u == 0 ? Ks : Vs) + r * LD + c, v, 1.f);
+  });
+  if (r0 < S::NR) {
+    mL[r0] = r0 < L ? m0 * LOG2E : __int_as_float(0x7f800000);
+    iz[r0] = z0;
+  }
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int q0 = 0, ci = 0; q0 < L; q0 += QC, ++ci) {
+    cp_async_wait<S::RS - 1>();
+    __syncthreads();  // R holds the chunk; K, V, m, 1/z are staged; the previous chunk's tiles are read
+    const float* Rs = R + (ci % S::RS) * 2 * QC * HD;
+    for (int e = threadIdx.x; e < QC * C4; e += blockDim.x) {
+      const int r = e / C4, c = (e % C4) * 4;
+      put_bf16x4(Qs + r * LD + c, *reinterpret_cast<const float4*>(Rs + e * 4), scale);
+      const float4 d = *reinterpret_cast<const float4*>(Rs + (QC * C4 + e) * 4);
+      put_bf16x4(Os + r * LD + c, d, 1.f);
+      put_bf16x4(Zs + r * LD + c, d, iz[q0 + r]);
+    }
+    __syncthreads();
+    fetch(ci + S::RS);  // into the stage just read; lands while the next RS - 1 chunks compute
+    const float* mLc = mL + q0;
+    const float* izc = iz + q0;
+    // pT, dpT [key][query] of this warp's keys against the chunk's query blocks; element (j, e) of a
+    // block: key k0 + lane / 4 + 8 (e / 2), query qb 16 + 8 j + 2 (lane % 4) + e % 2 of the chunk
+    float p[QB][2][4], dp[S::REGS ? QB : 1][2][4];
+    unsigned vf[S::REGS ? KS : 1][4];
+    auto dp_of = [&](float (&d)[2][4], int qb) {  // dpT = cd(v) . cd(do)^T
+      if constexpr (S::REGS) prod16<HD>(d, vf, Os, qb * 16, lane);
+      else prod16_smem<HD>(d, Vs, k0, Os, qb * 16, lane);
+    };
+    if (keys) {
+      if constexpr (S::REGS) {
+        unsigned kf[KS][4];
+        afrag_smem<HD>(kf, Ks, k0, lane);
+#pragma unroll
+        for (int qb = 0; qb < QB; ++qb) prod16<HD>(p[qb], kf, Qs, qb * 16, lane);
+        afrag_smem<HD>(vf, Vs, k0, lane);
+      } else {
+#pragma unroll
+        for (int qb = 0; qb < QB; ++qb) prod16_smem<HD>(p[qb], Ks, k0, Qs, qb * 16, lane);
+      }
+#pragma unroll
+      for (int qb = 0; qb < QB; ++qb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 m2 = *reinterpret_cast<const float2*>(mLc + qb * 16 + j * 8 + 2 * q4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = ex2_approx(fmaf(p[qb][j][e], LOG2E, -(e & 1 ? m2.y : m2.x)));
+            if (edge && k0 + (lane >> 2) + 8 * (e >> 1) >= L) v = 0.f;
+            p[qb][j][e] = v;
+          }
+        }
+      // this strip's share of each query's rowsum(dp * p): its 16 keys, over the rows of the tile
+#pragma unroll
+      for (int qb = 0; qb < QB; ++qb) {
+        float (&d)[2][4] = dp[S::REGS ? qb : 0];
+        dp_of(d, qb);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = d[j][e] * p[qb][j][e] + d[j][2 + e] * p[qb][j][2 + e];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
+            if (lane < 4) red[warp * QC + qb * 16 + j * 8 + 2 * lane + e] = v;
+          }
+      }
+    }
+    __syncthreads();
+    // delta of each query: the strips' shares added in a fixed order, four threads a query
+    for (int t = threadIdx.x; t < 4 * QC; t += blockDim.x) {
+      const int col = t >> 2;
+      float d = 0.f;
+      for (int w = t & 3; w < nkw; w += 4) d += red[w * QC + col];
+      d += __shfl_xor_sync(FULL, d, 1);
+      d += __shfl_xor_sync(FULL, d, 2);
+      if ((t & 3) == 0) dl[col] = d * izc[col];
+    }
+    __syncthreads();
+    if (keys) {
+#pragma unroll
+      for (int qb = 0; qb < QB; ++qb) {
+        float (&ds)[2][4] = dp[S::REGS ? qb : 0];
+        if constexpr (!S::REGS) dp_of(ds, qb);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + qb * 16 + j * 8 + 2 * q4);
+          const float2 z2 = *reinterpret_cast<const float2*>(izc + qb * 16 + j * 8 + 2 * q4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[j][e] = p[qb][j][e] * (ds[j][e] - (e & 1 ? d2.y : d2.x)) * (e & 1 ? z2.y : z2.x);
+        }
+        const float (&pp)[2][4] = p[qb];
+        const unsigned pa[4] = {pack_bf16(pp[0][0], pp[0][1]), pack_bf16(pp[0][2], pp[0][3]),
+                                pack_bf16(pp[1][0], pp[1][1]), pack_bf16(pp[1][2], pp[1][3])};
+        const unsigned sa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                                pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+        mma_rows<HD>(dv, pa, Zs, qb * 16, lane);
+        mma_rows<HD>(dk, sa, Qs, qb * 16, lane);
+        bf16* t = DsT + (k0 + (lane >> 2)) * LDT + q0 + qb * 16 + 2 * q4;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *reinterpret_cast<unsigned*>(t + j * 8) = sa[2 * j];
+          *reinterpret_cast<unsigned*>(t + 8 * LDT + j * 8) = sa[2 * j + 1];
+        }
+      }
+    }
+  }
+  __syncthreads();  // DsT is whole; Vs is free for the column sums
+
+  // cd(dk), cd(dv) of key strip `warp`, then cd(dq) of query strip `warp` (dk and dv are
+  // written before dq accumulates: fewer registers), and the fp32 column sums of all three
+  // over the warp's rows (cred, added in warp order below)
+  if (keys) {
+    const int ra = k0 + (lane >> 2), rb = ra + 8;
+    auto out = [&](int t, const float (&x)[NT][4], float mul) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = mul * x[j][e];
+        bf16* o = dqkv + ((long long)g * L + ra) * D3 + t * D + h * HD + j * 8 + 2 * q4;
+        if (ra < L) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+        if (rb < L) *reinterpret_cast<__nv_bfloat162*>(o + 8 * D3) = __floats2bfloat162_rn(v[2], v[3]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float c = (ra < L ? v[e] : 0.f) + (rb < L ? v[2 + e] : 0.f);
+#pragma unroll
+          for (int o2 = 4; o2 < 32; o2 <<= 1) c += __shfl_xor_sync(FULL, c, o2);
+          if (lane < 4) cred[warp * 3 * HD + t * HD + j * 8 + 2 * lane + e] = c;
+        }
+      }
+    };
+    out(1, dk, 1.f);
+    out(2, dv, 1.f);
+    float dq[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+    const int ar = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) * 8;
+    for (int cb = 0; cb < nkw; ++cb) {
+      unsigned a[4];  // cd(ds) [queries k0 .. + 15][keys cb 16 .. + 15]: DsT transposed
+      ldmatrix_x4_trans(a, DsT + (cb * 16 + ar) * LDT + k0 + ac);
+      mma_rows<HD>(dq, a, Ks, cb * 16, lane);
+    }
+    out(0, dq, scale);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 3 * HD; c += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < nkw; ++w) v += cred[w * 3 * HD + c];
+    part[(long long)g * D3 + (c / HD) * D + h * HD + c % HD] = v;
+  }
+}
+
 // fp32 (the parity path), CUDA-core FMAs. dq: 8 warps x 8 query rows, lane j
 // takes key c + j and owns output columns j, j + 32. K (HD + 1-word rows)
 // and V of KT keys in shared memory.
@@ -804,18 +1087,64 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ qkv, const float* __rest
   }
 }
 
+// One launch of the bf16 attention backward at L: the strip kernel (its
+// shared-memory limit raised once; NB key blocks of 16) for L <= 256, else
+// the two kernels of 64-row tiles (reported by the dq kernel's attributes).
+struct BwdPlan {
+  const void* fn;
+  int nb, threads, rows;
+  size_t smem;
+  cudaError_t err;
+};
+
+template <int HD, int NB>
+BwdPlan bwd_strip_plan() {
+  using S = BwdStrip<HD, NB>;
+  static const cudaError_t e = cudaFuncSetAttribute(attention_bwd_strip_bf16_kernel<HD, NB>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  return {reinterpret_cast<const void*>(attention_bwd_strip_bf16_kernel<HD, NB>), NB, 32 * NB, 0, S::SMEM, e};
+}
+
+template <int HD>
+BwdPlan plan_attention_bwd_bf16(int L) {
+  BwdPlan p;
+  if (L <= 128) p = bwd_strip_plan<HD, 8>();
+  else if (L <= STRIP_MAX_L) p = bwd_strip_plan<HD, 16>();
+  else {
+    static const cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<HD>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                      (int)(sizeof(bf16) * 2 * KT * Head<HD>::LD));
+    return {reinterpret_cast<const void*>(attention_bwd_dq_bf16_kernel<HD>), 0, 128, RT,
+            sizeof(bf16) * 2 * KT * Head<HD>::LD, e};
+  }
+  p.rows = L;
+  return p;
+}
+
+// rows of column partials a launch writes: one per (sequence, 64-row tile), or per sequence on the strip route
+inline int bwd_partial_rows(int bf, int G, int L) { return bf && L <= STRIP_MAX_L ? G : G * ((L + RT - 1) / RT); }
+
 template <int HD>
 cudaError_t launch_attention_bwd(int bf, const float* q, const float* da, const float* sm, float* dl, void* dqkv,
                                  float* part, int G, int L, int H, float scale, cudaStream_t st) {
+  if (L < 1) return cudaErrorInvalidValue;
   const int ntile = (L + RT - 1) / RT;
   const unsigned blocks = (unsigned)(G * H * ntile);
   cudaError_t e;
-  if (bf) {
-    static bool ready_q = false, ready_k = false;
+  if (bf && L <= STRIP_MAX_L) {
+    const BwdPlan p = plan_attention_bwd_bf16<HD>(L);
+    if (p.err != cudaSuccess) return p.err;
+    bf16* out = static_cast<bf16*>(dqkv);
+    if (p.nb == 8)
+      attention_bwd_strip_bf16_kernel<HD, 8><<<G * H, p.threads, p.smem, st>>>(q, da, sm, out, part, L, H, scale);
+    else
+      attention_bwd_strip_bf16_kernel<HD, 16><<<G * H, p.threads, p.smem, st>>>(q, da, sm, out, part, L, H, scale);
+  } else if (bf) {
+    if (!dl) return cudaErrorInvalidValue;
+    static bool ready_k = false;
+    const BwdPlan p = plan_attention_bwd_bf16<HD>(L);
+    if (p.err != cudaSuccess) return p.err;
     const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    if ((e = allow_smem(attention_bwd_dq_bf16_kernel<HD>, sizeof(bf16) * 2 * KT * Head<HD>::LD, ready_q)) !=
-        cudaSuccess)
-      return e;
     attention_bwd_dq_bf16_kernel<HD><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * Head<HD>::LD, st>>>(
         q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale, kt_rows);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -823,6 +1152,7 @@ cudaError_t launch_attention_bwd(int bf, const float* q, const float* da, const 
     attention_bwd_dkdv_bf16_kernel<HD><<<blocks, 128, dkdv_bf16_smem<HD>(), st>>>(
         q, da, sm, dl, static_cast<bf16*>(dqkv), part, L, H, scale);
   } else {
+    if (!dl) return cudaErrorInvalidValue;
     static bool ready_q = false, ready_k = false;
     if ((e = allow_smem(attention_bwd_dq_f32_kernel<HD>, dq_f32_smem<HD>(), ready_q)) != cudaSuccess) return e;
     attention_bwd_dq_f32_kernel<HD><<<blocks, 256, dq_f32_smem<HD>(), st>>>(q, da, sm, dl, static_cast<float*>(dqkv),
@@ -835,23 +1165,50 @@ cudaError_t launch_attention_bwd(int bf, const float* q, const float* da, const 
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t attention_bwd_info(int L, int* info) {
+  if (L < 1) return cudaErrorInvalidValue;
+  const BwdPlan p = plan_attention_bwd_bf16<HD>(L);
+  if (p.err != cudaSuccess) return p.err;
+  info[0] = p.nb;
+  info[1] = p.threads;
+  info[2] = p.rows;
+  info[3] = (int)p.smem;
+  return kernel_info(p.fn, p.threads, p.smem, info + 4);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dW[K, N] (fp32) = a[M, K]^T . dy[M, N] (bf16 when bf16 else fp32), summed
 // from `slabs` partials of `slab` rows each (partials: [slabs, K, N] fp32).
+// bf16 needs K % 8 == N % 8 == 0, 16-byte aligned a and dy and slab % 64 ==
+// 0, and takes 128 x 256 output tiles for N > 128, else 128 x 128
+// (ops/fused_train.py::wgrad_plan sizes the slabs for them).
 int cse_weight_grad(const void* a, const void* dy, void* partials, void* dw, int bf16_operands,
                     long long M, int K, int N, int slab, int slabs, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
+  if (M < 1 || K < 1 || N < 1 || slab < 1 || slabs < 1) return (int)cudaErrorInvalidValue;
   if (bf16_operands) {
-    static bool ready = false;
-    const cudaError_t e = allow_smem(wgrad_bf16_kernel, WGRAD_BF16_SMEM, ready);
-    if (e != cudaSuccess) return (int)e;
-    const int tiles = ((K + WM - 1) / WM) * ((N + WN - 1) / WN);
-    wgrad_bf16_kernel<<<tiles * slabs, 256, WGRAD_BF16_SMEM, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(dy), part, (int)M, K, N, slab);
+    if (K % 8 || N % 8 || slab % wg::BR) return (int)cudaErrorInvalidValue;
+    const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    CUtensorMap ta, tb;
+    if (!tensor_map(&ta, BF, a, 2, K, M, 64, wg::BR) || !tensor_map(&tb, BF, dy, 2, N, M, 64, wg::BR))
+      return (int)cudaErrorInvalidValue;
+    const int NG = N > 128 ? 2 : 1;
+    const int units = ((K + wg::BT - 1) / wg::BT) * ((N + 128 * NG - 1) / (128 * NG)) * slabs;
+    const unsigned blocks = (unsigned)min(units, sm_count());
+    static bool ready1 = false, ready2 = false;
+    cudaError_t e;
+    if (NG == 2) {
+      if ((e = allow_smem(wgrad_bf16_kernel<2>, wg::smem<2>(), ready2)) != cudaSuccess) return (int)e;
+      wgrad_bf16_kernel<2><<<blocks, WS_THREADS, wg::smem<2>(), st>>>(ta, tb, part, (int)M, K, N, slab, slabs);
+    } else {
+      if ((e = allow_smem(wgrad_bf16_kernel<1>, wg::smem<1>(), ready1)) != cudaSuccess) return (int)e;
+      wgrad_bf16_kernel<1><<<blocks, WS_THREADS, wg::smem<1>(), st>>>(ta, tb, part, (int)M, K, N, slab, slabs);
+    }
   } else {
     const int tiles = ((K + 63) / 64) * ((N + 63) / 64);
     wgrad_f32_kernel<<<tiles * slabs, 256, 0, st>>>(static_cast<const float*>(a), static_cast<const float*>(dy),
@@ -890,9 +1247,10 @@ int cse_layer_norm_bwd(const void* dh, const void* x, const void* scale, const v
 }
 
 // Attention backward, see (c). dqkv: [G*L, 3*H*hd] (bf16 when bf16 else
-// fp32), hd in {8, 16, 32, 64}; delta: [G*L, H] fp32 scratch; partials:
-// [G * ceil(L / 64), 3*H*hd]; dbias: [3*H*hd] fp32, the column sums of the
-// fp32 dq | dk | dv.
+// fp32), hd in {8, 16, 32, 64}; delta: [G*L, H] fp32 scratch of the
+// two-kernel routes (null on the bf16 strip route, L <= 256); partials:
+// [G, 3*H*hd] on the strip route, else [G * ceil(L / 64), 3*H*hd]; dbias:
+// [3*H*hd] fp32, the column sums of the fp32 dq | dk | dv.
 int cse_attention_bwd(const void* qkv, const void* dattn, const void* stats, void* delta, void* dqkv,
                       void* partials, void* dbias, int bf16_out, int G, int L, int H, int hd, float scale,
                       void* stream) {
@@ -906,7 +1264,16 @@ int cse_attention_bwd(const void* qkv, const void* dattn, const void* stats, voi
     return launch_attention_bwd<decltype(w)::value>(bf16_out, q, da, sm, dl, dqkv, part, G, L, H, scale, st);
   });
   if (e != (int)cudaSuccess) return e;
-  return (int)launch_sum_rows(part, static_cast<float*>(dbias), G * ((L + RT - 1) / RT), 3LL * H * hd, st);
+  return (int)launch_sum_rows(part, static_cast<float*>(dbias), bwd_partial_rows(bf16_out, G, L), 3LL * H * hd, st);
+}
+
+// info[7] of the bf16 attention backward cse_attention_bwd launches for (L,
+// hd), in cse_attention_info's order: key blocks of the strip (0: the two
+// kernels of 64-row tiles), threads, query rows a block, dynamic shared
+// bytes, registers a thread, local-memory bytes a thread, resident blocks per
+// SM (of the strip kernel, or of the dq kernel).
+int cse_attention_bwd_info(int L, int hd, int* info) {
+  return by_head_width(HeadWidths{}, hd, [&](auto w) { return attention_bwd_info<decltype(w)::value>(L, info); });
 }
 
 }  // extern "C"

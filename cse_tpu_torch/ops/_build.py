@@ -41,6 +41,7 @@ SIGNATURES = {
     "cse_weight_grad": (P, P, P, P, I, LL, I, I, I, I, P),
     "cse_layer_norm_bwd": (P, P, P, P, P, P, P, P, I, I, LL, I, F, I, P),
     "cse_attention_bwd": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
+    "cse_attention_bwd_info": (I, I, P),
     # attention.cu
     "cse_flash_fwd": (P, P, P, P, P, I, I, I, I, F, P),
     "cse_flash_fwd_info": (I, I, P),

@@ -20,13 +20,16 @@ On Hopper (``csrc/fused_stack.cu`` and ``csrc/fused_train.cu``):
   ``launches``; a call may launch a kernel and the fixed-order reduction of
   its per-block partials):
 
-  - :func:`weight_grad`: dW = A^T dY over all rows (``cse_weight_grad``);
+  - :func:`weight_grad`: dW = A^T dY over all rows (``cse_weight_grad``: bf16
+    on the wgmma + TMA loop of the serving GEMM, slabs of rows sized by
+    :func:`wgrad_plan`);
   - :func:`linear_relu_grad`: dpre = where(hrelu > 0, dY W^T, 0) in cd and its
     fp32 column sums (``cse_linear_relu_grad``, the serving stack's GEMM);
   - :func:`layer_norm_backward`: dx of a LayerNorm added into the residual
     gradient, with dscale, dbias and two bias gradients (``cse_layer_norm_bwd``);
   - :func:`attention_backward`: dq | dk | dv in cd and their fp32 column sums
-    (``cse_attention_bwd``);
+    (``cse_attention_bwd``: bf16 at L <= 256 one block per sequence and head
+    in one pass, else two kernels of 64-row tiles);
   - the bias-free dX GEMMs dY W^T go through :func:`fused_stack.linear`.
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``): the CPU
@@ -44,6 +47,7 @@ unrounded fp32 parameters (``:432-437``).
 
 from __future__ import annotations
 
+import functools
 import math
 import types
 
@@ -56,7 +60,9 @@ from cse_tpu_torch.ops.fused_stack import LN_EPS, wide
 W_NAMES = ("qkv_w", "qkv_b", "out_w", "out_b", "ln1_s", "ln1_b",
            "ln2_s", "ln2_b", "f1_w", "f1_b", "f2_w", "f2_b")
 MAT_NAMES = ("qkv_w", "out_w", "f1_w", "f2_w")
-WGRAD_BLOCKS = 528  # weight-gradient blocks to aim for: 4 per SM of an H100
+WGRAD_BLOCKS = 528  # fp32 weight-gradient blocks to aim for: 4 per SM of an H100
+WGRAD_UNITS_PER_SM = 2  # bf16: (tile, slab) units a block of the persistent grid takes
+BWD_STRIP_MAX_L = 256  # csrc/fused_train.cu's STRIP_MAX_L: the bf16 attention backward's one-pass route
 LNB_BLOCKS = 1056  # LayerNorm-backward blocks (8 per SM), each grid-striding over rows
 
 
@@ -149,6 +155,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def wgrad_plan(M: int, K: int, N: int, bf16: bool, sms: int = 132) -> tuple[int, int]:
+    """``(slab, slabs)``: the rows of each slab of ``cse_weight_grad`` and
+    their number (``slabs * slab >= M > (slabs - 1) * slab``).
+
+    bf16: the kernel's output tiles are 128 x 256 for N > 128, else 128 x 128;
+    a work unit is (tile, slab), and the slabs are as many as make about
+    :data:`WGRAD_UNITS_PER_SM` units for each of the ``sms`` blocks of the
+    persistent grid, each a multiple of 64 rows (one TMA chunk). fp32: 64 x 64
+    tiles, one block per (tile, slab), about :data:`WGRAD_BLOCKS` blocks."""
+    if bf16:  # the tile rule of csrc/fused_train.cu::cse_weight_grad
+        tiles = -(-K // 128) * -(-N // (256 if N > 128 else 128))
+        slab = -(-M // -(-sms * WGRAD_UNITS_PER_SM // tiles) // 64) * 64
+    else:
+        tiles = -(-K // 64) * -(-N // 64)
+        slab = -(-M // max(1, -(-WGRAD_BLOCKS // tiles)) // 32) * 32
+    return slab, max(1, -(-M // slab))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def weight_grad(a, dy):
     """dW ``[K, N]`` fp32 = ``a[M, K]^T @ dy[M, N]``; kernel (a) of
     fused_train.cu on CUDA: slab partials, then their fixed-order sum."""
@@ -164,10 +193,7 @@ def weight_grad(a, dy):
     bf = a.dtype == torch.bfloat16
     if bf and (K % 8 or N % 8 or a.data_ptr() % 16 or dy.data_ptr() % 16):
         raise ValueError("bf16 weight_grad kernel needs K % 8 == N % 8 == 0 and 16-byte aligned operands")
-    tile = 128 if bf else 64
-    tiles = -(-K // tile) * -(-N // tile)
-    slab = -(-M // max(1, -(-WGRAD_BLOCKS // tiles)) // 32) * 32
-    slabs = max(1, -(-M // slab))
+    slab, slabs = wgrad_plan(M, K, N, bf, _sm_count(a.device.index or 0))
     partials = torch.empty(slabs, K, N, dtype=torch.float32, device=a.device)
     dw = torch.empty(K, N, dtype=torch.float32, device=a.device)
     err = _build.library().cse_weight_grad(
@@ -237,7 +263,8 @@ def layer_norm_backward(dh, x, scale, g_in, out32=None, cd=None):
 
 def attention_backward(qkv, dattn, stats, seq_len, nhead, cd):
     """See :func:`attention_backward_plain`; kernels (c) of fused_train.cu on
-    CUDA (dq with delta, then dk/dv, then the column sums)."""
+    CUDA: bf16 at L <= 256 one block per (sequence, head) in one pass, else
+    dq with delta, then dk/dv; then the column sums."""
     if not fs._route(qkv, dattn, stats):
         return attention_backward_plain(qkv, dattn, stats, seq_len, nhead, cd)
     if cd not in fs._KERNEL_DTYPES:
@@ -255,18 +282,27 @@ def attention_backward(qkv, dattn, stats, seq_len, nhead, cd):
     if qkv.data_ptr() % 16 or dattn.data_ptr() % 16:
         raise ValueError("attention backward kernel needs 16-byte aligned qkv and dattn")
     G = M // seq_len
-    ntile = -(-seq_len // 64)
+    strip = cd == torch.bfloat16 and seq_len <= BWD_STRIP_MAX_L
     dqkv = torch.empty(M, D3, dtype=cd, device=qkv.device)
-    delta = torch.empty(M, nhead, dtype=torch.float32, device=qkv.device)
-    partials = torch.empty(G * ntile, D3, dtype=torch.float32, device=qkv.device)
+    delta = None if strip else torch.empty(M, nhead, dtype=torch.float32, device=qkv.device)
+    rows = G if strip else G * -(-seq_len // 64)  # one partial row per sequence, or per 64-row tile
+    partials = torch.empty(rows, D3, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty(D3, dtype=torch.float32, device=qkv.device)
     err = _build.library().cse_attention_bwd(
-        qkv.data_ptr(), dattn.data_ptr(), stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+        qkv.data_ptr(), dattn.data_ptr(), stats.data_ptr(), _ptr(delta), dqkv.data_ptr(),
         partials.data_ptr(), dbias.data_ptr(), int(cd == torch.bfloat16), G, seq_len, nhead, hd,
         1.0 / math.sqrt(hd), fs._stream())
     fs._check_launch("attention_backward", err)
     attention_backward.launches += 1
     return dqkv, dbias
+
+
+def attention_backward_info(seq_len: int, hd: int = 32) -> dict:
+    """How :func:`attention_backward` launches the bf16 backward at this L and
+    head width: see :func:`cse_tpu_torch.ops._build.launch_info` ("strip" for
+    L <= 256, "passes" for the two kernels beyond, described by the dq one)."""
+    fs.check_head_width(hd, "attention backward")
+    return _build.launch_info("cse_attention_bwd_info", seq_len, hd)
 
 
 KERNELS = {"weight_grad": weight_grad, "linear_relu_grad": linear_relu_grad,

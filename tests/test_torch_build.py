@@ -19,7 +19,7 @@ def test_every_source_exists_and_every_entry_is_defined():
     assert defined == set(_build.SIGNATURES)
 
 
-@pytest.mark.parametrize("src", ["attention.cu", "kernel_parts.cu", "fused_stack.cu"])
+@pytest.mark.parametrize("src", ["attention.cu", "kernel_parts.cu", "fused_stack.cu", "fused_train.cu"])
 def test_route_codes_match_the_sources(src, monkeypatch):
     """Each bf16 attention launcher routes at L = 256, as the wrappers' docs
     say, and its ``*_info`` entry writes the fields ``launch_info`` reads:

@@ -171,27 +171,9 @@ def test_attention_stats_match_plain(gen, cd, seq_len):
     _close(st, sp, torch.float32)
 
 
-@pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("seq_len", [1, 7, 127, 251, 300, 513])
-def test_attention_backward_matches_plain(gen, cd, seq_len):
-    """Any length: one tile of 64 rows, several, and several key tiles."""
-    M = 5 * seq_len
-    qkv = 2 * torch.randn(M, 768, device="cuda", generator=gen)
-    stats = torch.empty(2, M, 8, device="cuda")
-    fs.attention_plain(qkv, seq_len, 8, cd, stats)
-    dattn = torch.randn(M, 256, device="cuda", generator=gen)
-    got, got_b = ft.attention_backward(qkv, dattn, stats, seq_len, 8, cd)
-    want, want_b = ft.attention_backward_plain(qkv, dattn, stats, seq_len, 8, cd)
-    assert got.dtype == cd and got.shape == (M, 768)
-    _close(got, want, cd)
-    _close(got_b, want_b, cd)
-
-
-@pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("seq_len", [7, 127, 251, 300])
-@pytest.mark.parametrize("hd", [8, 16, 64])
-def test_attention_backward_head_widths_match_plain(gen, cd, seq_len, hd):
-    H = 4
+def _attention_backward_case(gen, cd, seq_len, H, hd):
+    """The kernel's dqkv and bias sums against the plain version's, and a
+    repeat's bits against the first call's (fixed-order sums)."""
     M = 5 * seq_len
     qkv = 2 * torch.randn(M, 3 * H * hd, device="cuda", generator=gen)
     stats = torch.empty(2, M, H, device="cuda")
@@ -199,12 +181,50 @@ def test_attention_backward_head_widths_match_plain(gen, cd, seq_len, hd):
     dattn = torch.randn(M, H * hd, device="cuda", generator=gen)
     got, got_b = ft.attention_backward(qkv, dattn, stats, seq_len, H, cd)
     want, want_b = ft.attention_backward_plain(qkv, dattn, stats, seq_len, H, cd)
+    assert got.dtype == cd and got.shape == (M, 3 * H * hd)
     _close(got, want, cd)
     _close(got_b, want_b, cd)
+    again, again_b = ft.attention_backward(qkv, dattn, stats, seq_len, H, cd)
+    assert torch.equal(again, got) and torch.equal(again_b, got_b)
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("mkn", [(1000, 256, 768), (777, 1024, 256), (5000, 256, 256), (33, 40, 24)])
+@pytest.mark.parametrize("seq_len", [1, 7, 127, 251, 300, 513])
+def test_attention_backward_matches_plain(gen, cd, seq_len):
+    """Any length: the bf16 strip (L <= 256), one tile of 64 rows, several,
+    and several key tiles."""
+    _attention_backward_case(gen, cd, seq_len, 8, 32)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("seq_len", [1, 7, 50, 127, 128, 251, 256, 257, 300, 513])
+@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+def test_attention_backward_head_widths_match_plain(gen, cd, seq_len, hd):
+    """bf16: the strip route (L <= 256; 8 or 16 key blocks) and the two-kernel
+    route (257, 300, 513); fp32 on its own kernels; every head width."""
+    _attention_backward_case(gen, cd, seq_len, 4, hd)
+
+
+@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+@pytest.mark.parametrize("seq_len", [1, 127, 128, 251, 256])
+def test_attention_backward_strip_instantiations_spill_nothing(gen, seq_len, hd):
+    """cse_attention_bwd runs the one-pass strip for bf16 at L <= 256 with no
+    local memory; the two-kernel route beyond."""
+    info = ft.attention_backward_info(seq_len, hd)
+    assert info["route"] == "strip" and info["key_blocks"] == (8 if seq_len <= 128 else 16)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1 and info["rows_per_block"] == seq_len
+    assert ft.attention_backward_info(257, hd)["route"] == "passes"
+
+
+# the main path's four (K, N) at M = 40000, the tiny model's (K 32 and 64),
+# ragged K and N below a tile, several slabs, and tiles of 128 and 256 columns
+WGRAD_SHAPES = [(1000, 256, 768), (777, 1024, 256), (5000, 256, 256), (33, 40, 24), (40000, 256, 768),
+                (40000, 256, 256), (40000, 256, 1024), (40000, 1024, 256), (3000, 32, 96), (3000, 32, 32),
+                (3000, 32, 64), (3000, 64, 32)]
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("mkn", WGRAD_SHAPES)
 def test_weight_grad_matches_plain_and_repeats(gen, cd, mkn):
     m, k, n = mkn
     a = torch.randn(m, k, device="cuda", generator=gen).to(cd)
