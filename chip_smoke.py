@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of cse_tpu_torch/csrc from the checkout; the
-     ptxas report of the two wgmma kernels (the GEMM, the weight gradient):
-     no spills, no serialised wgmma;
+     ptxas report of the three wgmma kernels (the GEMM, the weight gradient,
+     the int8 GEMM): no spills, no serialised wgmma;
   3. hold each kernel (LayerNorm, GEMM with its three epilogues, attention)
      and the whole fused stack against its plain PyTorch version at the
      serving shapes (intra G=2016 L=251, inter G=4000 L=127) in fp32 and bf16;
@@ -43,22 +43,26 @@ Phases (any failure exits non-zero and prints no result line):
      have no local memory); the times before this slice's redesigns;
   8. the flash path (use_flash_attention=True, remat='layer'): (a) the flash
      forward and backward kernels against their plain versions at intra,
-     inter, L=300 and L=600, fp32 and bf16; (b) fp32 loss and every gradient
+     inter (the backward's one-pass strip), L=300 and L=600 (its three
+     kernels), fp32 and bf16, the bf16 backward also for the same bits on a
+     repeat; (b) fp32 loss and every gradient
      of make_loss_fn(fused=False), full width, B=2, against the same model
      without flash; (c) make_train_step(fused=False), bf16, B=16: launches
      against the formula, median step time, mixtures/s, peak memory, one
      profiled step; make_eval_step(fused=False): forward time, output against
      the fused serving engine on the same weights; (d) kernel times beside
      the plain versions, SDPA (the backward beside PyTorch's flash backward
-     alone and SDPA forward + backward) and the bounds, the forward's time
-     before its redesign, and the forward launch's route, registers, local memory and
-     resident blocks per SM (every L <= 256 instantiation must have no local
-     memory);
+     alone, on contiguous [G, H, L, hd] tensors and on [G, L, H, hd] ones
+     seen as [G, H, L, hd], and SDPA forward + backward) and the bounds, both
+     kernels' times before their redesigns, and both launches' route,
+     registers, local memory and resident blocks per SM (every L <= 256
+     instantiation of either must have no local memory);
   9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
      epilogues and the whole w8a8 stack against their plain versions; (b)
      ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
      Sepformer: launches, median forward time, realtime factor; (c) kernel
-     times beside the plain versions, torch._int_mm or SDPA, and the bounds;
+     times beside the plain versions, torch._int_mm or SDPA, and the bounds,
+     the int8 GEMM's time before its redesign;
  10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
      every mode (bf16 also on the multi-pass route, at L=300) and the whole
      stripped forward in all 8 modes against the plain
@@ -85,8 +89,8 @@ Phases (any failure exits non-zero and prints no result line):
      its backward, flash forward and backward, the GEMM's epilogues at K 32,
      64, 96, the ReLU-gradient GEMM, the weight gradients) against its plain
      version at the model's own shapes, including inter L 1282 (the two-pass
-     route), the attention backward and the weight gradients also for the
-     same bits on a repeat; (b) its trainer at 16 s in fp32 on the default
+     route), the attention backward, the flash backward and the weight
+     gradients also for the same bits on a repeat; (b) its trainer at 16 s in fp32 on the default
      fused step, layer by layer with --flash_attention --remat layer, and
      layer by layer without either (the reference): losses before the first update and
      after each of three (lr 1e-3), held against the reference's; (c) both
@@ -184,11 +188,18 @@ ATTENTION_EARLIER_MS = {"attention": (1.789, 1.110), "attention[w8a8]": (1.658, 
 # the weight gradient and the attention backward before their redesign (PERF.md section 6, rows
 # 4a and 4e; NVIDIA H100 80GB HBM3, 700 W)
 TRAIN_EARLIER_MS = {"weight_grad": (2.614, 2.618), "attention_backward": (6.161, 3.789)}
+# flash_bwd's three kernels and the mma.sync int8 GEMM before their redesign (PERF.md section 6,
+# rows 6 and 2b; NVIDIA H100 80GB HBM3, 700 W)
+FLASH_BWD_EARLIER_MS = {"intra": 4.984, "inter": 2.797}
+LINEAR_W8A8_EARLIER_MS = {"intra": 3.276, "inter": 3.316}
 # the kernels' symbols in the kernels line
 GEMM_SYMBOL = "linear_bf16_kernel<EPI> (wgmma + TMA, persistent, warp-specialised)"
 ATTENTION_SYMBOL = ("attention_strip_bf16_kernel<{}, 32, 16 or 8> (L <= 256); "
                     "attention_bf16_kernel<{}, 32> (L > 256)")
 WGRAD_SYMBOL = "wgrad_bf16_kernel<NG> (wgmma + TMA, persistent, warp-specialised) + sum_rows_kernel"
+FLASH_BWD_SYMBOL = ("flash_bwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); flash_delta_kernel + "
+                    "flash_bwd_dq_bf16_kernel<32> + flash_bwd_dkdv_bf16_kernel<32> (L > 256)")
+W8A8_SYMBOL = "linear_w8a8_kernel<EPI, NG> (wgmma s8 + TMA, persistent, warp-specialised)"
 ATTENTION_BWD_SYMBOL = ("attention_bwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); attention_bwd_dq_bf16_kernel<32> + "
                         "attention_bwd_dkdv_bf16_kernel<32> (L > 256); + sum_rows_kernel")
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
@@ -312,6 +323,14 @@ def attention_backward_launches():
     from cse_tpu_torch.ops import fused_train as ft
 
     return {f"L={L} hd={h}": ft.attention_backward_info(L, h)["local_bytes"] for L in (128, 256) for h in fs.HEAD_WIDTHS}
+
+
+def flash_backward_launches():
+    """The bf16 flash backward's strip launch at every instantiation (L 128,
+    256) and head width: local-memory bytes a thread (must be 0)."""
+    from cse_tpu_torch.ops import attention as at
+
+    return {f"L={L} dh={dh}": at.flash_bwd_info(L, dh)["local_bytes"] for L in (128, 256) for dh in at.HEAD_WIDTHS}
 
 
 def ptxas_of(report: str, kernel: str) -> dict:
@@ -831,8 +850,12 @@ def phase8_kernels(gen, failures, H=8, hd=32):
             err["flash_fwd"] = max(err["flash_fwd"], e)
             del o, lse
             got, want = at.flash_bwd(q, k, v, po, plse, do), at.flash_bwd_plain(q, k, v, po, plse, do)
+            route = at.flash_bwd_info(L, hd)["route"] if cd == torch.bfloat16 else "fp32"
             for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                err["flash_bwd"] = max(err["flash_bwd"], check(f"flash_bwd {tag} {name} {gname}", g, w, cd, failures))
+                err["flash_bwd"] = max(err["flash_bwd"], check(f"flash_bwd {tag} {name} ({route}) {gname}", g, w, cd,
+                                                               failures))
+            if cd == torch.bfloat16:
+                same_bits(f"flash_bwd {tag} {name}", got, at.flash_bwd(q, k, v, po, plse, do), failures)
             del q, k, v, do, po, plse, got, want
             torch.cuda.empty_cache()
     if failures:
@@ -1008,6 +1031,8 @@ def phase8_times(gen, card, H=8, hd=32):
                 out = F.scaled_dot_product_attention(qg, kg, vg)
                 torch.autograd.grad(out, (qg, kg, vg), do)
 
+        # PyTorch's flash kernels keep [G, L, H, hd] in memory: the same values laid out so
+        ql, kl, vl, dol = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do))
         t = {
             "flash_fwd": dict(ms=time_ms(lambda: at.flash_fwd(q, k, v)),
                               plain_ms=time_ms(lambda: at.flash_fwd_plain(q, k, v), reps=3),
@@ -1017,23 +1042,35 @@ def phase8_times(gen, card, H=8, hd=32):
             "flash_bwd": dict(ms=time_ms(lambda: at.flash_bwd(q, k, v, o, lse, do)),
                               plain_ms=time_ms(lambda: at.flash_bwd_plain(q, k, v, o, lse, do), reps=3),
                               library_ms=sdpa_backward_ms(q, k, v, do), library_fwd_bwd_ms=time_ms(sdpa_fwd_bwd),
+                              library_glhd_ms=sdpa_backward_ms(ql, kl, vl, dol), launch=at.flash_bwd_info(L, hd),
                               **bound_of(8 * X + G * H * L * 4, 10 * G * H * L * L * hd)),
         }
-        del q, k, v, do, o, lse, qg, kg, vg
+        del q, k, v, do, o, lse, qg, kg, vg, ql, kl, vl, dol
         torch.cuda.empty_cache()
         times[name] = t
         for kname, x in t.items():
             log(f"  {name} G={G} L={L} {kname:<10s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
                 f"SDPA {fmt_ms(x['library_ms'])}  bound {x['bound_ms']:.4f} ms ({x['bound_by']})"
                 + (f"  SDPA forward + backward {x['library_fwd_bwd_ms']:.4f} ms" if "library_fwd_bwd_ms" in x else ""))
+        log(f"  {name} flash_bwd PyTorch flash backward alone on [G, L, H, hd] in memory "
+            f"{fmt_ms(t['flash_bwd']['library_glhd_ms'])} (on contiguous [G, H, L, hd]: "
+            f"{fmt_ms(t['flash_bwd']['library_ms'])})")
         log(f"  {name} flash_fwd {t['flash_fwd']['ms']:.4f} ms; before the redesign "
             f"{FLASH_FWD_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        log(f"  {name} flash_bwd {t['flash_bwd']['ms']:.4f} ms; before the redesign "
+            f"{FLASH_BWD_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         show_info(f"{name} flash_fwd launch", t["flash_fwd"]["launch"])
-    spills = {f"L={L} dh={dh}": at.flash_fwd_info(L, dh)["local_bytes"] for L in (128, 256) for dh in (16, 32, 48, 64)}
-    log(f"  strip instantiations, local-memory bytes a thread: {spills}")
+        show_info(f"{name} flash_bwd launch", t["flash_bwd"]["launch"])
+    spills = {f"L={L} dh={dh}": at.flash_fwd_info(L, dh)["local_bytes"] for L in (128, 256) for dh in at.HEAD_WIDTHS}
+    log(f"  forward strip instantiations, local-memory bytes a thread: {spills}")
     if any(spills.values()):
         fail(f"a strip instantiation of flash_fwd spills to local memory: {spills}")
+    bspills = flash_backward_launches()
+    log(f"  backward strip instantiations, local-memory bytes a thread: {bspills}")
+    if any(bspills.values()):
+        fail(f"a strip instantiation of flash_bwd spills to local memory: {bspills}")
     times["strip_local_bytes"] = spills
+    times["bwd_strip_local_bytes"] = bspills
     return times
 
 
@@ -1067,6 +1104,7 @@ def phase9_kernels(gen, failures, H, F_, NL):
         for K, N, epi in shapes:
             hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
             wq, s = fs.quantize_stacked(torch.randn(1, K, N, device="cuda", generator=gen))
+            wq = fs.k_major(wq)  # as stack_weights keeps it
             b = 0.1 * torch.randn(N, device="cuda", generator=gen)
             res = torch.randn(M, N, device="cuda", generator=gen) if epi == "residual" else None
             got = w8.linear_w8a8(hq, sa, wq[0], s[0], b, epi, None if res is None else res.clone())
@@ -1180,9 +1218,10 @@ def phase9_times(gen, card, H, F_, NL):
         for K, N, epi in shapes:
             hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
             wq, s = fs.quantize_stacked(torch.randn(1, K, N, device="cuda", generator=gen))
+            wq = fs.k_major(wq)  # as stack_weights keeps it; torch._int_mm takes it as it is
             res = torch.zeros(M, N, device="cuda") if epi == "residual" else None
             ops_.append((hq, sa, wq[0], s[0], torch.zeros(N, device="cuda"), epi, res))
-            lib_.append((hq, wq[0].t().contiguous().t()))
+            lib_.append((hq, wq[0]))
         gemm_ops = sum(2 * M * K * N for K, N, _ in shapes)
         gemm_bytes = sum(M * K + K * N + M * 4 + 2 * N * 4 + M * N * (8 if e == "residual" else 4)
                          for K, N, e in shapes)
@@ -1191,6 +1230,8 @@ def phase9_times(gen, card, H, F_, NL):
                                 library_ms=time_ms(lambda: [torch._int_mm(a, b) for a, b in lib_]),
                                 **bound_of(gemm_bytes, gemm_ops, PEAK_INT8))
         del ops_, lib_
+        log(f"  {name} linear_w8a8, one layer's 4 GEMMs: {t['linear_w8a8']['ms']:.4f} ms; before the redesign "
+            f"{LINEAR_W8A8_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
         q, k, v = (x.to(cd) for x in qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4))
         att_flops = 4 * G * H * L * L * hd
@@ -1551,6 +1592,9 @@ def phase12_kernels(gen, failures):
             got, want = at.flash_bwd(q, k, v, po, plse, do), at.flash_bwd_plain(q, k, v, po, plse, do)
             for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                 held("flash_bwd", check(f"flash_bwd {tag} {shape_name} {gname}", g, w, cd, failures))
+            if cd == torch.bfloat16:
+                same_bits(f"flash_bwd {tag} {shape_name} ({at.flash_bwd_info(L, hd)['route']})", got,
+                          at.flash_bwd(q, k, v, po, plse, do), failures)
             del q, k, v, do, o, lse, po, plse, got, want
             if shape_name == "2 s inter":
                 continue
@@ -1678,7 +1722,7 @@ def main() -> int:
     print(report.getvalue(), flush=True)
     _build.library()
     log(f"[2] kernels built in {time.time() - t0:.1f} s -> {_build.library_path().name}")
-    for kname in ("linear_bf16_kernel", "wgrad_bf16_kernel"):
+    for kname in ("linear_bf16_kernel", "wgrad_bf16_kernel", "linear_w8a8_kernel"):
         gemm = ptxas_of(report.getvalue(), kname)
         log(f"  {kname} (wgmma + TMA), ptxas: {gemm}")
         if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
@@ -1953,13 +1997,12 @@ def main() -> int:
          "flash_fwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); flash_fwd_bf16_kernel<32> (L > 256)", ftimes,
          flash_bench["launches"],
          flash_err, "q/k/v [G, 8, L, 32] -> o, lse; one launch; launches per bf16 train step (remat='layer')"),
-        ("flash_bwd", SOURCE_FLASH, REPLACES_FLASH_BWD,
-         "flash_delta_kernel + flash_bwd_dq_bf16_kernel<32> + flash_bwd_dkdv_bf16_kernel<32>", ftimes,
+        ("flash_bwd", SOURCE_FLASH, REPLACES_FLASH_BWD, FLASH_BWD_SYMBOL, ftimes,
          flash_bench["launches"], flash_err,
          "dq, dk, dv; one call; launches per bf16 train step; library_ms: PyTorch's flash backward alone"),
         ("quantize_rows", SOURCE_W8A8, REPLACES_W8A8, "quantize_rows_kernel", wtimes, w8_serve["launches"], w8_err,
          "fp32 [M, 256] -> int8 + row scales (_qdot :115-123); one launch; launches per w8a8 forward"),
-        ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, "linear_w8a8_kernel", wtimes, w8_serve["launches"], w8_err,
+        ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, W8A8_SYMBOL, wtimes, w8_serve["launches"], w8_err,
          "the four int8 projections (:149-154), one layer's 4 launches; launches per w8a8 forward"),
         ("attention[w8a8]", SOURCE, REPLACES_W8A8, ATTENTION_SYMBOL.format("float", "float"), wtimes,
          {"attention[w8a8]": w8_serve["launches"]["attention"]}, w8_err,
@@ -2001,7 +2044,8 @@ def main() -> int:
         })
     # the one-pass attentions carry their launch: route, registers, local memory, blocks per SM
     # ([5], [7d], [8d], [9c], [10b]); the GEMMs their like-for-like yardstick, torch.addmm ([5], [7d], [10b])
-    launch_of = {"flash_fwd": (ftimes, "flash_fwd"), "attention": (times, "attention"),
+    launch_of = {"flash_fwd": (ftimes, "flash_fwd"), "flash_bwd": (ftimes, "flash_bwd"),
+                 "attention": (times, "attention"),
                  "attention[train]": (ttimes, "attention[train]"), "attention[w8a8]": (wtimes, "attention[w8a8]"),
                  "attention_backward": (ttimes, "attention_backward")}
     fwd_bwd_of = {"attention_backward": ttimes, "flash_bwd": ftimes}  # SDPA forward + backward, the second yardstick
@@ -2017,6 +2061,9 @@ def main() -> int:
         if name in fwd_bwd_of:
             entry["library_fwd_bwd_ms"] = fwd_bwd_of[name]["intra"][name]["library_fwd_bwd_ms"]
             entry["inter"]["library_fwd_bwd_ms"] = fwd_bwd_of[name]["inter"][name]["library_fwd_bwd_ms"]
+        if name == "flash_bwd":  # PyTorch's flash backward on its own [G, L, H, hd] layout
+            entry["library_glhd_ms"] = ftimes["intra"][name]["library_glhd_ms"]
+            entry["inter"]["library_glhd_ms"] = ftimes["inter"][name]["library_glhd_ms"]
         if name in like_of:
             tset, key = like_of[name]
             entry["library_like_ms"] = tset["intra"][key]["library_like_ms"]

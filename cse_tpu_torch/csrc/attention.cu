@@ -21,8 +21,6 @@
 //   backward p = exp(s - lse), delta = rowsum(do * o), dp = do . v^T,
 //            ds = p * (dp - delta) * scale, dq = ds . k, dk = ds^T . q,
 //            dv = p^T . do, fp32 throughout, each result rounded to cd.
-//            A pre-pass writes delta; the dq kernel walks the keys once per
-//            query tile, the dk/dv kernel the queries once per key tile.
 //
 // The bf16 forward, routed by L. Because p / z is rounded to bf16 before PV,
 // z must be known before the PV product; online rescaling of o is another
@@ -42,6 +40,15 @@
 //     block, keys in shared-memory tiles of 256, and three passes over the
 //     keys (max, sum, PV) that recompute the scores instead of storing them.
 //
+// The bf16 backward, routed by L the same way.
+//   L <= 256, the one-pass strip (flash_bwd_strip_bf16_kernel, its design
+//     below): one block per sequence-head reads q, k, v, do and lse once, o
+//     only for delta, and forms each score's s, dp, p and ds once (8
+//     products: s, dp, and dv, dk, dq each split hi + lo; one ex2).
+//   L > 256, three kernels: a pre-pass writes delta; the dq kernel walks the
+//     keys once per 64-query tile, the dk/dv kernel the queries once per
+//     64-key tile, each forming s and dp again (10 products, 2 expf).
+//
 // bf16: the score, dp and PV products have bf16 operands, so mma.sync
 // m16n8k16 with fp32 accumulation gives each product exactly, as the TPU's
 // fp32 dot of upcast values does. The backward's dq, dk, dv contract fp32 ds
@@ -59,9 +66,11 @@
 // SM: 1.0e9 scores at intra ~0.27 ms); at 255 registers a thread an SM
 // holds 8 warps, too few to hide the latency of a strip's dependent phases
 // (product, max, exp, sum, PV), which keeps it at 2.3x its byte bound at
-// intra, 1.3x at inter. The backward reads each
-// operand tile once per block (K and V are re-read by the ceil(L / 64)
-// blocks of a sequence, mostly from L2) and writes each output once.
+// intra, 1.3x at inter. The backward's strip reads each operand once and
+// writes each output once, and sits at 4.1x / 2.1x its byte bound (one
+// block of 16 warps an SM at intra, two of 8 at inter; PERF.md); beyond
+// L = 256, K and V are re-read by the ceil(L / 64) blocks of a sequence
+// (mostly from L2), and q and do too.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -564,6 +573,226 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   store_rows<DH>(dv + off, gv, ka, L, lane);
 }
 
+// bf16, L <= 256: one block per sequence-head, one pass. K and V of the
+// whole sequence land in shared memory by cp.async in the first group, q
+// and do in chunks of QC = 64 rows, one group each, so that chunk 0
+// computes while the later chunks land; meanwhile a thread a row reads that
+// row's lse (times log2(e)) and forms delta = rowsum(do * o) from o and do
+// in device memory (o is read for nothing else). Warp w owns the key strip
+// 16 w .. 16 w + 15 (NB warps for L <= 16 NB) and, for each 16-query block
+// of a chunk, holds the transposed scores s^T = k . q^T and dp^T = v . do^T
+// of its keys in registers: p = exp(s scale - lse) as one FMA and one ex2
+// per score, ds = p (dp - delta) scale in fp32, then dv += p^T . do and
+// dk += ds^T . q (an m16n8 accumulator tile is an A fragment; p and ds each
+// split hi + lo), and ds^T (hi and lo) goes to a [keys][chunk] tile. dk and
+// dv stay in registers across the chunks. Once the chunk's tile is whole,
+// warp w forms dq of query strip w % 4 of the chunk over the key group
+// w / 4 (4 key blocks: every warp has the same share) from the tile by
+// ldmatrix.trans; the groups' partials take the tiles' place and are added
+// in group order, so dq is the same bits on every run, and written out.
+template <int DH, int NB>
+struct BwdStrip {
+  static constexpr int NR = NB * 16, LD = Head<DH>::LD, QC = 64, LDT = QC + 8, NCH = NR / QC;
+  static constexpr int G = NB / 4, KB = NB / G;  // key groups of the dq products, key blocks a group
+  static constexpr int LDP = DH + 4;             // row of a dq partial (fp32)
+  static constexpr bool REGS = DH <= 32;         // the strip's k and v A fragments held in registers
+  // shared memory: Ks, Vs, Qs, Os (do) [NR][LD]; DsH, DsL [NR][LDT] (the dq partials [G][QC][LDP]
+  // in their place); lse * log2(e) and delta [NR] fp32
+  static constexpr size_t TILE = sizeof(bf16) * NR * LD, DS = sizeof(bf16) * NR * LDT;
+  static constexpr size_t OFF_DS = 4 * TILE, OFF_F = OFF_DS + 2 * DS, SMEM = OFF_F + sizeof(float) * 2 * NR;
+  static_assert(sizeof(float) * G * QC * LDP <= 2 * DS, "the dq partials fit in the ds tiles");
+};
+
+// cp.async.wait_group n for a run-time n in 0 .. 3
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
+}
+
+template <int DH, int NB>
+__global__ void __launch_bounds__(32 * NB, NB == 8 ? 2 : 1)
+flash_bwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                            const bf16* __restrict__ o, const float* __restrict__ lse,
+                            const bf16* __restrict__ dout, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int L, float scale) {
+  using S = BwdStrip<DH, NB>;
+  constexpr int LD = S::LD, QC = S::QC, LDT = S::LDT, LDP = S::LDP, NT = Head<DH>::NT, KS = Head<DH>::KS;
+  constexpr int C = DH / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + S::NR * LD;
+  bf16* Qs = Vs + S::NR * LD;
+  bf16* Os = Qs + S::NR * LD;
+  bf16* DsH = reinterpret_cast<bf16*>(smem + S::OFF_DS);
+  bf16* DsL = DsH + S::NR * LDT;
+  float* P = reinterpret_cast<float*>(smem + S::OFF_DS);
+  float* lL = reinterpret_cast<float*>(smem + S::OFF_F);  // lse * log2(e), +inf past L (p = 0 there)
+  float* dl = lL + S::NR;                                 // delta, 0 past L
+  const long long bh = blockIdx.x, off = bh * L * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int k0 = warp * 16, nkw = (L + 15) / 16;     // this warp's keys; key blocks with keys
+  const bool keys = k0 < L, edge = k0 + 16 > L;      // warp-uniform
+  const float LOG2E = 1.4426950408889634f, c2 = scale * LOG2E;
+
+  auto fetch = [&](bf16* dst, const bf16* src, int r0, int n) {  // rows r0 .. r0 + n - 1, zero past L
+    for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
+      const int r = r0 + e / C, c = (e % C) * 8;
+      cp_async16(dst + r * LD + c, src + off + (long long)min(r, L - 1) * DH + c, r < L);
+    }
+  };
+  fetch(Ks, k, 0, S::NR);
+  fetch(Vs, v, 0, S::NR);
+#pragma unroll
+  for (int ci = 0; ci < S::NCH; ++ci) {  // one group a chunk (empty past L), so that every chunk waits alike
+    if (ci * QC < L) {
+      fetch(Qs, q, ci * QC, QC);
+      fetch(Os, dout, ci * QC, QC);
+    }
+    cp_async_commit();
+  }
+  if (threadIdx.x < S::NR) {
+    const int r = threadIdx.x;
+    float d = 0.f, l = __int_as_float(0x7f800000);
+    if (r < L) {
+      l = lse[bh * L + r] * LOG2E;
+      const bf16 *orow = o + off + (long long)r * DH, *drow = dout + off + (long long)r * DH;
+#pragma unroll
+      for (int c = 0; c < DH; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(orow + c), b = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+          d = fmaf(y.x, x.x, d);
+          d = fmaf(y.y, x.y, d);
+        }
+      }
+    }
+    lL[r] = l;
+    dl[r] = d;
+  }
+  cp_async_wait<S::NCH - 1>();
+  __syncthreads();  // K, V, chunk 0, lse and delta are in place
+
+  unsigned kf[S::REGS ? KS : 1][4], vf[S::REGS ? KS : 1][4];
+  if constexpr (S::REGS) {
+    if (keys) {
+      afrag_smem<DH>(kf, Ks, k0, lane);
+      afrag_smem<DH>(vf, Vs, k0, lane);
+    }
+  }
+  float gk[NT][4], gv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+
+  for (int ci = 0, q0 = 0; q0 < L; ++ci, q0 += QC) {
+    if (ci > 0) {
+      cp_async_wait_upto(S::NCH - 1 - ci);
+      __syncthreads();  // chunk ci landed; the previous chunk's dq partials are read
+    }
+    if (keys) {
+#pragma unroll
+      for (int qb = 0; qb < QC / 16; ++qb) {
+        const int c0 = q0 + qb * 16;  // the block's first query
+        if (c0 >= L) break;           // warp-uniform
+        // s^T, dp^T [keys][queries]: element (j, e) is key k0 + g8 + 8 (e / 2), query c0 + 8 j + 2 q4 + e % 2
+        float s[2][4], dp[2][4];
+        if constexpr (S::REGS) {
+          prod16<DH>(s, kf, Qs, c0, lane);
+          prod16<DH>(dp, vf, Os, c0, lane);
+        } else {
+          prod16_smem<DH>(s, Ks, k0, Qs, c0, lane);
+          prod16_smem<DH>(dp, Vs, k0, Os, c0, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lL + c0 + 8 * j + 2 * q4);
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + c0 + 8 * j + 2 * q4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2_approx(fmaf(s[j][e], c2, -(e & 1 ? l2.y : l2.x)));
+            if (edge && k0 + g8 + 8 * (e >> 1) >= L) p = 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - (e & 1 ? d2.y : d2.x)) * scale;  // ds
+          }
+        }
+        unsigned ph[4], pl[4], sh[4], sl[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          split_pack(s[j][0], s[j][1], ph[2 * j], pl[2 * j]);
+          split_pack(s[j][2], s[j][3], ph[2 * j + 1], pl[2 * j + 1]);
+          split_pack(dp[j][0], dp[j][1], sh[2 * j], sl[2 * j]);
+          split_pack(dp[j][2], dp[j][3], sh[2 * j + 1], sl[2 * j + 1]);
+        }
+        mma_rows<DH>(gv, ph, Os, c0, lane);
+        mma_rows<DH>(gv, pl, Os, c0, lane);
+        mma_rows<DH>(gk, sh, Qs, c0, lane);
+        mma_rows<DH>(gk, sl, Qs, c0, lane);
+        bf16* th = DsH + (k0 + g8) * LDT + qb * 16 + 2 * q4;
+        bf16* tl = DsL + (k0 + g8) * LDT + qb * 16 + 2 * q4;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *reinterpret_cast<unsigned*>(th + j * 8) = sh[2 * j];
+          *reinterpret_cast<unsigned*>(th + 8 * LDT + j * 8) = sh[2 * j + 1];
+          *reinterpret_cast<unsigned*>(tl + j * 8) = sl[2 * j];
+          *reinterpret_cast<unsigned*>(tl + 8 * LDT + j * 8) = sl[2 * j + 1];
+        }
+      }
+    }
+    __syncthreads();  // the chunk's ds tiles are whole
+
+    // dq of query strip qs over key group kg: ds [queries][keys] from the tiles (transposed) . k
+    const int qs = warp & 3, kg = warp >> 2;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    if (q0 + 16 * qs < L) {
+      const int ar = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int i = 0; i < S::KB; ++i) {
+        const int cb = kg * S::KB + i;
+        if (cb >= nkw) break;  // warp-uniform
+        unsigned ah[4], al[4];
+        ldmatrix_x4_trans(ah, DsH + (cb * 16 + ar) * LDT + 16 * qs + ac);
+        ldmatrix_x4_trans(al, DsL + (cb * 16 + ar) * LDT + 16 * qs + ac);
+        mma_rows<DH>(acc, ah, Ks, cb * 16, lane);
+        mma_rows<DH>(acc, al, Ks, cb * 16, lane);
+      }
+    }
+    __syncthreads();  // the ds tiles are read: the partials take their place
+    float* pw = P + (kg * QC + 16 * qs + g8) * LDP + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      *reinterpret_cast<float2*>(pw + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(pw + 8 * LDP + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < QC * DH / 2; e += blockDim.x) {  // the groups' partials in order
+      const int r = e / (DH / 2), d = (e % (DH / 2)) * 2;
+      if (q0 + r >= L) break;  // rows ascend with e
+      float2 x = *reinterpret_cast<const float2*>(P + r * LDP + d);
+#pragma unroll
+      for (int gg = 1; gg < S::G; ++gg) {
+        const float2 y = *reinterpret_cast<const float2*>(P + (gg * QC + r) * LDP + d);
+        x.x += y.x;
+        x.y += y.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + (long long)(q0 + r) * DH + d) = __floats2bfloat162_rn(x.x, x.y);
+    }
+  }
+  if (keys) {
+    store_rows<DH>(dk + off, gk, k0 + g8, L, lane);
+    store_rows<DH>(dv + off, gv, k0 + g8, L, lane);
+  }
+}
+
 // fp32 dq: 8 warps x 8 query rows; lane j takes key c + j and owns output
 // columns j, j + 32. K and V (DH + 1-word rows) of T32 keys in shared memory.
 template <int DH>
@@ -734,10 +963,10 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
 constexpr int STRIP_MAX_L = 256;
 constexpr int STRIP_WARPS = 2;
 
-// One launch of the bf16 forward at L: the kernel (its shared-memory limit
-// raised once), key blocks held in registers (0: three passes), threads,
-// query rows and dynamic shared bytes a block.
-struct FwdPlan {
+// One launch of a bf16 kernel at L: the kernel (its shared-memory limit
+// raised once), key blocks held in registers (0: the multi-pass route),
+// threads, query rows and dynamic shared bytes a block.
+struct Plan {
   const void* fn;
   int nb, threads, rows;
   size_t smem;
@@ -745,7 +974,7 @@ struct FwdPlan {
 };
 
 template <int DH, int NB>
-FwdPlan strip_plan() {
+Plan strip_plan() {
   static const cudaError_t e = cudaFuncSetAttribute(flash_fwd_strip_bf16_kernel<DH, NB>,
                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                     (int)strip_smem<DH, NB>());
@@ -754,7 +983,7 @@ FwdPlan strip_plan() {
 }
 
 template <int DH>
-FwdPlan plan_fwd_bf16(int L) {
+Plan plan_fwd_bf16(int L) {
   if (L <= 128) return strip_plan<DH, 8>();
   if (L <= STRIP_MAX_L) return strip_plan<DH, 16>();
   static bool ready = false;
@@ -768,7 +997,7 @@ cudaError_t launch_fwd(int bf, const void* q, const void* k, const void* v, void
                        float scale, cudaStream_t st) {
   if (L < 1) return cudaErrorInvalidValue;
   if (bf) {
-    const FwdPlan p = plan_fwd_bf16<DH>(L);
+    const Plan p = plan_fwd_bf16<DH>(L);
     if (p.err != cudaSuccess) return p.err;
     const unsigned blocks = (unsigned)((long long)BH * ((L + p.rows - 1) / p.rows));
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k), *vb = static_cast<const bf16*>(v);
@@ -792,10 +1021,8 @@ cudaError_t launch_fwd(int bf, const void* q, const void* k, const void* v, void
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t fwd_info(int L, int* info) {
-  if (L < 1) return cudaErrorInvalidValue;
-  const FwdPlan p = plan_fwd_bf16<DH>(L);
+// a *_info entry point's seven fields for the launch p describes
+inline cudaError_t plan_info(const Plan& p, int* info) {
   if (p.err != cudaSuccess) return p.err;
   info[0] = p.nb;
   info[1] = p.threads;
@@ -804,30 +1031,62 @@ cudaError_t fwd_info(int L, int* info) {
   return kernel_info(p.fn, p.threads, p.smem, info + 4);
 }
 
+template <int DH, int NB>
+Plan bwd_strip_plan() {
+  using S = BwdStrip<DH, NB>;
+  static const cudaError_t e = cudaFuncSetAttribute(flash_bwd_strip_bf16_kernel<DH, NB>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  return {reinterpret_cast<const void*>(flash_bwd_strip_bf16_kernel<DH, NB>), NB, 32 * NB, S::NR, S::SMEM, e};
+}
+
+// The bf16 backward's route: the strip kernel for L <= STRIP_MAX_L, one
+// block of NB warps per sequence-head; beyond, the three kernels (reported
+// by the dq kernel).
+template <int DH>
+Plan plan_bwd_bf16(int L) {
+  if (L <= 128) return bwd_strip_plan<DH, 8>();
+  if (L <= STRIP_MAX_L) return bwd_strip_plan<DH, 16>();
+  static bool ready = false;
+  const size_t smem = sizeof(bf16) * 2 * KT * Head<DH>::LD;
+  const cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<DH>, smem, ready);
+  return {reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel<DH>), 0, 128, RT, smem, e};
+}
+
 template <int DH>
 cudaError_t launch_bwd(int bf, const void* q, const void* k, const void* v, const void* o, const float* lse,
                        const void* dout, float* delta, void* dq, void* dk, void* dv, int BH, int L, float scale,
                        cudaStream_t st) {
+  if (L < 1) return cudaErrorInvalidValue;
   const long long rows = (long long)BH * L;
   const unsigned blocks = (unsigned)((long long)BH * ((L + RT - 1) / RT));
   const unsigned dblocks = (unsigned)((rows + 7) / 8);
   cudaError_t e;
   if (bf) {
-    static bool ready_q = false, ready_k = false;
+    static bool ready_k = false;
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k), *vb = static_cast<const bf16*>(v);
-    const bf16* db = static_cast<const bf16*>(dout);
-    flash_delta_kernel<bf16><<<dblocks, 256, 0, st>>>(static_cast<const bf16*>(o), db, delta, rows, DH);
+    const bf16 *ob = static_cast<const bf16*>(o), *db = static_cast<const bf16*>(dout);
+    bf16 *dqb = static_cast<bf16*>(dq), *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
+    const Plan p = plan_bwd_bf16<DH>(L);
+    if (p.err != cudaSuccess) return p.err;
+    if (p.nb == 8)
+      flash_bwd_strip_bf16_kernel<DH, 8><<<BH, p.threads, p.smem, st>>>(qb, kb, vb, ob, lse, db, dqb, dkb, dvb, L,
+                                                                        scale);
+    else if (p.nb == 16)
+      flash_bwd_strip_bf16_kernel<DH, 16><<<BH, p.threads, p.smem, st>>>(qb, kb, vb, ob, lse, db, dqb, dkb, dvb, L,
+                                                                         scale);
+    if (p.nb) return cudaGetLastError();
+    if (!delta) return cudaErrorInvalidValue;
+    flash_delta_kernel<bf16><<<dblocks, 256, 0, st>>>(ob, db, delta, rows, DH);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     const int kt_rows = (min(L, KT) + 15) / 16 * 16;
-    if ((e = allow_smem(flash_bwd_dq_bf16_kernel<DH>, sizeof(bf16) * 2 * KT * Head<DH>::LD, ready_q)) != cudaSuccess)
-      return e;
     flash_bwd_dq_bf16_kernel<DH><<<blocks, 128, sizeof(bf16) * 2 * kt_rows * Head<DH>::LD, st>>>(
-        qb, kb, vb, lse, delta, db, static_cast<bf16*>(dq), L, scale, kt_rows);
+        qb, kb, vb, lse, delta, db, dqb, L, scale, kt_rows);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if ((e = allow_smem(flash_bwd_dkdv_bf16_kernel<DH>, dkdv_bf16_smem<DH>(), ready_k)) != cudaSuccess) return e;
-    flash_bwd_dkdv_bf16_kernel<DH><<<blocks, 128, dkdv_bf16_smem<DH>(), st>>>(
-        qb, kb, vb, lse, delta, db, static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, scale);
+    flash_bwd_dkdv_bf16_kernel<DH><<<blocks, 128, dkdv_bf16_smem<DH>(), st>>>(qb, kb, vb, lse, delta, db, dkb, dvb,
+                                                                              L, scale);
   } else {
+    if (!delta) return cudaErrorInvalidValue;
     static bool ready_q = false, ready_k = false;
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k);
     const float *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
@@ -864,11 +1123,15 @@ int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
 // shared bytes, registers a thread, local-memory bytes a thread, resident
 // blocks per SM.
 int cse_flash_fwd_info(int L, int dh, int* info) {
-  return by_head_width(FlashHeadWidths{}, dh, [&](auto w) { return fwd_info<decltype(w)::value>(L, info); });
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  return by_head_width(FlashHeadWidths{}, dh,
+                       [&](auto w) { return plan_info(plan_fwd_bf16<decltype(w)::value>(L), info); });
 }
 
 // dq, dk, dv [BH, L, dh] of the flash attention from q, k, v, o, do (all one
-// type) and lse [BH, L]; delta [BH, L] fp32 is scratch (rowsum(do * o)).
+// type) and lse [BH, L]; delta [BH, L] fp32 is scratch (rowsum(do * o)) of
+// the three-kernel routes (fp32, and bf16 at L > 256), null on the bf16
+// strip route.
 int cse_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* lse, const void* dout,
                   void* delta, void* dq, void* dk, void* dv, int bf, int BH, int L, int dh, float scale,
                   void* stream) {
@@ -878,6 +1141,17 @@ int cse_flash_bwd(const void* q, const void* k, const void* v, const void* o, co
   return by_head_width(FlashHeadWidths{}, dh, [&](auto w) {
     return launch_bwd<decltype(w)::value>(bf, q, k, v, o, l, dout, dl, dq, dk, dv, BH, L, scale, st);
   });
+}
+
+// info[7] of the bf16 backward cse_flash_bwd launches at (L, dh), in
+// cse_flash_fwd_info's order: key blocks of the strip (0: the three kernels,
+// reported by the dq kernel), threads, query rows a block, dynamic shared
+// bytes, registers a thread, local-memory bytes a thread, resident blocks
+// per SM.
+int cse_flash_bwd_info(int L, int dh, int* info) {
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  return by_head_width(FlashHeadWidths{}, dh,
+                       [&](auto w) { return plan_info(plan_bwd_bf16<decltype(w)::value>(L), info); });
 }
 
 }  // extern "C"

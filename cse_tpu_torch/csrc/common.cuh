@@ -3,9 +3,10 @@
 // head-width fragments of the attention kernels (any head width that is a
 // multiple of 8: a half k-step is zero-padded inside the fragment), ex2, the
 // row max and exp of a warp's score strip, the staging of fp32 rows as bf16
-// tiles, Hopper's mbarrier, TMA and wgmma with the TMA ring, the operand
-// descriptors and the warp-specialised register hand-over of the wgmma
-// kernels (and their host-side tensor maps), a kernel's attributes and
+// tiles, Hopper's mbarrier, TMA and wgmma (bf16 and s8) with the TMA ring,
+// the operand descriptors, the swizzled epilogue tile and the
+// warp-specialised register hand-over of the wgmma kernels (and their
+// host-side tensor maps), a kernel's attributes and
 // occupancy, and the fixed-order column reduction that turns per-block
 // partial sums into one row (every cross-block sum of the port goes through
 // it, so no result depends on the order in which blocks run).
@@ -362,6 +363,19 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int
                "r"(c0), "r"(c1), "r"(smem_addr(src))
                : "memory");
 }
+// tma_store_2d under an L2 cache policy (l2_evict_first: lines the kernel will not read again)
+__device__ __forceinline__ void tma_store_2d_hint(const CUtensorMap* map, int c0, int c1, const void* src,
+                                                  uint64_t policy) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], %4;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(smem_addr(src)), "l"(policy)
+               : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
 __device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 // the shared-memory source of every committed store has been read
 __device__ __forceinline__ void tma_store_wait_read() {
@@ -386,6 +400,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 operands from shared memory
@@ -439,6 +458,44 @@ __device__ __forceinline__ void wgmma_chunk64(float (&d)[64], const unsigned cha
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_m64n128k16<TA>(d, TA ? desc_mn_major(a, kk) : desc_k_major(a, kk), desc_mn_major(b, kk), 1);
+}
+
+// d[64 x 128] (+)= A[64 x 32] . B[32 x 128], int8 operands from shared memory,
+// both K-major (8-bit wgmma takes no transpose), int32 accumulators in the
+// fp32 version's layout. Integer sums are exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// byte offset of element (r, c) of a wgmma kernel's epilogue tile: fp32 as
+// four 32-column boxes, bf16 as two 64-column boxes, each [128 rows][128
+// bytes] with TMA's 128-byte swizzle (16-byte chunk index XOR row % 8)
+__device__ __forceinline__ int stage_off_f32(int r, int c) {
+  return (c >> 5) * 16384 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+__device__ __forceinline__ int stage_off_bf16(int r, int c) {
+  return (c >> 6) * 16384 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
 }
 
 // A ring of S slots in shared memory that TMA fills: bars[s] (full)

@@ -119,16 +119,6 @@ constexpr int OFF_BAR = OFF_RED + 8 * BN * 4;
 constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (2 * SLOTS + 2 * W_SLOTS + 2);
 }  // namespace gemm
 
-// byte offset of element (r, c) of the epilogue tile: fp32 as four 32-column
-// boxes, bf16 as two 64-column boxes, each [128 rows][128 bytes] with TMA's
-// 128-byte swizzle (16-byte chunk index XOR row % 8)
-__device__ __forceinline__ int stage_off_f32(int r, int c) {
-  return (c >> 5) * 16384 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
-}
-__device__ __forceinline__ int stage_off_bf16(int r, int c) {
-  return (c >> 6) * 16384 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
-}
-
 template <int EPI, int NG>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 linear_bf16_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,

@@ -46,6 +46,7 @@ SIGNATURES = {
     "cse_flash_fwd": (P, P, P, P, P, I, I, I, I, F, P),
     "cse_flash_fwd_info": (I, I, P),
     "cse_flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P),
+    "cse_flash_bwd_info": (I, I, P),
     # fused_stack_w8a8.cu
     "cse_quantize_rows": (P, P, P, LL, I, P),
     "cse_linear_w8a8": (P, P, P, P, P, P, I, LL, I, I, P),

@@ -35,6 +35,7 @@ from cse_tpu_torch.ops.fused_stack import wide
 
 # head widths the flash kernels are instantiated for
 HEAD_WIDTHS = (8, 16, 32, 48, 64)
+STRIP_MAX_L = 256  # csrc/attention.cu's STRIP_MAX_L: the bf16 kernels' one-pass route
 
 
 def _chunks(bh: int, L: int):
@@ -129,7 +130,8 @@ def flash_fwd_info(L: int, dh: int = 32) -> dict:
 
 def flash_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) of :func:`flash_bwd_plain`; on CUDA the backward kernels
-    (delta, then dq, then dk and dv)."""
+    (bf16: one pass for L <= 256, :func:`flash_bwd_info`; beyond, and in
+    fp32, delta, then dq, then dk and dv)."""
     if not fs._route(q, k, v, o, lse, do):
         return flash_bwd_plain(q, k, v, o, lse, do)
     bh, L, dh = _check_qkv(q, k, v, o, do)
@@ -137,14 +139,22 @@ def flash_bwd(q, k, v, o, lse, do):
     if tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"lse is {tuple(lse.shape)}, want {tuple(q.shape[:3])}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    strip = q.dtype == torch.bfloat16 and L <= STRIP_MAX_L  # delta stays in the block
+    delta = None if strip else torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     err = _build.library().cse_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if delta is None else delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         int(q.dtype == torch.bfloat16), bh, L, dh, 1.0 / math.sqrt(dh), fs._stream())
     fs._check_launch("flash_bwd", err)
     flash_bwd.launches += 1
     return dq, dk, dv
+
+
+def flash_bwd_info(L: int, dh: int = 32) -> dict:
+    """How :func:`flash_bwd` launches the bf16 backward at (L, dh): see
+    :func:`cse_tpu_torch.ops._build.launch_info` (the three-kernel route
+    reports its dq kernel)."""
+    return _build.launch_info("cse_flash_bwd_info", L, dh)
 
 
 KERNELS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd}

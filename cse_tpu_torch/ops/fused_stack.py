@@ -66,14 +66,24 @@ def quantize_stacked(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(wf / s).to(torch.int8), s
 
 
+def k_major(w8: torch.Tensor) -> torch.Tensor:
+    """``w8 [..., K, N]`` (the same values) stored K-major: each output
+    channel's K values contiguous, a transposed view of a contiguous
+    ``[..., N, K]`` tensor. The int8 GEMM reads its weight so, with no copy
+    (:func:`cse_tpu_torch.ops.fused_stack_w8a8.linear_w8a8`)."""
+    return w8.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def stack_weights(stack, compute_dtype: torch.dtype, quant: str | None = None) -> dict[str, torch.Tensor]:
     """Stack a :class:`cse_tpu_torch.models.sepformer.TransformerStack`'s
     per-layer parameters for :func:`fused_stack_apply`.
 
     Projection weights become ``[n_layers, din, dout]`` in cd (the GEMM's B
     operand, row-major); with ``quant="w8a8"`` int8 payloads of the fp32
-    weights (never a cd-rounded copy) with their fp32 ``[n_layers, 1, dout]``
-    scales under ``*_s`` (:func:`quantize_stacked`). Biases and LN
+    weights (never a cd-rounded copy), stored K-major (:func:`k_major`: made
+    once here, read by the int8 GEMM as they are), with their fp32
+    ``[n_layers, 1, dout]`` scales under ``*_s`` (:func:`quantize_stacked`).
+    Biases and LN
     scales/offsets are rounded to cd like the TPU kernel's inputs and then
     held in fp32, the type the kernels add them in.
     """
@@ -91,7 +101,7 @@ def stack_weights(stack, compute_dtype: torch.dtype, quant: str | None = None) -
         for name, get in (("qkv", lambda l: l.self_att.in_proj.weight), ("out", lambda l: l.self_att.out_proj.weight),
                           ("f1", lambda l: l.ffn_1.weight), ("f2", lambda l: l.ffn_2.weight)):
             q, sc = quantize_stacked(torch.stack([get(lyr).detach() for lyr in layers]).transpose(1, 2))
-            mats[f"{name}_w"], mats[f"{name}_s"] = q.contiguous(), sc.contiguous()
+            mats[f"{name}_w"], mats[f"{name}_s"] = k_major(q), sc.contiguous()
     return {
         "qkv_w": stk(lambda l: l.self_att.in_proj.weight, True),
         "qkv_b": stk(lambda l: l.self_att.in_proj.bias),

@@ -10,8 +10,9 @@ dtype (cd) with an fp32 output. On Hopper (``csrc/fused_stack_w8a8.cu``):
 * :func:`quantize_rows`: fp32 ``[M, K]`` -> int8 ``[M, K]`` and fp32 ``sa[M]``,
   sa = max(max |h|, 1e-12) / 127, q = round-half-even(h / sa) with a true
   division: bit-exact against :func:`quantize_rows_plain`;
-* :func:`linear_w8a8`: ``mma.sync`` s8 x s8 -> s32 and the epilogue
-  y = acc * sa[row] * s[col] in fp32, then ``y + b`` (QKV), ``relu(y + b)``
+* :func:`linear_w8a8`: ``wgmma`` s8 x s8 -> s32 (TMA loads and stores, the
+  weight read K-major as :func:`fused_stack.stack_weights` keeps it) and the
+  epilogue y = acc * sa[row] * s[col] in fp32, then ``y + b`` (QKV), ``relu(y + b)``
   (FFN1) or ``(r + y) + b`` into the fp32 residual (out-proj, FFN2), the
   association JAX writes (``x = x + _qdot(...) + b``);
 * the serving stack's LayerNorm (fp32 out) and attention (bf16 operands,
@@ -84,13 +85,14 @@ def quantize_rows(h):
 
 def linear_w8a8(hq, sa, w8, s, bias, epilogue, residual=None):
     """See :func:`linear_w8a8_plain`; kernel (b) on CUDA. ``w8`` is
-    ``[K, N]`` int8; the kernel reads it transposed (``[N, K]``, each output
-    channel's K bytes contiguous), which this wrapper makes."""
+    ``[K, N]`` int8 stored K-major (:func:`fused_stack.k_major`: ``w8.t()``
+    contiguous, each output channel's K bytes together), the layout the
+    kernel reads; no call copies it."""
     if not fs._route(hq, sa, w8, s, bias, residual):
         return linear_w8a8_plain(hq, sa, w8, s, bias, epilogue, residual)
     fs._check(hq, "hq", torch.int8, 2)
     fs._check(sa, "sa", torch.float32, 1)
-    fs._check(w8, "w8", torch.int8, 2)
+    fs._check(w8.t(), "w8.t() (w8 stored K-major, fused_stack.k_major)", torch.int8, 2)
     fs._check(s, "s", torch.float32)
     fs._check(bias, "bias", torch.float32, 1)
     (M, K), (K2, N) = hq.shape, w8.shape
@@ -109,9 +111,10 @@ def linear_w8a8(hq, sa, w8, s, bias, epilogue, residual=None):
         out = residual
     else:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    wt = w8.t().contiguous()
+    if w8.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("int8 GEMM kernel needs 16-byte aligned w8 and output")
     err = _build.library().cse_linear_w8a8(
-        hq.data_ptr(), sa.data_ptr(), wt.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        hq.data_ptr(), sa.data_ptr(), w8.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(),
         fs.EPILOGUES[epilogue], M, N, K, fs._stream())
     fs._check_launch("linear_w8a8", err)
     linear_w8a8.launches += 1

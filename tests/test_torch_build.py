@@ -19,16 +19,28 @@ def test_every_source_exists_and_every_entry_is_defined():
     assert defined == set(_build.SIGNATURES)
 
 
-@pytest.mark.parametrize("src", ["attention.cu", "kernel_parts.cu", "fused_stack.cu", "fused_train.cu"])
-def test_route_codes_match_the_sources(src, monkeypatch):
+# every *_info entry point of the sources: the bf16 attention launchers' routes
+ROUTE_ENTRIES = [("attention.cu", "cse_flash_fwd_info"), ("attention.cu", "cse_flash_bwd_info"),
+                 ("kernel_parts.cu", "cse_kp_attention_info"), ("fused_stack.cu", "cse_attention_info"),
+                 ("fused_train.cu", "cse_attention_bwd_info")]
+
+
+def test_route_entries_are_every_info_entry():
+    found = {(src, e) for src in _build.SOURCES for e in re.findall(r"^int (cse_\w+_info)\(",
+                                                                    (_build.CSRC / src).read_text(), flags=re.M)}
+    assert found == set(ROUTE_ENTRIES)
+
+
+@pytest.mark.parametrize("src, entry", ROUTE_ENTRIES)
+def test_route_codes_match_the_sources(src, entry, monkeypatch):
     """Each bf16 attention launcher routes at L = 256, as the wrappers' docs
     say, and its ``*_info`` entry writes the fields ``launch_info`` reads:
     the key blocks held in registers name the route (0: the multi-pass
     kernel), and a failed query raises."""
     text = (_build.CSRC / src).read_text()
     assert "constexpr int STRIP_MAX_L = 256;" in text
-    entry = re.search(r"^int (cse_\w+_info)\(", text, flags=re.M).group(1)
-    assert f"info[{len(_build.INFO_KEYS)}]" in text
+    comment = re.search(rf"((?://[^\n]*\n)+)int {entry}\(", text).group(1)
+    assert f"info[{len(_build.INFO_KEYS)}]" in comment
 
     def fake(key_blocks, err=0):
         def call(*args):

@@ -375,6 +375,48 @@ def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
         _close(got, want, cd)
 
 
+@pytest.mark.parametrize("seq_len", [1, 16, 127, 128, 129, 251, 256, 257])
+@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
+def test_flash_backward_strip_matches_plain_and_repeats(gen, seq_len, dh):
+    """bf16 on the one-pass strip (L <= 256: 8 or 16 key strips) and the
+    three-kernel route (257), every head width: the bf16 bar, and the same
+    bits on a repeat (dq's key groups are added in a fixed order). At L = 1
+    the softmax is 1 and o = v, so ds = p (dp - delta) scale is zero up to
+    the rounding of one dot product taken in two orders: dq and dk are held
+    to that rounding's size (1e-5 of |do| |v| |k| dh, or |q|), not to their
+    own norm, which is noise in both versions."""
+    from cse_tpu_torch.ops import attention as at
+
+    cd = torch.bfloat16
+    q, k, v, do = _flash_inputs(gen, cd, 12, seq_len, dh)
+    o, lse = at.flash_fwd_plain(q, k, v)
+    got = at.flash_bwd(q, k, v, o, lse, do)
+    want = at.flash_bwd_plain(q, k, v, o, lse, do)
+    for name, g, w, other in zip(("dq", "dk", "dv"), got, want, (k, q, None)):
+        assert g.dtype == cd and g.shape == q.shape, name
+        if seq_len == 1 and other is not None:
+            size = do.float().abs().max() * v.float().abs().max() * other.float().abs().max() * dh
+            assert g.float().abs().max() <= 1e-5 * size and w.float().abs().max() <= 1e-5 * size, name
+        else:
+            _close(g, w, cd)
+    again = at.flash_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert at.flash_bwd_info(seq_len, dh)["route"] == ("strip" if seq_len <= at.STRIP_MAX_L else "passes")
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
+@pytest.mark.parametrize("seq_len", [128, 256])
+def test_flash_backward_strip_instantiations_spill_nothing(gen, seq_len, dh):
+    """Each L <= 256 instantiation of the backward's strip keeps its key
+    strip's scores and gradients in registers: no local memory."""
+    from cse_tpu_torch.ops import attention as at
+
+    info = at.flash_bwd_info(seq_len, dh)
+    assert info["route"] == "strip" and info["key_blocks"] == seq_len // 16
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1 and info["rows_per_block"] == seq_len
+    assert at.flash_bwd_info(seq_len + 1, dh)["route"] == ("strip" if seq_len < 256 else "passes")
+
+
 @pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
 @pytest.mark.parametrize("seq_len", [128, 256])
 def test_flash_strip_instantiations_spill_nothing(gen, seq_len, dh):
@@ -427,22 +469,34 @@ def test_quantize_rows_is_bit_exact(gen, mk):
     assert q.dtype == torch.int8 and torch.equal(q, pq) and torch.equal(sa, psa)
 
 
+# the serving path's four (K, N) at intra M = 2016 x 251, small and ragged M,
+# K (32, 48, 64: one chunk below 128 bytes) and N (24, 96: below a tile), and
+# K 1024 streamed with one or two N tiles a pass
+W8A8_SHAPES = [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 48, 24), (1000, 32, 96), (777, 64, 256),
+               (129, 1024, 96), (4000, 256, 1024), (2016 * 251, 256, 768), (2016 * 251, 256, 256),
+               (2016 * 251, 256, 1024), (2016 * 251, 1024, 256)]
+
+
 @pytest.mark.parametrize("epilogue", ["bias", "relu", "residual"])
-@pytest.mark.parametrize("mkn", [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 48, 24)])
+@pytest.mark.parametrize("mkn", W8A8_SHAPES)
 def test_linear_w8a8_matches_plain(gen, epilogue, mkn):
     """Integer sums are exact and the epilogue rounds each step as the plain
-    version does: max_rel <= 1e-6."""
+    version does: max_rel <= 1e-6. The weight is K-major (fs.k_major), as
+    stack_weights keeps it; a row-major one is refused."""
     from cse_tpu_torch.ops import fused_stack_w8a8 as w8
 
     m, k, n = mkn
     hq, sa = w8.quantize_rows(torch.randn(m, k, device="cuda", generator=gen))
-    wq = torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8)
+    wq = fs.k_major(torch.randint(-127, 128, (k, n), device="cuda", generator=gen, dtype=torch.int8))
     s = (torch.rand(1, n, device="cuda", generator=gen) + 0.1) / 100
     b = torch.randn(n, device="cuda", generator=gen)
     res = torch.randn(m, n, device="cuda", generator=gen) if epilogue == "residual" else None
     got = w8.linear_w8a8(hq, sa, wq, s, b, epilogue, None if res is None else res.clone())
     want = w8.linear_w8a8_plain(hq, sa, wq, s, b, epilogue, res)
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    if n > 8:
+        with pytest.raises(ValueError, match="K-major"):
+            w8.linear_w8a8(hq, sa, wq.contiguous(), s, b, epilogue, None if res is None else res.clone())
 
 
 @pytest.mark.parametrize("seq_len", [7, 251, 300])

@@ -129,6 +129,16 @@ def test_zero_do_rows_add_nothing():
     assert not dq[:, :, keep:].any()
 
 
+def test_backward_strip_bound_matches_the_source():
+    """flash_bwd makes the delta scratch only for the routes whose C launcher
+    needs it: the bf16 strip ends at the source's STRIP_MAX_L."""
+    from cse_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "attention.cu").read_text()
+    assert f"constexpr int STRIP_MAX_L = {at.STRIP_MAX_L};" in text
+    assert "if (L <= STRIP_MAX_L) return bwd_strip_plan<DH, 16>();" in text
+
+
 def test_wrappers_refuse_other_devices_and_count_no_cpu_launch():
     q = torch.empty(1, 2, 4, 16, device="meta")
     with pytest.raises(RuntimeError, match="CUDA or CPU"):

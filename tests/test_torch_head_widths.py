@@ -37,15 +37,28 @@ def test_check_head_width_takes_the_instantiated_widths():
 WIDTH_LISTS = {"HeadWidths": fs.HEAD_WIDTHS, "FlashHeadWidths": fa.HEAD_WIDTHS}
 
 
-@pytest.mark.parametrize("src, widths", [("fused_stack.cu", "HeadWidths"), ("fused_train.cu", "HeadWidths"),
-                                         ("kernel_parts.cu", "HeadWidths"), ("attention.cu", "FlashHeadWidths")])
-def test_sources_dispatch_the_wrappers_widths(src, widths):
-    """The C entry points dispatch on the head width through
+# every C entry point that takes a head width, with the list it dispatches on
+WIDTH_ENTRIES = [("fused_stack.cu", "cse_attention", "HeadWidths"),
+                 ("fused_stack.cu", "cse_attention_info", "HeadWidths"),
+                 ("fused_train.cu", "cse_attention_bwd", "HeadWidths"),
+                 ("fused_train.cu", "cse_attention_bwd_info", "HeadWidths"),
+                 ("kernel_parts.cu", "cse_kp_attention", "HeadWidths"),
+                 ("kernel_parts.cu", "cse_kp_attention_info", "HeadWidths"),
+                 ("attention.cu", "cse_flash_fwd", "FlashHeadWidths"),
+                 ("attention.cu", "cse_flash_fwd_info", "FlashHeadWidths"),
+                 ("attention.cu", "cse_flash_bwd", "FlashHeadWidths"),
+                 ("attention.cu", "cse_flash_bwd_info", "FlashHeadWidths")]
+
+
+@pytest.mark.parametrize("src, entry, widths", WIDTH_ENTRIES)
+def test_sources_dispatch_the_wrappers_widths(src, entry, widths):
+    """The C entry point dispatches on the head width through
     ``common.cuh::by_head_width`` and the one width list it names there, and
     that list is the one the wrapper lets through."""
     listed = re.search(rf"using {widths} = Widths<([\d, ]+)>;", (_build.CSRC / "common.cuh").read_text())
     assert tuple(int(w) for w in listed.group(1).split(",")) == WIDTH_LISTS[widths]
-    assert f"by_head_width({widths}{{}}, " in (_build.CSRC / src).read_text()
+    body = re.search(rf"^int {entry}\(.*?^}}$", (_build.CSRC / src).read_text(), flags=re.M | re.S).group(0)
+    assert f"by_head_width({widths}{{}}, " in body
 
 
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])

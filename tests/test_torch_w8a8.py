@@ -128,6 +128,43 @@ def test_stack_matches_jax_w8a8(cd):
                                                 "linear_w8a8": 32}
 
 
+MATS = {"qkv": lambda l: l.self_att.in_proj.weight, "out": lambda l: l.self_att.out_proj.weight,
+        "f1": lambda l: l.ffn_1.weight, "f2": lambda l: l.ffn_2.weight}
+
+
+@pytest.mark.parametrize("name", list(MATS))
+def test_stack_weights_keep_the_int8_payload_k_major(name):
+    """The int8 GEMM reads W K-major with no copy: stack_weights makes the
+    K-major copy once, and its [n, dout, din] bytes are the exact transpose
+    of quantize_stacked's [n, din, dout] payload (the same values as before)."""
+    stack = load_jax_params(TransformerStack(SepformerConfig(d_model=D, nhead=H, d_ffn=FFN, num_tf_layers=NL)),
+                            _stack_params(np.random.default_rng(5)))
+    w = fs.stack_weights(stack, torch.bfloat16, quant="w8a8")
+    q, _ = fs.quantize_stacked(torch.stack([MATS[name](lyr).detach() for lyr in stack.layers]).transpose(1, 2))
+    kt = w[f"{name}_w"].transpose(1, 2)
+    assert kt.is_contiguous() and kt.dtype == torch.int8
+    assert torch.equal(kt, q.transpose(1, 2).contiguous()) and torch.equal(w[f"{name}_w"], q)
+    assert all(w[f"{name}_w"][li].t().is_contiguous() for li in range(NL))  # what linear_w8a8 checks
+    assert torch.equal(fs.k_major(q), q) and fs.k_major(q).transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("cd", ["fp32", "bf16"])
+def test_run_stack_on_k_major_weights_matches_jax(cd):
+    """run_stack with the plain ops on the K-major weights against JAX's
+    _stack_kernel_w8a8 (interpret mode), at this file's stack bar."""
+    rng = np.random.default_rng(6)
+    tree = _stack_params(rng)
+    x = rng.standard_normal((3, 29, D)).astype(np.float32)
+    jcd, tcd = (jnp.float32, torch.float32) if cd == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jax_fused_stack_apply(jnp.asarray(x), tree, nhead=H, compute_dtype=jcd, quant="w8a8"))
+    stack = load_jax_params(TransformerStack(SepformerConfig(d_model=D, nhead=H, d_ffn=FFN, num_tf_layers=NL)),
+                            tree)
+    w = fs.stack_weights(stack, tcd, quant="w8a8")
+    got = w8.run_stack(torch.from_numpy(x), w, H, tcd, w8.PLAIN_OPS)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _rel_l2(got.numpy(), want) <= 1e-3
+
+
 @functools.cache
 def _engine_case(variant):
     rng = np.random.default_rng(4)
