@@ -6,7 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of cse_tpu_torch/csrc from the checkout; the
      ptxas report of the three wgmma kernels (the GEMM, the weight gradient,
-     the int8 GEMM): no spills, no serialised wgmma;
+     the int8 GEMM): no spills, no serialised wgmma; and of the two
+     LayerNorm kernels redesigned last (the LN backward, the tool's staged
+     LN): registers and spills of every instantiation, no spills;
   3. hold each kernel (LayerNorm, GEMM with its three epilogues, attention)
      and the whole fused stack against its plain PyTorch version at the
      serving shapes (intra G=2016 L=251, inter G=4000 L=127) in fp32 and bf16;
@@ -26,8 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
      gradient, ReLU-gradient GEMM, LayerNorm backward) and the whole 8-layer
      fused_stack_train forward and backward against their plain versions at
      the training shapes (intra, inter, and L=300 for the attention backward's
-     two-kernel route) in fp32 and bf16; the attention backward and the
-     weight gradient also give the same bits on a repeat;
+     two-kernel route) in fp32 and bf16; the attention backward, the
+     weight gradient and the LayerNorm backward also give the same bits on a
+     repeat;
   7. the training path: (a) loss and every gradient of make_loss_fn(fused=True)
      against the plain Sepformer under autograd, fp32, full width, B=2,
      T=125000; (b) 20 bf16 steps on one batch, fused against plain; (c) the
@@ -40,7 +43,11 @@ Phases (any failure exits non-zero and prints no result line):
      torch.matmul(a.t(), dy); the attention backward beside PyTorch's flash
      backward alone (and forward plus backward), with its launch (route,
      registers, local memory, blocks per SM; every L <= 256 instantiation must
-     have no local memory); the times before this slice's redesigns;
+     have no local memory); the LayerNorm backward against its bytes bound
+     and F.layer_norm's backward, with g_in bf16 and fp32, its launch (path,
+     grid, blocks per SM, rows a warp, registers, local memory) and every
+     instantiation's registers and local memory (none may use local memory);
+     the times before this slice's redesigns;
   8. the flash path (use_flash_attention=True, remat='layer'): (a) the flash
      forward and backward kernels against their plain versions at intra,
      inter (the backward's one-pass strip), L=300 and L=600 (its three
@@ -64,7 +71,8 @@ Phases (any failure exits non-zero and prints no result line):
      times beside the plain versions, torch._int_mm or SDPA, and the bounds,
      the int8 GEMM's time before its redesign;
  10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
-     every mode (bf16 also on the multi-pass route, at L=300) and the whole
+     every mode (bf16 also on the multi-pass route, at L=300; the LayerNorm
+     also for the same bits on a repeat) and the whole
      stripped forward in all 8 modes against the plain
      versions, and its three products on the GEMM kernel, at the shapes of the
      tool's own run, G=1008, Lp=D=256, 2 layers, 8 heads, fp32 twin and bf16;
@@ -73,7 +81,10 @@ Phases (any failure exits non-zero and prints no result line):
      time, the kernels' times beside a library call and the bounds, the
      attention's time before its redesign, and each mode's launch: route,
      registers, local memory and resident blocks per SM (every L <= 256
-     instantiation must have no local memory);
+     instantiation must have no local memory); the LayerNorm in each mode
+     against its bytes bound and its time before the redesign, with its
+     launch (route, grid, registers, local memory, blocks per SM; no staged
+     instantiation may use local memory);
  11. the trainer: train_net through parse_train_args, variant 'context', full
      width, --synthetic_smoke --bf16 --batch_size 16 --max_sp_len 16
      --flash_attention --remat layer with the whole augmentation chain, 9
@@ -185,13 +196,17 @@ LINEAR_EARLIER_MS = {"linear": (4.563, 4.578), "linear_relu_grad": (2.047, 2.095
                      "linear[kernel_parts]": 2.023}
 ATTENTION_EARLIER_MS = {"attention": (1.789, 1.110), "attention[w8a8]": (1.658, 1.068),
                         "attention[train]": (1.679, 1.106)}
-# the weight gradient and the attention backward before their redesign (PERF.md section 6, rows
-# 4a and 4e; NVIDIA H100 80GB HBM3, 700 W)
-TRAIN_EARLIER_MS = {"weight_grad": (2.614, 2.618), "attention_backward": (6.161, 3.789)}
+# the weight gradient, the attention backward and the LayerNorm backward before their redesign
+# (PERF.md section 6, rows 4a, 4e and 4d; NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_EARLIER_MS = {"weight_grad": (2.614, 2.618), "attention_backward": (6.161, 3.789),
+                    "layer_norm_backward": (1.088, 1.096)}
 # flash_bwd's three kernels and the mma.sync int8 GEMM before their redesign (PERF.md section 6,
 # rows 6 and 2b; NVIDIA H100 80GB HBM3, 700 W)
 FLASH_BWD_EARLIER_MS = {"intra": 4.984, "inter": 2.797}
 LINEAR_W8A8_EARLIER_MS = {"intra": 3.276, "inter": 3.316}
+# the tool's LayerNorm by mode before its redesign (PERF.md section 6, row 7a; NVIDIA H100 80GB
+# HBM3, 700 W)
+KP_LN_EARLIER_MS = {"none": 0.1341, "centred": 0.1333, "cd": 0.3522, "exact": 0.2988, "x2": 0.2848}
 # the kernels' symbols in the kernels line
 GEMM_SYMBOL = "linear_bf16_kernel<EPI> (wgmma + TMA, persistent, warp-specialised)"
 ATTENTION_SYMBOL = ("attention_strip_bf16_kernel<{}, 32, 16 or 8> (L <= 256); "
@@ -202,6 +217,10 @@ FLASH_BWD_SYMBOL = ("flash_bwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); flash_
 W8A8_SYMBOL = "linear_w8a8_kernel<EPI, NG> (wgmma s8 + TMA, persistent, warp-specialised)"
 ATTENTION_BWD_SYMBOL = ("attention_bwd_strip_bf16_kernel<32, 16 or 8> (L <= 256); attention_bwd_dq_bf16_kernel<32> + "
                         "attention_bwd_dkdv_bf16_kernel<32> (L > 256); + sum_rows_kernel")
+LN_BWD_SYMBOL = ("layer_norm_bwd_kernel<2, TG, TO> (persistent, tiles of 8 rows through a ring of bulk copies) + "
+                 "sum_rows_kernel")
+KP_LN_SYMBOL = ("kp_ln_rows_kernel (modes none, centred); kp_ln_staged_kernel<mode, 16> (bf16 cd, exact, x2: "
+                "persistent, tiles of 32 rows staged by bulk copies)")
 REPLACES = "cse_tpu/ops/fused_stack.py:79"  # _stack_kernel
 SOURCE = "cse_tpu_torch/csrc/fused_stack.cu"
 REPLACES_FWD = "cse_tpu/ops/fused_train.py:157"  # _fwd_kernel
@@ -472,6 +491,8 @@ def phase6(gen, failures, H, F_, NL):
                     check(f"layer_norm_backward {tag} {shape_name} g_out {tag}", kcd, pcd, cd, failures),
                     check(f"layer_norm_backward {tag} {shape_name} sums", ks, ps, torch.float32, failures))
             err["layer_norm_backward"] = max(err["layer_norm_backward"], e)
+            same_bits(f"layer_norm_backward {tag} {shape_name}", (k32, kcd, ks),
+                      ft.layer_norm_backward(dh, x, sc, g, torch.empty(M, D, device="cuda"), cd), failures)
             del x, dh, g, k32, kcd, p32, pcd
             stack = stack_module(NL, gen)
             xs = torch.randn(G, L, D, device="cuda", generator=gen)
@@ -681,7 +702,7 @@ def phase7_bench(gen, card):
             "peak_bytes": peak, "split_ms": split, "launches": counts, "profile": prof}
 
 
-def phase7_times(gen, card, H, F_, NL):
+def phase7_times(gen, card, H, F_, NL, ln_ptxas):
     """(d) each training kernel's time, plain time, library time and bound (bf16)."""
     from cse_tpu_torch.ops import fused_stack as fs
     from cse_tpu_torch.ops import fused_train as ft
@@ -781,12 +802,28 @@ def phase7_times(gen, card, H, F_, NL):
                       torch.zeros(D, device="cuda", requires_grad=True))
         with torch.enable_grad():
             y_ln = F.layer_norm(xr, (D,), wr, br, 1e-6)
+        # g_in bf16 in, g_out fp32 and bf16 out: 16 bytes an element (the last layer's LN2 call)
         t["layer_norm_backward"] = dict(
             ms=time_ms(lambda: ft.layer_norm_backward(dh, x, sc, g, out32, cd)),
             plain_ms=time_ms(lambda: ft.layer_norm_backward_plain(dh, x, sc, g, out32, cd), reps=3),
             library_ms=time_ms(lambda: torch.autograd.grad(y_ln, (xr, wr, br), dh, retain_graph=True)),
+            launch=ft.layer_norm_backward_info(M, D, g.dtype, cd),
             **bound(M * D * (4 + 4 + 2 + 4 + 2) + D * 4 + 4 * D * 4, 0))
-        del x, dh, g, out32, xr, y_ln
+        # the other layers' LN2 call: g_in fp32, 18 bytes an element
+        g32 = g.float()
+        ln18 = dict(ms=time_ms(lambda: ft.layer_norm_backward(dh, x, sc, g32, out32, cd)),
+                    **bound(M * D * (4 + 4 + 4 + 4 + 2) + D * 4 + 4 * D * 4, 0))
+        t["layer_norm_backward"]["g_in_fp32"] = ln18
+        lb = t["layer_norm_backward"]
+        log(f"  {shape_name} layer_norm_backward kernel {lb['ms']:.4f} ms ({lb['bound_ms'] / lb['ms']:.1%} of its "
+            f"bytes bound {lb['bound_ms']:.4f} ms), F.layer_norm backward {lb['library_ms']:.4f} ms; g_in fp32 "
+            f"{ln18['ms']:.4f} ms (bound {ln18['bound_ms']:.4f} ms)")
+        ln_launch = lb["launch"]
+        log(f"  {shape_name} layer_norm_backward launch: path {ln_launch['path']}, grid {ln_launch['grid']} = "
+            f"{ln_launch['blocks_per_sm']} blocks of {ln_launch['threads']} threads per SM, at most "
+            f"{ln_launch['rows_per_warp']} rows a warp, {ln_launch['smem_bytes']} B shared, "
+            f"{ln_launch['registers']} registers and {ln_launch['local_bytes']} B local memory a thread")
+        del x, dh, g, g32, out32, xr, y_ln
         stack = stack_module(NL, gen)
         xs = torch.randn(G, L, D, device="cuda", generator=gen)
         gy = torch.randn(G, L, D, device="cuda", generator=gen)
@@ -809,7 +846,8 @@ def phase7_times(gen, card, H, F_, NL):
         ab = t["attention_backward"]
         log(f"  {shape_name} attention_backward kernel {ab['ms']:.4f} ms  PyTorch flash backward alone "
             f"{fmt_ms(ab['library_ms'])}  SDPA forward + backward {ab['library_fwd_bwd_ms']:.4f} ms")
-        for kname in ("linear_relu_grad", "linear[dgrad]", "attention[train]", "weight_grad", "attention_backward"):
+        for kname in ("linear_relu_grad", "linear[dgrad]", "attention[train]", "weight_grad", "attention_backward",
+                      "layer_norm_backward"):
             earlier = (LINEAR_EARLIER_MS.get(kname) or ATTENTION_EARLIER_MS.get(kname)
                        or TRAIN_EARLIER_MS[kname])[shape_name == "inter"]
             log(f"  {shape_name} {kname} {t[kname]['ms']:.4f} ms; before the redesign {earlier} ms "
@@ -821,6 +859,16 @@ def phase7_times(gen, card, H, F_, NL):
     if any(spills.values()):
         fail(f"a strip instantiation of the attention backward spills to local memory: {spills}")
     times["strip_local_bytes"] = spills
+    # every instantiation of the LayerNorm backward (both paths, four dtype pairings)
+    ln_inst = {f"D={d} g_in {gn} g_out {on}": {k: v for k, v in ft.layer_norm_backward_info(INTRA[0] * INTRA[1], d, gd, od)
+                                              .items() if k in ("path", "registers", "local_bytes", "blocks_per_sm")}
+               for d in (256, 128, 64) for gn, gd in (("fp32", torch.float32), ("bf16", cd))
+               for on, od in (("fp32", torch.float32), ("bf16", cd))}
+    log(f"  layer_norm_backward instantiations: {ln_inst}")
+    log(f"  layer_norm_backward ptxas by instantiation: {ln_ptxas}")
+    if any(v["local_bytes"] for v in ln_inst.values()):
+        fail(f"an instantiation of the LayerNorm backward uses local memory: {ln_inst}")
+    times["layer_norm_backward_instantiations"] = ln_inst
     return times
 
 
@@ -1284,8 +1332,9 @@ def phase10_kernels(gen, failures):
         x, w, f1, f2, jmat = make_inputs(G, Lp, D, NL, cd)
         r = (3 * torch.randn(M, D, device="cuda", generator=gen) + 0.5).contiguous()
         for ln_mode in kp.LN_MODES:
-            e = check(f"kp_layer_norm {tag} {ln_mode}", kp.kp_layer_norm(r, jmat, ln_mode, cd),
-                      kp.kp_layer_norm_plain(r, jmat, ln_mode, cd), cd, failures)
+            got = kp.kp_layer_norm(r, jmat, ln_mode, cd)
+            e = check(f"kp_layer_norm {tag} {ln_mode}", got, kp.kp_layer_norm_plain(r, jmat, ln_mode, cd), cd, failures)
+            same_bits(f"kp_layer_norm {tag} {ln_mode}", (got,), (kp.kp_layer_norm(r, jmat, ln_mode, cd),), failures)
             err["kp_layer_norm"] = max(err["kp_layer_norm"], e)
         qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
         for sm_mode in kp.SOFTMAX_MODES:
@@ -1384,7 +1433,21 @@ def phase10_tool(gen, card):
         ms=ln_ms["centred"], by_mode_ms=ln_ms,
         plain_ms=time_ms(lambda: kp.kp_layer_norm_plain(r, jmat, "centred", cd), reps=3),
         library_ms=time_ms(lambda: F.layer_norm(r, (D,), None, None, 1e-6)),
+        launch={m: kp.kp_layer_norm_info(M, D, m, cd) for m in kp.LN_MODES},
         **bound_of(M * D * (4 + 2), 0))
+    ln_bound = t["kp_layer_norm"]["bound_ms"]
+    for m, ms in ln_ms.items():  # every mode moves the same bytes: x fp32 in, bf16 out
+        li = t["kp_layer_norm"]["launch"][m]
+        log(f"  kp_layer_norm {m:<8s} {ms:.4f} ms ({ln_bound / ms:.1%} of its bytes bound {ln_bound:.4f} ms; before "
+            f"the redesign {KP_LN_EARLIER_MS[m]} ms, PERF.md, NVIDIA H100 80GB HBM3, 700 W): route {li['route']}, "
+            f"grid {li['grid']}, {li['threads']} threads and {li['rows_per_block']} rows a block at a time, "
+            f"{li['smem_bytes']} B shared, {li['registers']} registers and {li['local_bytes']} B local memory a "
+            f"thread, {li['blocks_per_sm']} blocks per SM")
+    staged_local = {f"{m} D={d}": kp.kp_layer_norm_info(M, d, m, cd)["local_bytes"]
+                    for m in ("cd", "exact", "x2") for d in (64, 256, 512, 1024)}
+    log(f"  kp_layer_norm staged instantiations, local-memory bytes a thread: {staged_local}")
+    if any(staged_local.values()):
+        fail(f"a staged instantiation of kp_layer_norm uses local memory: {staged_local}")
     qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
     # SDPA's yardstick takes bf16 q, k, v already split by head: no fp32 read, no residual add
     q, k, v = (a.to(cd) for a in qkv.reshape(G, Lp, 3, H, hd).permute(2, 0, 3, 1, 4))
@@ -1596,6 +1659,33 @@ def phase12_kernels(gen, failures):
                 same_bits(f"flash_bwd {tag} {shape_name} ({at.flash_bwd_info(L, hd)['route']})", got,
                           at.flash_bwd(q, k, v, po, plse, do), failures)
             del q, k, v, do, o, lse, po, plse, got, want
+            # the LayerNorms: the forward, and the backward as the fused step calls it (ln2: g_in in cd or
+            # fp32 into a fresh fp32 g_out; ln1: fp32 g_in updated in place)
+            x = 3 * torch.randn(M, D, device="cuda", generator=gen)
+            sc, bs = (1 + 0.1 * torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+            got = fs.layer_norm(x, sc, bs, cd)
+            held("layer_norm", check(f"layer_norm {tag} {shape_name} [{M},{D}]", got,
+                                     fs.layer_norm_plain(x, sc, bs, cd), cd, failures))
+            same_bits(f"layer_norm {tag} {shape_name}", (got,), (fs.layer_norm(x, sc, bs, cd),), failures)
+            dh = torch.randn(M, D, device="cuda", generator=gen)
+            g32 = torch.randn(M, D, device="cuda", generator=gen)
+            for gname, g, in_place in (("g_in bf16", g32.bfloat16(), False), ("g_in fp32", g32, False),
+                                       ("g_in fp32 in place", g32, True)):
+                name = f"layer_norm_backward {tag} {shape_name} [{M},{D}] {gname}"
+                out_cd = None if in_place and cd == torch.float32 else cd  # ln1 of the fp32 step: no cd copy
+
+                def run(kernel, g=g, in_place=in_place, out_cd=out_cd):
+                    gi = g.clone()
+                    return kernel(dh, x, sc, gi, gi if in_place else torch.empty(M, D, device="cuda"), out_cd)
+
+                (k32, kcd, ks), (p32, pcd, ps) = run(ft.layer_norm_backward), run(ft.layer_norm_backward_plain)
+                held("layer_norm_backward", check(f"{name} g_out fp32", k32, p32, torch.float32, failures))
+                if out_cd is not None:
+                    held("layer_norm_backward", check(f"{name} g_out cd ({tag})", kcd, pcd, cd, failures))
+                held("layer_norm_backward", check(f"{name} sums", ks, ps, torch.float32, failures))
+                same_bits(name, [t for t in (k32, kcd, ks) if t is not None],
+                          [t for t in run(ft.layer_norm_backward) if t is not None], failures)
+            del x, got, dh, g32, k32, kcd, ks, p32, pcd, ps
             if shape_name == "2 s inter":
                 continue
             # the forward's four products and the backward's three dX products
@@ -1727,6 +1817,12 @@ def main() -> int:
         log(f"  {kname} (wgmma + TMA), ptxas: {gemm}")
         if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
             fail(f"{kname} spills, is serialised or is missing from the ptxas report: {gemm}")
+
+    ln_ptxas = {k: ptxas_of(report.getvalue(), k) for k in ("layer_norm_bwd", "kp_ln_staged_kernel")}
+    for kname, inst in ln_ptxas.items():
+        log(f"  {kname}, ptxas by instantiation: {inst}")
+        if not inst or any(g["spill_bytes"] for g in inst.values()):
+            fail(f"{kname} spills or is missing from the ptxas report: {inst}")
 
     failures: list[str] = []
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1914,7 +2010,7 @@ def main() -> int:
         train_err = phase6(gen, failures, H, F_, NL)
         phase7_parity(gen, failures)
         bench = phase7_bench(gen, card)
-        ttimes = phase7_times(gen, card, H, F_, NL)
+        ttimes = phase7_times(gen, card, H, F_, NL, ln_ptxas["layer_norm_bwd"])
         t0 = time.time()
         flash_err = phase8_kernels(gen, failures)
         flash_parity = phase8_parity(gen, failures)
@@ -1973,7 +2069,7 @@ def main() -> int:
          "linear_relu_grad",
          "dpre = relu'(h) * (dy W2^T) and its column sums; one call"),
         ("layer_norm_backward", "layer_norm_backward", SOURCE_TRAIN, REPLACES_BWD,
-         "layer_norm_bwd_kernel + sum_rows_kernel", ttimes, "layer_norm_backward", "layer_norm_backward",
+         LN_BWD_SYMBOL, ttimes, "layer_norm_backward", "layer_norm_backward",
          "one LN backward with its dscale, dbias and bias sums; one call"),
         ("attention_backward", "attention_backward", SOURCE_TRAIN, REPLACES_BWD, ATTENTION_BWD_SYMBOL,
          ttimes, "attention_backward", "attention_backward",
@@ -2023,7 +2119,7 @@ def main() -> int:
         })
     # the kernel-parts tool (launches of the tool's own run, [10b])
     tool_parts = (
-        ("kp_layer_norm", "kp_layer_norm", SOURCE_PARTS, "kp_ln_rows_kernel / kp_ln_mma_kernel", "kp_layer_norm",
+        ("kp_layer_norm", "kp_layer_norm", SOURCE_PARTS, KP_LN_SYMBOL, "kp_layer_norm",
          "ln (:29-55) in mode 'centred', one launch; every mode in 'by_mode_ms'"),
         ("kp_attention", "kp_attention", SOURCE_PARTS,
          "kp_attention_strip_bf16_kernel<mode, 16 or 8> (L <= 256); kp_attention_bf16_kernel (L > 256)",
@@ -2045,7 +2141,7 @@ def main() -> int:
     # the one-pass attentions carry their launch: route, registers, local memory, blocks per SM
     # ([5], [7d], [8d], [9c], [10b]); the GEMMs their like-for-like yardstick, torch.addmm ([5], [7d], [10b])
     launch_of = {"flash_fwd": (ftimes, "flash_fwd"), "flash_bwd": (ftimes, "flash_bwd"),
-                 "attention": (times, "attention"),
+                 "attention": (times, "attention"), "layer_norm_backward": (ttimes, "layer_norm_backward"),
                  "attention[train]": (ttimes, "attention[train]"), "attention[w8a8]": (wtimes, "attention[w8a8]"),
                  "attention_backward": (ttimes, "attention_backward")}
     fwd_bwd_of = {"attention_backward": ttimes, "flash_bwd": ftimes}  # SDPA forward + backward, the second yardstick
@@ -2056,8 +2152,8 @@ def main() -> int:
             tset, key = launch_of[name]
             entry["launch"] = tset["intra"][key]["launch"]
             entry["inter"]["launch"] = tset["inter"][key]["launch"]
-        elif name == "kp_attention":
-            entry["launch"] = parts["times"]["kp_attention"]["launch"]
+        elif name in ("kp_attention", "kp_layer_norm"):
+            entry["launch"] = parts["times"][name]["launch"]
         if name in fwd_bwd_of:
             entry["library_fwd_bwd_ms"] = fwd_bwd_of[name]["intra"][name]["library_fwd_bwd_ms"]
             entry["inter"]["library_fwd_bwd_ms"] = fwd_bwd_of[name]["inter"][name]["library_fwd_bwd_ms"]

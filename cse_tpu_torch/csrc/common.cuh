@@ -1,5 +1,6 @@
 // Device helpers shared by the kernel sources: type conversion, warp
-// reductions, cp.async, ldmatrix and the bf16 mma.sync m16n8k16, the
+// reductions, streaming loads and stores, cp.async, one-dimensional bulk
+// copies, ldmatrix and the bf16 mma.sync m16n8k16, the
 // head-width fragments of the attention kernels (any head width that is a
 // multiple of 8: a half k-step is zero-padded inside the fragment), ex2, the
 // row max and exp of a warp's score strip, the staging of fp32 rows as bf16
@@ -38,10 +39,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+// N warp sums side by side: each value's butterfly is warp_sum's, the
+// shuffles of the N interleaved
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(FULL, v[i], o);
+}
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
+}
+
+// Loads and stores with the streaming hint (ld/st .cs: evict-first in L1 and
+// L2), for data a kernel touches once: a value as fp32; VEC (1 or 4)
+// consecutive values from fp32, VEC 4 as one 16-byte (fp32) or 8-byte (bf16)
+// store.
+__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_stream(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+template <int VEC>
+__device__ __forceinline__ void st_stream(float* p, const float* v) {
+  if constexpr (VEC == 4) __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else __stcs(p, v[0]);
+}
+template <int VEC>
+__device__ __forceinline__ void st_stream(bf16* p, const float* v) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(*reinterpret_cast<const unsigned*>(&a), *reinterpret_cast<const unsigned*>(&b)));
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v[0])));
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -347,6 +381,18 @@ __device__ __forceinline__ void fence_barrier_init() {
 }
 // generic-proxy writes to shared memory -> visible to TMA (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) global -> shared by the bulk-copy engine, completing on bar;
+// under an L2 evict-first policy: the kernels that use it read each byte once.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
 
 // 2-D tile: global (c0 = inner coordinate, c1 = outer) -> shared, completing on bar
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {

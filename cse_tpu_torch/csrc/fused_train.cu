@@ -17,12 +17,13 @@
 //       over (tile, slab) units (its design below); fp32 on CUDA-core FMAs,
 //       ~528 blocks of 64 x 64 tiles. Bound by bytes at the main path's
 //       shapes (2 (K + N) bytes a row against 2 K N flops).
-//   (b) layer_norm_bwd_kernel: one warp per row; recomputes xhat and 1/std
-//       from the fp32 LN input, forms dx = inv*(dxhat - mean(dxhat) -
-//       xhat*mean(dxhat*xhat)), adds it to the residual gradient
-//       (g_out = g_in + dx, fp32 and/or cd) and writes per-block partials of
-//       dscale, dbias and the column sums of g_in and g_out (the two
-//       residual-branch bias gradients). Bound by bytes.
+//   (b) layer_norm_bwd_kernel: a persistent grid of warps, each taking
+//       rows in a fixed order with the next row's loads in flight; recomputes
+//       xhat and 1/std from the fp32 LN input, forms dx = inv*(dxhat -
+//       mean(dxhat) - xhat*mean(dxhat*xhat)), adds it to the residual
+//       gradient (g_out = g_in + dx, fp32 and/or cd) and writes per-block
+//       partials of dscale, dbias and the column sums of g_in and g_out (the
+//       two residual-branch bias gradients). Bound by bytes (its design below).
 //   (c) bf16 at L <= 256, attention_bwd_strip_bf16_kernel: one block per
 //       (sequence, head), one pass, delta kept in the block (its design
 //       below). Beyond, and for fp32, attention_bwd_dq_*_kernel and
@@ -220,87 +221,319 @@ wgrad_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float
 }
 
 // ---------------------------------------------------------------- (b) LayerNorm backward
+// A stream of bytes: the main path's calls read dh and x (fp32) and g_in
+// (bf16 or fp32) and write g_out (fp32 and/or cd), 14-18 bytes an element
+// against ~20 flops, so the design is about bytes in flight:
+//   - persistent: LNB_THREADS-thread blocks, as many as fit the card at once
+//     (SMs x the occupancy query's blocks per SM, ops/fused_train.py::
+//     ln_bwd_plan); rows go to warps in a fixed order;
+//   - D % 128 == 0 (and 16-byte aligned tensors), layer_norm_bwd_kernel:
+//     tiles of LNB_WARPS consecutive rows (tile t: blockIdx.x, + gridDim.x,
+//     ...) come through a ring of LNB_STAGES stages in shared memory, one
+//     bulk copy of each input a tile (rows are contiguous), started by
+//     thread 0 under an L2 evict-first policy, LNB_STAGES - 1 tiles ahead;
+//     warp w takes row w of a tile, its lane l columns 4 l + 128 j (16-byte
+//     reads of the staged row; the outputs leave 16 bytes a lane fp32, 8
+//     bf16, 512 contiguous bytes a warp, with the streaming hint), and
+//     arrives on the stage's empty barrier, which thread 0 waits on before
+//     it refills the stage. Every input of a row is in shared memory before
+//     any reduction of it. (Loading the next row into registers before this
+//     row's reductions instead ran 1.3% slower at 16 bytes an element and
+//     0.8% faster at 14, in turns on an NVIDIA H100 80GB HBM3 at 700 W:
+//     PERF.md.)
+//   - other D % 32 == 0 up to LNB_MAXD, layer_norm_bwd_narrow_kernel: warp w
+//     of the grid's W takes rows w, w + W, ..., lane l columns l + 32 j,
+//     masked, the next row's loads sent before this row's reductions;
+//   - the four column sums (dscale, dbias, colsum(g_in), colsum(g_out)) of a
+//     lane's columns stay in registers over the warp's rows, the warps meet
+//     in shared memory in warp order, one partial row per block, and
+//     sum_rows_kernel adds the blocks' rows in order: the same bits every run.
+// The arithmetic is _ln_bwd's (cse_tpu/ops/fused_train.py:77): mean, the
+// centred variance, dx = inv * (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+// g_out = g_in + dx.
 constexpr int LNB_MAXD = 256;  // columns per row (D % 32 == 0, D <= 256)
+constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32;
+constexpr int LNB_STAGES = 4;  // tiles of LNB_WARPS rows in flight a block (the wide path)
 
-// One warp per row (grid-strided, 8 warps per block). dh: grad of the LN
-// output (fp32); x: the LN input (fp32); scale: LN scale (fp32). g_out32 may
-// alias g_in (fp32). part[blockIdx.x][4][D]: sums over the block's rows of
-// dh * xhat, dh, g_in, g_out.
+enum LnbPath { LNB_NARROW = 0, LNB_WIDE = 1 };
+
+// the columns of a row a lane owns: VEC consecutive ones in each of NJ chunks
+template <int VEC, int NJ>
+struct LnbCols {
+  __device__ static int col(int lane, int j) { return VEC * lane + 32 * VEC * j; }
+};
+
+// one row's inputs, as fp32 in registers
+template <int N>
+struct LnbRow {
+  float x[N], dy[N], g[N];
+};
+
+// the narrow path: one row's inputs, a column l + 32 j a lane (zeros past D or M)
+template <int NJ, typename TG>
+__device__ __forceinline__ void lnb_load(LnbRow<NJ>& r, const float* __restrict__ dh, const float* __restrict__ x,
+                                         const TG* g_in, long long row, long long M, int D, int lane) {
+  const long long o = row * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = lane + 32 * j;
+    const bool in = row < M && c < D;
+    r.x[j] = in ? ld_stream(x + o + c) : 0.f;
+    r.dy[j] = in ? ld_stream(dh + o + c) : 0.f;
+    r.g[j] = in ? ld_stream(g_in + o + c) : 0.f;
+  }
+}
+
+// The backward of one row from its inputs in registers: writes g_out and adds
+// the row into the lane's column sums ps (dy * xhat), pb (dy), pgi, pgo.
+template <int VEC, int NJ, typename TO>
+__device__ __forceinline__ void lnb_row(LnbRow<VEC * NJ>& r, const float (&sc)[VEC * NJ], long long row, int D,
+                                        float eps, int lane, float* g_out32, TO* __restrict__ g_out_cd,
+                                        float (&ps)[VEC * NJ], float (&pb)[VEC * NJ], float (&pgi)[VEC * NJ],
+                                        float (&pgo)[VEC * NJ]) {
+  constexpr int N = VEC * NJ;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s += r.x[i];
+  const float mean = warp_sum(s) / D;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float d = LnbCols<VEC, NJ>::col(lane, i / VEC) + i % VEC < D ? r.x[i] - mean : 0.f;
+    v += d * d;
+  }
+  const float inv = 1.0f / sqrtf(warp_sum(v) / D + eps);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    r.x[i] = (r.x[i] - mean) * inv;  // xhat
+    const float dxh = r.dy[i] * sc[i];
+    s1 += dxh;
+    s2 += dxh * r.x[i];
+  }
+  float m[2] = {s1, s2};
+  warp_sums(m);
+  const float m1 = m[0] / D, m2 = m[1] / D;
+  const long long o = row * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = LnbCols<VEC, NJ>::col(lane, j);
+    if (c >= D) continue;
+    float go[VEC];
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const int i = VEC * j + u;
+      const float dx = inv * (r.dy[i] * sc[i] - m1 - r.x[i] * m2);
+      go[u] = r.g[i] + dx;
+      ps[i] += r.dy[i] * r.x[i];
+      pb[i] += r.dy[i];
+      pgi[i] += r.g[i];
+      pgo[i] += go[u];
+    }
+    if (g_out32) st_stream<VEC>(g_out32 + o + c, go);
+    if (g_out_cd) st_stream<VEC>(g_out_cd + o + c, go);
+  }
+}
+
+// The block's column sums: the warps' in shared memory (red: [LNB_WARPS][4][D]
+// floats), added in warp order into part[blockIdx.x][4][D].
+template <int VEC, int NJ>
+__device__ __forceinline__ void lnb_block_sums(float* red, const float (&ps)[VEC * NJ], const float (&pb)[VEC * NJ],
+                                               const float (&pgi)[VEC * NJ], const float (&pgo)[VEC * NJ],
+                                               float* __restrict__ part, int D, int warp, int lane) {
+  float* mine = red + (long long)warp * 4 * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      const int c = LnbCols<VEC, NJ>::col(lane, j) + u, i = VEC * j + u;
+      if (c >= D) continue;
+      mine[c] = ps[i];
+      mine[D + c] = pb[i];
+      mine[2 * D + c] = pgi[i];
+      mine[3 * D + c] = pgo[i];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 4 * D; e += LNB_THREADS) {
+    float t = red[e];
+#pragma unroll
+    for (int w = 1; w < LNB_WARPS; ++w) t += red[(long long)w * 4 * D + e];
+    part[(long long)blockIdx.x * 4 * D + e] = t;
+  }
+}
+
+// dh: grad of the LN output (fp32); x: the LN input (fp32); scale: LN scale
+// (fp32). g_out32 may alias g_in (fp32): a row is read whole before it is
+// written. Dynamic shared memory: lnb_red_bytes() (the narrow path) or the
+// ring (the wide path), which the block sums reuse.
 template <typename TG, typename TO>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(LNB_THREADS)
+layer_norm_bwd_narrow_kernel(const float* __restrict__ dh, const float* __restrict__ x,
+                             const float* __restrict__ scale, const TG* g_in, float* g_out32,
+                             TO* __restrict__ g_out_cd, float* __restrict__ part, long long M, int D,
+                             float eps) {
+  constexpr int NJ = LNB_MAXD / 32;
+  extern __shared__ __align__(16) float lnb_red[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float ps[NJ], pb[NJ], pgi[NJ], pgo[NJ], sc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    ps[j] = pb[j] = pgi[j] = pgo[j] = 0.f;
+    sc[j] = lane + 32 * j < D ? scale[lane + 32 * j] : 0.f;
+  }
+  const long long W = (long long)gridDim.x * LNB_WARPS;
+  long long row = (long long)blockIdx.x * LNB_WARPS + warp;
+  LnbRow<NJ> cur;
+  lnb_load<NJ>(cur, dh, x, g_in, row, M, D, lane);
+  for (; row < M; row += W) {
+    LnbRow<NJ> next;  // the next row's loads go out before this row's reductions
+    lnb_load<NJ>(next, dh, x, g_in, row + W, M, D, lane);
+    lnb_row<1, NJ>(cur, sc, row, D, eps, lane, g_out32, g_out_cd, ps, pb, pgi, pgo);
+    cur = next;
+  }
+  lnb_block_sums<1, NJ>(lnb_red, ps, pb, pgi, pgo, part, D, warp, lane);
+}
+
+// the wide path: the bytes of a stage (x, dh fp32 and g_in of LNB_WARPS rows)
+template <typename TG>
+__host__ __device__ constexpr size_t lnb_stage_bytes(int D) { return (size_t)LNB_WARPS * D * (8 + sizeof(TG)); }
+
+// the wide path (D = 128 NJ): see the design note above
+template <int NJ, typename TG, typename TO>
+__global__ void __launch_bounds__(LNB_THREADS)
 layer_norm_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ x,
                       const float* __restrict__ scale, const TG* g_in, float* g_out32,
                       TO* __restrict__ g_out_cd, float* __restrict__ part, long long M, int D,
                       float eps) {
-  constexpr int NPL = LNB_MAXD / 32;
-  __shared__ float red[8][4][LNB_MAXD];
+  constexpr int VEC = 4, N = VEC * NJ;
+  extern __shared__ __align__(128) unsigned char lnb_ring[];
+  __shared__ __align__(8) uint64_t full[LNB_STAGES], empty[LNB_STAGES];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float ps[NPL], pb[NPL], pgi[NPL], pgo[NPL], sc[NPL];
+  const size_t stage = lnb_stage_bytes<TG>(D);
+  const long long tiles = (M + LNB_WARPS - 1) / LNB_WARPS;
+  float ps[N], pb[N], pgi[N], pgo[N], sc[N];
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    ps[j] = pb[j] = pgi[j] = pgo[j] = 0.f;
-    sc[j] = lane + 32 * j < D ? scale[lane + 32 * j] : 0.f;
-  }
-  for (long long row = (long long)blockIdx.x * 8 + warp; row < M; row += (long long)gridDim.x * 8) {
-    const long long o = row * D;
-    float xv[NPL], dy[NPL];
-    float s = 0.f;
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      const int c = lane + 32 * j;
-      xv[j] = c < D ? x[o + c] : 0.f;
-      dy[j] = c < D ? dh[o + c] : 0.f;
-      s += xv[j];
+    for (int u = 0; u < VEC; ++u) {
+      const int i = VEC * j + u;
+      ps[i] = pb[i] = pgi[i] = pgo[i] = 0.f;
+      sc[i] = scale[LnbCols<VEC, NJ>::col(lane, j) + u];
     }
-    const float mean = warp_sum(s) / D;
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      const float d = lane + 32 * j < D ? xv[j] - mean : 0.f;
-      v += d * d;
+  const uint64_t policy = l2_evict_first();
+  unsigned char* const ring = lnb_ring;
+  uint64_t* const fullb = full;
+  auto load_tile = [&](long long t, int s) {  // thread 0: tile t into stage s
+    const long long r0 = t * LNB_WARPS;
+    const unsigned rows = (unsigned)min((long long)LNB_WARPS, M - r0);
+    unsigned char* base = ring + s * stage;
+    mbar_expect_tx(fullb + s, (unsigned)(rows * D * (8 + sizeof(TG))));
+    bulk_load(base, x + r0 * D, rows * D * 4, fullb + s, policy);
+    bulk_load(base + (size_t)LNB_WARPS * D * 4, dh + r0 * D, rows * D * 4, fullb + s, policy);
+    bulk_load(base + (size_t)LNB_WARPS * D * 8, g_in + r0 * D, rows * D * (unsigned)sizeof(TG), fullb + s, policy);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LNB_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], LNB_WARPS);
     }
-    const float inv = 1.0f / sqrtf(warp_sum(v) / D + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      xv[j] = (xv[j] - mean) * inv;  // xhat
-      const float dxh = dy[j] * sc[j];
-      s1 += dxh;
-      s2 += dxh * xv[j];
-    }
-    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-#pragma unroll
-    for (int j = 0; j < NPL; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= D) continue;
-      const float dx = inv * (dy[j] * sc[j] - m1 - xv[j] * m2);
-      const float gi = to_f(g_in[o + c]);
-      const float go = gi + dx;
-      if (g_out32) g_out32[o + c] = go;
-      if (g_out_cd) g_out_cd[o + c] = from_f<TO>(go);
-      ps[j] += dy[j] * xv[j];
-      pb[j] += dy[j];
-      pgi[j] += gi;
-      pgo[j] += go;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c >= D) continue;
-    red[warp][0][c] = ps[j];
-    red[warp][1][c] = pb[j];
-    red[warp][2][c] = pgi[j];
-    red[warp][3][c] = pgo[j];
+    fence_barrier_init();
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < 4 * D; e += 256) {
-    const int q = e / D, c = e % D;
-    float t = red[0][q][c];
+  if (threadIdx.x == 0)
+    for (int s = 0; s < LNB_STAGES; ++s)
+      if (blockIdx.x + (long long)s * gridDim.x < tiles) load_tile(blockIdx.x + (long long)s * gridDim.x, s);
+  int k = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    const int s = k % LNB_STAGES;
+    const unsigned parity = (k / LNB_STAGES) & 1;
+    mbar_wait(&full[s], parity);
+    const long long row = t * LNB_WARPS + warp;
+    if (row < M) {
+      const unsigned char* base = lnb_ring + s * stage;
+      const float* xs = reinterpret_cast<const float*>(base) + warp * D;
+      const float* ds = reinterpret_cast<const float*>(base + (size_t)LNB_WARPS * D * 4) + warp * D;
+      const TG* gs = reinterpret_cast<const TG*>(base + (size_t)LNB_WARPS * D * 8) + warp * D;
+      LnbRow<N> cur;
 #pragma unroll
-    for (int w = 1; w < 8; ++w) t += red[w][q][c];
-    part[((long long)blockIdx.x * 4 + q) * D + c] = t;
+      for (int j = 0; j < NJ; ++j) {
+        const int c = LnbCols<VEC, NJ>::col(lane, j);
+        const float4 a = *reinterpret_cast<const float4*>(xs + c), b = *reinterpret_cast<const float4*>(ds + c);
+        cur.x[4 * j] = a.x, cur.x[4 * j + 1] = a.y, cur.x[4 * j + 2] = a.z, cur.x[4 * j + 3] = a.w;
+        cur.dy[4 * j] = b.x, cur.dy[4 * j + 1] = b.y, cur.dy[4 * j + 2] = b.z, cur.dy[4 * j + 3] = b.w;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) cur.g[VEC * j + u] = to_f(gs[c + u]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      lnb_row<VEC, NJ>(cur, sc, row, D, eps, lane, g_out32, g_out_cd, ps, pb, pgi, pgo);
+    } else if (lane == 0) {
+      mbar_arrive(&empty[s]);
+    }
+    if (threadIdx.x == 0 && t + (long long)LNB_STAGES * gridDim.x < tiles) {
+      mbar_wait(&empty[s], parity);
+      load_tile(t + (long long)LNB_STAGES * gridDim.x, s);
+    }
   }
+  __syncthreads();  // every staged tile was waited on: the ring is free for the sums
+  lnb_block_sums<VEC, NJ>(reinterpret_cast<float*>(lnb_ring), ps, pb, pgi, pgo, part, D, warp, lane);
+}
+
+inline size_t lnb_red_bytes(int D) { return (size_t)LNB_WARPS * 4 * D * sizeof(float); }
+
+// The launch of a path and dtype pairing: the kernel, its dynamic shared
+// bytes, and whether it may take them. A wide instantiation serves one D
+// (NJ = 1: 128, NJ = 2: 256), so its opt-in is made once; the narrow path's
+// bytes stay under the default limit.
+struct LnbLaunch {
+  const void* fn;
+  size_t smem;
+  cudaError_t err;
+};
+
+static_assert(LNB_WARPS * 4 * LNB_MAXD * sizeof(float) <= 48 * 1024, "the narrow path needs no opt-in");
+
+template <typename TG, typename TO>
+LnbLaunch lnb_launch(int path, int D) {
+  if (path == LNB_NARROW)
+    return {(const void*)layer_norm_bwd_narrow_kernel<TG, TO>, lnb_red_bytes(D), cudaSuccess};
+  const size_t ring = LNB_STAGES * lnb_stage_bytes<TG>(D);
+  const size_t smem = ring > lnb_red_bytes(D) ? ring : lnb_red_bytes(D);
+  static bool ready1 = false, ready2 = false;
+  if (D == 128)
+    return {(const void*)layer_norm_bwd_kernel<1, TG, TO>, smem,
+            allow_smem(layer_norm_bwd_kernel<1, TG, TO>, smem, ready1)};
+  return {(const void*)layer_norm_bwd_kernel<2, TG, TO>, smem,
+          allow_smem(layer_norm_bwd_kernel<2, TG, TO>, smem, ready2)};
+}
+
+// the path a launch takes: the wide one for D % 128 == 0 with 16-byte aligned tensors
+inline int lnb_path(int D, bool aligned) { return D % 128 == 0 && aligned ? LNB_WIDE : LNB_NARROW; }
+
+inline bool aligned16(const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return true;
+}
+
+template <typename TG, typename TO>
+cudaError_t launch_lnb(int path, const float* dh, const float* x, const float* sc, const void* g_in, float* g_out32,
+                       void* g_out_cd, float* part, long long M, int D, float eps, int blocks, cudaStream_t st) {
+  const LnbLaunch l = lnb_launch<TG, TO>(path, D);
+  if (l.err != cudaSuccess) return l.err;
+  const TG* g = static_cast<const TG*>(g_in);
+  TO* o = static_cast<TO*>(g_out_cd);
+  void* args[] = {&dh, &x, &sc, &g, &g_out32, &o, &part, &M, &D, &eps};
+  return cudaLaunchKernel(l.fn, dim3(blocks), dim3(LNB_THREADS), args, l.smem, st);
+}
+
+// dispatch on the dtype pairing: g_in bf16 or fp32, g_out_cd bf16 or fp32
+template <class F>
+cudaError_t by_lnb_dtypes(int g_in_bf16, int out_bf16, F&& f) {
+  if (g_in_bf16 && out_bf16) return f(bf16{}, bf16{});
+  if (g_in_bf16) return f(bf16{}, float{});
+  if (out_bf16) return f(float{}, bf16{});
+  return f(float{}, float{});
 }
 
 // ---------------------------------------------------------------- (c) attention backward
@@ -1219,31 +1452,44 @@ int cse_weight_grad(const void* a, const void* dy, void* partials, void* dw, int
   return (int)launch_sum_rows(part, static_cast<float*>(dw), slabs, (long long)K * N, st);
 }
 
-// LayerNorm backward, see layer_norm_bwd_kernel. g_in is bf16 when g_in_bf16
-// else fp32; g_out32 (fp32, may alias an fp32 g_in) and g_out_cd (bf16 when
-// out_bf16 else fp32) may each be null. partials: [blocks, 4, D];
-// sums: [4, D] = dscale, dbias, colsum(g_in), colsum(g_out).
+// LayerNorm backward, see (b). g_in is bf16 when g_in_bf16 else fp32; g_out32
+// (fp32, may alias an fp32 g_in) and g_out_cd (bf16 when out_bf16 else fp32)
+// may each be null. partials: [blocks, 4, D] (ops/fused_train.py::ln_bwd_plan
+// sizes the grid); sums: [4, D] = dscale, dbias, colsum(g_in), colsum(g_out).
 int cse_layer_norm_bwd(const void* dh, const void* x, const void* scale, const void* g_in, void* g_out32,
                        void* g_out_cd, void* partials, void* sums, int g_in_bf16, int out_bf16,
                        long long M, int D, float eps, int blocks, void* stream) {
-  if (D % 32 || D > LNB_MAXD) return (int)cudaErrorInvalidValue;
+  if (D % 32 || D > LNB_MAXD || M < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* dhf = static_cast<const float*>(dh);
-  const float* xf = static_cast<const float*>(x);
-  const float* sf = static_cast<const float*>(scale);
-  float* go = static_cast<float*>(g_out32);
+  const void* ptrs[] = {dh, x, g_in, g_out32, g_out_cd};
+  const int path = lnb_path(D, aligned16(ptrs, 5));
   float* part = static_cast<float*>(partials);
-#define CSE_LNB(TG, TO)                                                                              \
-  layer_norm_bwd_kernel<TG, TO><<<blocks, 256, 0, st>>>(dhf, xf, sf, static_cast<const TG*>(g_in), go, \
-                                                        static_cast<TO*>(g_out_cd), part, M, D, eps)
-  if (g_in_bf16 && out_bf16) CSE_LNB(bf16, bf16);
-  else if (g_in_bf16) CSE_LNB(bf16, float);
-  else if (out_bf16) CSE_LNB(float, bf16);
-  else CSE_LNB(float, float);
-#undef CSE_LNB
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = by_lnb_dtypes(g_in_bf16, out_bf16, [&](auto tg, auto to) {
+    return launch_lnb<decltype(tg), decltype(to)>(path, static_cast<const float*>(dh), static_cast<const float*>(x),
+                                                  static_cast<const float*>(scale), g_in, static_cast<float*>(g_out32),
+                                                  g_out_cd, part, M, D, eps, blocks, st);
+  });
   if (e != cudaSuccess) return (int)e;
   return (int)launch_sum_rows(part, static_cast<float*>(sums), blocks, 4LL * D, st);
+}
+
+// info[7] of the LayerNorm backward cse_layer_norm_bwd launches for D and a
+// dtype pairing, with every tensor 16-byte aligned when aligned else not: its
+// path (LnbPath), threads, rows a block takes at a time, dynamic shared
+// bytes, registers a thread, local-memory bytes a thread, resident blocks per
+// SM.
+int cse_layer_norm_bwd_info(int D, int g_in_bf16, int out_bf16, int aligned, int* info) {
+  if (D % 32 || D > LNB_MAXD || D < 32) return (int)cudaErrorInvalidValue;
+  const int path = lnb_path(D, aligned != 0);
+  return (int)by_lnb_dtypes(g_in_bf16, out_bf16, [&](auto tg, auto to) {
+    const LnbLaunch l = lnb_launch<decltype(tg), decltype(to)>(path, D);
+    if (l.err != cudaSuccess) return l.err;
+    info[0] = path;
+    info[1] = LNB_THREADS;
+    info[2] = LNB_WARPS;
+    info[3] = (int)l.smem;
+    return kernel_info(l.fn, LNB_THREADS, l.smem, info + 4);
+  });
 }
 
 // Attention backward, see (c). dqkv: [G*L, 3*H*hd] (bf16 when bf16 else

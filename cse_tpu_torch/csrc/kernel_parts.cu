@@ -24,7 +24,9 @@
 //         LN_X2       the same with a cd hi + lo pair: v = hi + lo, hi =
 //                     cd(v), lo = cd(v - hi), two products summed.
 //       For cd = fp32 the rounding to cd is the identity (lo = 0), so the
-//       three J modes share the fp32 path.
+//       three J modes share the fp32 path. bf16 LN_CD, LN_X2 and LN_EXACT
+//       run kp_ln_staged_kernel (persistent, x staged once through a ring of
+//       bulk copies; its design below), the rest a warp a row.
 //   (b) kp_attention_*: one block per (sequence, head), head width 8, 16,
 //       32 or 64 (a template argument), over qkv [G*L, 3D] fp32. q is scaled BEFORE the score product (the
 //       serving kernel of fused_stack.cu scales and rounds alike; the fp32
@@ -78,8 +80,9 @@ enum LnMode { LN_NONE = 0, LN_CENTRED = 1, LN_CD = 2, LN_EXACT = 3, LN_X2 = 4 };
 enum SmMode { SM_SKIP = 0, SM_SUM = 1, SM_CD = 2, SM_X2 = 4 };
 
 // ---------------------------------------------------------------- (a) LN
-// One warp per row. MODE LN_NONE, LN_CENTRED, or LN_EXACT (moments as
-// sum_k v_k * J[k, 0] in fp32, which is also LN_CD and LN_X2 for cd = fp32).
+// One warp per row. MODE LN_NONE, LN_CENTRED, or, for cd = fp32, LN_EXACT
+// (moments as sum_k v_k * J[k, 0] in fp32, which is also LN_CD and LN_X2
+// there; the bf16 J modes take the staged kernel below).
 template <int MODE, typename TO, typename TJ>
 __global__ void __launch_bounds__(256)
 kp_ln_rows_kernel(const float* __restrict__ x, const TJ* __restrict__ J, int ldj,
@@ -118,68 +121,190 @@ kp_ln_rows_kernel(const float* __restrict__ x, const TJ* __restrict__ J, int ldj
   for (int i = lane; i < D; i += 32) orow[i] = from_f<TO>((xr[i] - mean) * rstd);
 }
 
-// bf16, LN_CD and LN_X2: the row sums on the tensor cores. A warp owns 16
-// rows; per 16 columns the x tile (rounded to bf16, and for X2 its bf16
-// remainder) is the A fragment, J[k0 .. k0 + 15][0 .. 7] the B fragment, and
-// column 0 of the accumulators holds the sums. D % 16 == 0.
-template <bool X2>
-__global__ void __launch_bounds__(128)
-kp_ln_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ J, int ldj,
-                 bf16* __restrict__ out, long long M, int D, float eps) {
+// bf16, LN_CD, LN_X2 and LN_EXACT on staged rows. The work is bound by bytes
+// (x fp32 in, out bf16 out: 6 bytes an element), so x crosses device memory
+// once and the block keeps tiles of it in flight:
+//   - persistent: blocks of KPLN_THREADS threads, as many as fit the card at
+//     once, take tiles of ROWS consecutive rows (tile t: blockIdx.x, +
+//     gridDim.x, ...) through a ring of KPLN_STAGES stages in shared memory;
+//     warp 0 stages a tile with one bulk copy a row (its lanes start them,
+//     lane 0 announces the bytes on the stage's mbarrier) under an L2
+//     evict-first policy, KPLN_STAGES - 1 tiles ahead of the block;
+//   - the staged rows are padded by KPLN_PAD bytes: the mma fragments' float2
+//     reads of 8 rows then fall on distinct banks in each half warp (rows of
+//     D fp32 alone are a multiple of 128 bytes apart and would collide);
+//   - J is read once a block: for LN_CD and LN_X2 its first eight columns
+//     become the B fragments in registers (2 a k-step: 32 at D 256); for
+//     LN_EXACT its column 0 is staged in shared memory as fp32;
+//   - the moments: LN_CD and LN_X2 on the tensor cores as before, warp w <
+//     ROWS / 16 for rows 16 w .. 16 w + 15 (mma.sync m16n8k16, the x tile,
+//     and for X2 its bf16 remainder, as the A operand; column 0 of the
+//     product is the sum); LN_EXACT by every warp, ROWS / 8 rows each, two
+//     at a time, with fp32 FMAs against J's column, lane l over columns l, l
+//     + 32, ... and a warp sum: the products, their order and so the bits of
+//     the earlier kernels; the rows' mean and 1 / std meet in shared memory;
+//   - every warp forms ROWS / 8 rows of the output from the staged tile and
+//     stores them 16 bytes (8 columns) a lane, with the streaming hint.
+// D % 16 == 0 and D <= 1024; a tile is 32 rows (16 for D > 512): at D 256
+// two blocks of 8 warps share an SM, so one block's moments overlap the
+// other's output. (Tiles of 64 rows, one block an SM, and of 16 rows ran
+// slower in turns on an NVIDIA H100 80GB HBM3 at 700 W: PERF.md.)
+constexpr int KPLN_STAGES = 3;
+constexpr int KPLN_PAD = 32;  // bytes after each staged row
+constexpr int KPLN_MAXD = 1024;
+constexpr int KPLN_THREADS = 256, KPLN_WARPS = KPLN_THREADS / 32;
+
+template <int KMAX>  // k-steps of 16 columns: D <= 16 KMAX
+struct KpLnTile {
+  static constexpr int ROWS = KMAX == 64 ? 16 : 32;
+  static constexpr int MMA_WARPS = ROWS / 16;  // the warps that take the moments on the tensor cores
+  static constexpr int RPW = ROWS / KPLN_WARPS;  // rows of a warp's exact moments and output
+};
+
+inline size_t kpln_smem(int rows, int D) {
+  return (size_t)KPLN_STAGES * rows * (D * 4 + KPLN_PAD) + (size_t)D * 4;
+}
+
+template <int MODE, int KMAX>
+__global__ void __launch_bounds__(KPLN_THREADS)
+kp_ln_staged_kernel(const float* __restrict__ x, const bf16* __restrict__ J, int ldj, bf16* __restrict__ out,
+                    long long M, int D, float eps) {
+  using T = KpLnTile<KMAX>;
+  extern __shared__ __align__(128) float kpln_ring[];
+  __shared__ __align__(8) uint64_t full[KPLN_STAGES];
+  __shared__ float stat[T::ROWS][2];  // the tile's rows: mean, 1 / std
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r0 = ((long long)blockIdx.x * 4 + warp) * 16;
-  if (r0 >= M) return;
-  const long long ra = r0 + (lane >> 2), rb = ra + 8;
-  const int cq = (lane & 3) * 2, n = lane >> 2;
-  float mu[4] = {0.f, 0.f, 0.f, 0.f}, m2[4] = {0.f, 0.f, 0.f, 0.f};
-  float mul[4] = {0.f, 0.f, 0.f, 0.f}, m2l[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    float2 v[4];  // fragment order: (ra, c), (rb, c), (ra, c + 8), (rb, c + 8)
+  const int stride = D + KPLN_PAD / 4;  // floats from one staged row to the next
+  float* const ring = kpln_ring;
+  uint64_t* const fullb = full;
+  float* jcol = ring + (size_t)KPLN_STAGES * T::ROWS * stride;
+  const long long tiles = (M + T::ROWS - 1) / T::ROWS;
+  const uint64_t policy = l2_evict_first();
+  auto load_tile = [&](long long t, int s) {  // warp 0: tile t into stage s
+    const long long r0 = t * T::ROWS;
+    const int rows = (int)min((long long)T::ROWS, M - r0);
+    if (lane == 0) mbar_expect_tx(fullb + s, (unsigned)(rows * D * 4));
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32)
+      bulk_load(ring + ((size_t)s * T::ROWS + r) * stride, x + (r0 + r) * D, D * 4, fullb + s, policy);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KPLN_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  unsigned bj[KMAX][2];  // LN_CD, LN_X2: J[k0 .. k0 + 15][0 .. 7] as B fragments
+  if constexpr (MODE == LN_EXACT) {
+    for (int i = threadIdx.x; i < D; i += KPLN_THREADS) jcol[i] = to_f(J[(long long)i * ldj]);
+  } else {
+    const int cq = (lane & 3) * 2, n = lane >> 2;
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const long long r = (f & 1) ? rb : ra;
-      v[f] = r < M ? *reinterpret_cast<const float2*>(x + r * D + k0 + cq + (f >> 1) * 8)
-                   : make_float2(0.f, 0.f);
-    }
-    const bf16* jp = J + (long long)(k0 + cq) * ldj + n;
-    const unsigned b0 = pack_bf16(to_f(jp[0]), to_f(jp[ldj]));
-    const unsigned b1 = pack_bf16(to_f(jp[8LL * ldj]), to_f(jp[9LL * ldj]));
-    unsigned a[4], a2[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      a[f] = pack_bf16(v[f].x, v[f].y);
-      a2[f] = pack_bf16(__fmul_rn(v[f].x, v[f].x), __fmul_rn(v[f].y, v[f].y));
-    }
-    mma_bf16_16816(mu, a, b0, b1);
-    mma_bf16_16816(m2, a2, b0, b1);
-    if (X2) {
-      unsigned l[4], l2[4];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const float sx = __fmul_rn(v[f].x, v[f].x), sy = __fmul_rn(v[f].y, v[f].y);
-        l[f] = pack_bf16(v[f].x - to_f(__float2bfloat16_rn(v[f].x)), v[f].y - to_f(__float2bfloat16_rn(v[f].y)));
-        l2[f] = pack_bf16(sx - to_f(__float2bfloat16_rn(sx)), sy - to_f(__float2bfloat16_rn(sy)));
+    for (int ks = 0; ks < KMAX; ++ks) {
+      bj[ks][0] = bj[ks][1] = 0u;
+      if (ks * 16 < D) {
+        const bf16* jp = J + (long long)(ks * 16 + cq) * ldj + n;
+        bj[ks][0] = pack_bf16(to_f(jp[0]), to_f(jp[ldj]));
+        bj[ks][1] = pack_bf16(to_f(jp[8LL * ldj]), to_f(jp[9LL * ldj]));
       }
-      mma_bf16_16816(mul, l, b0, b1);
-      mma_bf16_16816(m2l, l2, b0, b1);
     }
   }
-  // column 0 of the product sits in the quad's first lane: elements 0 (row ra), 2 (row rb)
-  const int src = lane & ~3;
-  const float mua = __shfl_sync(FULL, mu[0] + mul[0], src), mub = __shfl_sync(FULL, mu[2] + mul[2], src);
-  const float m2a = __shfl_sync(FULL, m2[0] + m2l[0], src), m2b = __shfl_sync(FULL, m2[2] + m2l[2], src);
-  const float rsa = 1.0f / sqrtf((m2a - mua * mua) + eps), rsb = 1.0f / sqrtf((m2b - mub * mub) + eps);
-  for (int k0 = 0; k0 < D; k0 += 8) {
-    if (ra < M) {
-      const float2 t = *reinterpret_cast<const float2*>(x + ra * D + k0 + cq);
-      *reinterpret_cast<__nv_bfloat162*>(out + ra * D + k0 + cq) =
-          __floats2bfloat162_rn((t.x - mua) * rsa, (t.y - mua) * rsa);
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < KPLN_STAGES; ++s)
+      if (blockIdx.x + (long long)s * gridDim.x < tiles) load_tile(blockIdx.x + (long long)s * gridDim.x, s);
+  int k = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    const int s = k % KPLN_STAGES;
+    mbar_wait(&full[s], (k / KPLN_STAGES) & 1);
+    const float* tile = ring + (size_t)s * T::ROWS * stride;
+    const long long t0 = t * T::ROWS;  // the tile's first row
+    if constexpr (MODE == LN_EXACT) {
+#pragma unroll
+      for (int q = 0; q < T::RPW; q += 2) {  // two rows' chains side by side
+        const int r = warp * T::RPW + q;
+        const float *xa = tile + r * stride, *xb = xa + stride;
+        float m[4] = {0.f, 0.f, 0.f, 0.f};  // row a: sum, sum of squares; row b: the same
+        for (int i = lane; i < D; i += 32) {
+          const float va = xa[i], vb = xb[i], j = jcol[i];
+          m[0] = fmaf(va, j, m[0]);
+          m[1] = fmaf(__fmul_rn(va, va), j, m[1]);
+          m[2] = fmaf(vb, j, m[2]);
+          m[3] = fmaf(__fmul_rn(vb, vb), j, m[3]);
+        }
+        warp_sums(m);
+        if (lane == 0) {
+          stat[r][0] = m[0];
+          stat[r][1] = 1.0f / sqrtf((m[1] - m[0] * m[0]) + eps);
+          stat[r + 1][0] = m[2];
+          stat[r + 1][1] = 1.0f / sqrtf((m[3] - m[2] * m[2]) + eps);
+        }
+      }
+    } else if (warp < T::MMA_WARPS) {
+      const float* xs = tile + warp * 16 * stride;
+      const int g = lane >> 2, cq = (lane & 3) * 2;
+      float mu[4] = {0.f, 0.f, 0.f, 0.f}, m2[4] = {0.f, 0.f, 0.f, 0.f};
+      float mul[4] = {0.f, 0.f, 0.f, 0.f}, m2l[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KMAX; ++ks) {
+        if (ks * 16 >= D) continue;
+        float2 v[4];  // fragment order: (g, c), (g + 8, c), (g, c + 8), (g + 8, c + 8)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          v[f] = *reinterpret_cast<const float2*>(xs + (g + (f & 1) * 8) * stride + ks * 16 + cq + (f >> 1) * 8);
+        unsigned a[4], a2[4];
+        float2 sq[4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          sq[f] = make_float2(__fmul_rn(v[f].x, v[f].x), __fmul_rn(v[f].y, v[f].y));
+          a[f] = pack_bf16(v[f].x, v[f].y);
+          a2[f] = pack_bf16(sq[f].x, sq[f].y);
+        }
+        mma_bf16_16816(mu, a, bj[ks][0], bj[ks][1]);
+        mma_bf16_16816(m2, a2, bj[ks][0], bj[ks][1]);
+        if constexpr (MODE == LN_X2) {
+          // lo = v - hi, hi read back from the packed fragment (bf16 -> fp32 is a 16-bit
+          // shift): the same values as converting v again, without the conversion unit
+          unsigned l[4], l2[4];
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            l[f] = pack_bf16(v[f].x - __uint_as_float(a[f] << 16), v[f].y - __uint_as_float(a[f] & 0xffff0000u));
+            l2[f] = pack_bf16(sq[f].x - __uint_as_float(a2[f] << 16), sq[f].y - __uint_as_float(a2[f] & 0xffff0000u));
+          }
+          mma_bf16_16816(mul, l, bj[ks][0], bj[ks][1]);
+          mma_bf16_16816(m2l, l2, bj[ks][0], bj[ks][1]);
+        }
+      }
+      // column 0 of the product sits in the quad's first lane: elements 0 (row g), 2 (row g + 8)
+      const int src = lane & ~3;
+      const float mua = __shfl_sync(FULL, mu[0] + mul[0], src), mub = __shfl_sync(FULL, mu[2] + mul[2], src);
+      const float m2a = __shfl_sync(FULL, m2[0] + m2l[0], src), m2b = __shfl_sync(FULL, m2[2] + m2l[2], src);
+      const float rsa = 1.0f / sqrtf((m2a - mua * mua) + eps), rsb = 1.0f / sqrtf((m2b - mub * mub) + eps);
+      if ((lane & 3) == 0) {
+        stat[warp * 16 + g][0] = mua;
+        stat[warp * 16 + g][1] = rsa;
+        stat[warp * 16 + g + 8][0] = mub;
+        stat[warp * 16 + g + 8][1] = rsb;
+      }
     }
-    if (rb < M) {
-      const float2 t = *reinterpret_cast<const float2*>(x + rb * D + k0 + cq);
-      *reinterpret_cast<__nv_bfloat162*>(out + rb * D + k0 + cq) =
-          __floats2bfloat162_rn((t.x - mub) * rsb, (t.y - mub) * rsb);
+    __syncthreads();  // the tile's mean and 1 / std are in stat
+#pragma unroll
+    for (int q = 0; q < T::RPW; ++q) {
+      const int r = warp * T::RPW + q;
+      if (t0 + r >= M) break;
+      const float mean = stat[r][0], rs = stat[r][1];
+      for (int c = lane * 8; c < D; c += 256) {  // 16 bytes of output a lane
+        const float4 p = *reinterpret_cast<const float4*>(tile + r * stride + c);
+        const float4 q = *reinterpret_cast<const float4*>(tile + r * stride + c + 4);
+        const __nv_bfloat162 o0 = __floats2bfloat162_rn((p.x - mean) * rs, (p.y - mean) * rs);
+        const __nv_bfloat162 o1 = __floats2bfloat162_rn((p.z - mean) * rs, (p.w - mean) * rs);
+        const __nv_bfloat162 o2 = __floats2bfloat162_rn((q.x - mean) * rs, (q.y - mean) * rs);
+        const __nv_bfloat162 o3 = __floats2bfloat162_rn((q.z - mean) * rs, (q.w - mean) * rs);
+        __stcs(reinterpret_cast<uint4*>(out + (t0 + r) * D + c),
+               make_uint4(*reinterpret_cast<const unsigned*>(&o0), *reinterpret_cast<const unsigned*>(&o1),
+                          *reinterpret_cast<const unsigned*>(&o2), *reinterpret_cast<const unsigned*>(&o3)));
+      }
     }
+    __syncthreads();  // stage s and stat are read: refill the stage
+    if (warp == 0 && t + (long long)KPLN_STAGES * gridDim.x < tiles) load_tile(t + (long long)KPLN_STAGES * gridDim.x, s);
   }
 }
 
@@ -711,13 +836,71 @@ cudaError_t launch_kp_ln_rows(const float* x, const void* J, int ldj, void* out,
   return cudaGetLastError();
 }
 
+// The staged kernel of a bf16 J mode at D: its function, threads, rows a
+// tile and dynamic shared bytes (the instantiation's largest D allowed once).
+struct KpLnPlan {
+  const void* fn;
+  int threads, rows;
+  size_t smem;
+  cudaError_t err;
+};
+
+template <int MODE, int KMAX>
+KpLnPlan kp_ln_staged_of(int D) {
+  using T = KpLnTile<KMAX>;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(kp_ln_staged_kernel<MODE, KMAX>, kpln_smem(T::ROWS, 16 * KMAX), ready);
+  return {reinterpret_cast<const void*>(kp_ln_staged_kernel<MODE, KMAX>), KPLN_THREADS, T::ROWS,
+          kpln_smem(T::ROWS, D), e};
+}
+
+template <int MODE>
+KpLnPlan kp_ln_staged_plan(int D) {
+  if (D <= 256) return kp_ln_staged_of<MODE, 16>(D);
+  if (D <= 512) return kp_ln_staged_of<MODE, 32>(D);
+  return kp_ln_staged_of<MODE, 64>(D);
+}
+
+// the staged route takes bf16 LN_CD, LN_X2 and LN_EXACT at D % 16 == 0, D <=
+// KPLN_MAXD, with a 16-byte aligned x
+inline bool kp_ln_staged(int mode, int D, const void* x) {
+  return (mode == LN_CD || mode == LN_X2 || mode == LN_EXACT) && D >= 16 && D % 16 == 0 && D <= KPLN_MAXD &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+inline KpLnPlan kp_ln_plan(int mode, int D) {
+  if (mode == LN_CD) return kp_ln_staged_plan<LN_CD>(D);
+  if (mode == LN_X2) return kp_ln_staged_plan<LN_X2>(D);
+  return kp_ln_staged_plan<LN_EXACT>(D);
+}
+
+// persistent: as many blocks as fit the card at once, at most one a tile
+cudaError_t launch_kp_ln_staged(int mode, const float* x, const void* J, int ldj, void* out, long long M, int D,
+                                float eps, cudaStream_t st) {
+  const KpLnPlan p = kp_ln_plan(mode, D);
+  if (p.err != cudaSuccess) return p.err;
+  if (M == 0) return cudaSuccess;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.fn, p.threads, p.smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (M + p.rows - 1) / p.rows;
+  const long long fit = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(tiles < fit ? tiles : fit);
+  const bf16* jb = static_cast<const bf16*>(J);
+  bf16* ob = static_cast<bf16*>(out);
+  void* args[] = {&x, &jb, &ldj, &ob, &M, &D, &eps};
+  return cudaLaunchKernel(p.fn, dim3(blocks), dim3(p.threads), args, p.smem, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // out[M, D] (bf16 when bf16_out, else fp32) = the mode's LayerNorm of fp32
 // x[M, D] without scale and bias; J [>= D, ldj] is bf16 when bf16_out, else
-// fp32 (LnMode above; J is not read for LN_NONE and LN_CENTRED).
+// fp32 (LnMode above; J is not read for LN_NONE and LN_CENTRED). bf16 LN_CD,
+// LN_EXACT and LN_X2 need D % 16 == 0, D <= KPLN_MAXD and a 16-byte aligned x
+// (the staged kernel).
 int cse_kp_layer_norm(const void* x, const void* j, int ldj, void* out, int bf16_out, int mode,
                       long long M, int D, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -726,17 +909,11 @@ int cse_kp_layer_norm(const void* x, const void* j, int ldj, void* out, int bf16
     switch (mode) {
       case LN_NONE: return (int)launch_kp_ln_rows<LN_NONE, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
       case LN_CENTRED: return (int)launch_kp_ln_rows<LN_CENTRED, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
-      case LN_EXACT: return (int)launch_kp_ln_rows<LN_EXACT, bf16, bf16>(xf, j, ldj, out, M, D, eps, st);
       case LN_CD:
-      case LN_X2: {
-        if (D % 16) return (int)cudaErrorInvalidValue;
-        const unsigned blocks = (unsigned)((M + 63) / 64);
-        const bf16* jb = static_cast<const bf16*>(j);
-        bf16* ob = static_cast<bf16*>(out);
-        if (mode == LN_CD) kp_ln_mma_kernel<false><<<blocks, 128, 0, st>>>(xf, jb, ldj, ob, M, D, eps);
-        else kp_ln_mma_kernel<true><<<blocks, 128, 0, st>>>(xf, jb, ldj, ob, M, D, eps);
-        return (int)cudaGetLastError();
-      }
+      case LN_EXACT:
+      case LN_X2:
+        if (!kp_ln_staged(mode, D, x)) return (int)cudaErrorInvalidValue;
+        return (int)launch_kp_ln_staged(mode, xf, j, ldj, out, M, D, eps, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -748,6 +925,37 @@ int cse_kp_layer_norm(const void* x, const void* j, int ldj, void* out, int bf16
     case LN_X2: return (int)launch_kp_ln_rows<LN_EXACT, float, float>(xf, j, ldj, out, M, D, eps, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// info[7] of the LayerNorm cse_kp_layer_norm launches for (mode, D, dtype)
+// with a 16-byte aligned x: its route (1: the staged kernel, 0: a warp a row),
+// threads, rows a block takes at a time, dynamic shared bytes, registers a
+// thread, local-memory bytes a thread, resident blocks per SM.
+int cse_kp_layer_norm_info(int mode, int D, int bf16_out, int* info) {
+  if (D < 1 || mode < LN_NONE || mode > LN_X2) return (int)cudaErrorInvalidValue;
+  const void* aligned = nullptr;
+  if (bf16_out && kp_ln_staged(mode, D, aligned)) {
+    const KpLnPlan p = kp_ln_plan(mode, D);
+    if (p.err != cudaSuccess) return (int)p.err;
+    info[0] = 1;
+    info[1] = p.threads;
+    info[2] = p.rows;
+    info[3] = (int)p.smem;
+    return (int)kernel_info(p.fn, p.threads, p.smem, info + 4);
+  }
+  const bool j_mode = mode == LN_CD || mode == LN_EXACT || mode == LN_X2;
+  if (bf16_out && j_mode) return (int)cudaErrorInvalidValue;  // outside the staged kernel's D
+  const void* fn =
+      bf16_out ? (mode == LN_NONE ? reinterpret_cast<const void*>(kp_ln_rows_kernel<LN_NONE, bf16, bf16>)
+                                  : reinterpret_cast<const void*>(kp_ln_rows_kernel<LN_CENTRED, bf16, bf16>))
+               : (mode == LN_NONE     ? reinterpret_cast<const void*>(kp_ln_rows_kernel<LN_NONE, float, float>)
+                  : mode == LN_CENTRED ? reinterpret_cast<const void*>(kp_ln_rows_kernel<LN_CENTRED, float, float>)
+                                       : reinterpret_cast<const void*>(kp_ln_rows_kernel<LN_EXACT, float, float>));
+  info[0] = 0;
+  info[1] = 256;
+  info[2] = 8;
+  info[3] = 0;
+  return (int)kernel_info(fn, 256, 0, info + 4);
 }
 
 // x[G*L, H*hd] (fp32, in place) += the mode's attention of qkv[G*L, 3*H*hd]

@@ -40,6 +40,7 @@ SIGNATURES = {
     # fused_train.cu
     "cse_weight_grad": (P, P, P, P, I, LL, I, I, I, I, P),
     "cse_layer_norm_bwd": (P, P, P, P, P, P, P, P, I, I, LL, I, F, I, P),
+    "cse_layer_norm_bwd_info": (I, I, I, I, P),
     "cse_attention_bwd": (P, P, P, P, P, P, P, I, I, I, I, I, F, P),
     "cse_attention_bwd_info": (I, I, P),
     # attention.cu
@@ -52,27 +53,34 @@ SIGNATURES = {
     "cse_linear_w8a8": (P, P, P, P, P, P, I, LL, I, I, P),
     # kernel_parts.cu
     "cse_kp_layer_norm": (P, P, I, P, I, I, LL, I, F, P),
+    "cse_kp_layer_norm_info": (I, I, I, P),
     "cse_kp_attention": (P, P, I, P, I, I, I, I, I, I, F, P),
     "cse_kp_attention_info": (I, I, I, P),
 }
 
 
-# what a *_info entry point writes, in order
+# what an attention launcher's *_info entry point writes, in order
 INFO_KEYS = ("key_blocks", "threads", "rows_per_block", "smem_bytes", "registers", "local_bytes", "blocks_per_sm")
 
 
-def launch_info(entry: str, *args) -> dict:
-    """The launch a ``cse_*_info`` entry point describes: key blocks held in
-    registers, threads, query rows and dynamic shared bytes a block, and the
-    kernel's registers and local-memory bytes a thread and resident blocks
-    per SM (``cudaFuncGetAttributes``,
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``route`` is "strip"
-    (the scores of a strip in registers, L <= 256) or "passes"."""
-    out = (ctypes.c_int * len(INFO_KEYS))()
+def query(entry: str, keys: tuple[str, ...], *args) -> dict:
+    """Call the ``cse_*_info`` entry point ``entry`` with ``args`` and the
+    output array last; name its ``len(keys)`` ints. Raises if it fails."""
+    out = (ctypes.c_int * len(keys))()
     err = getattr(library(), entry)(*args, out)
     if err != 0:
         raise RuntimeError(f"cse_tpu_torch: {entry}{args} failed (cudaError {err})")
-    info = dict(zip(INFO_KEYS, out))
+    return dict(zip(keys, out))
+
+
+def launch_info(entry: str, *args) -> dict:
+    """The launch an attention ``cse_*_info`` entry point describes: key
+    blocks held in registers, threads, query rows and dynamic shared bytes a
+    block, and the kernel's registers and local-memory bytes a thread and
+    resident blocks per SM (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``route`` is "strip"
+    (the scores of a strip in registers, L <= 256) or "passes"."""
+    info = query(entry, INFO_KEYS, *args)
     info["route"] = "strip" if info["key_blocks"] else "passes"
     return info
 

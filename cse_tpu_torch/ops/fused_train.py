@@ -26,7 +26,8 @@ On Hopper (``csrc/fused_stack.cu`` and ``csrc/fused_train.cu``):
   - :func:`linear_relu_grad`: dpre = where(hrelu > 0, dY W^T, 0) in cd and its
     fp32 column sums (``cse_linear_relu_grad``, the serving stack's GEMM);
   - :func:`layer_norm_backward`: dx of a LayerNorm added into the residual
-    gradient, with dscale, dbias and two bias gradients (``cse_layer_norm_bwd``);
+    gradient, with dscale, dbias and two bias gradients (``cse_layer_norm_bwd``:
+    a persistent grid sized by :func:`ln_bwd_plan`);
   - :func:`attention_backward`: dq | dk | dv in cd and their fp32 column sums
     (``cse_attention_bwd``: bf16 at L <= 256 one block per sequence and head
     in one pass, else two kernels of 64-row tiles);
@@ -50,6 +51,7 @@ from __future__ import annotations
 import functools
 import math
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -63,7 +65,10 @@ MAT_NAMES = ("qkv_w", "out_w", "f1_w", "f2_w")
 WGRAD_BLOCKS = 528  # fp32 weight-gradient blocks to aim for: 4 per SM of an H100
 WGRAD_UNITS_PER_SM = 2  # bf16: (tile, slab) units a block of the persistent grid takes
 BWD_STRIP_MAX_L = 256  # csrc/fused_train.cu's STRIP_MAX_L: the bf16 attention backward's one-pass route
-LNB_BLOCKS = 1056  # LayerNorm-backward blocks (8 per SM), each grid-striding over rows
+# what cse_layer_norm_bwd_info writes, in order, and its load paths (csrc/fused_train.cu::LnbPath)
+LN_BWD_INFO_KEYS = ("path_code", "threads", "rows_per_block", "smem_bytes", "registers", "local_bytes",
+                    "blocks_per_sm")
+LN_BWD_PATHS = {0: "narrow", 1: "wide"}
 
 
 
@@ -232,9 +237,39 @@ def linear_relu_grad(dy, wt, mask):
     return out, colsum
 
 
+class LnBwdPlan(NamedTuple):
+    blocks: int  # the grid
+    rows_per_warp: int  # the most rows a warp takes
+    partials: tuple[int, int, int]  # the per-block column sums: [blocks, 4, D]
+
+
+def ln_bwd_plan(M: int, D: int, sms: int, per_sm: int, rows_per_block: int) -> LnBwdPlan:
+    """The grid of ``cse_layer_norm_bwd`` for ``M`` rows of width ``D``.
+
+    Persistent: ``sms * per_sm`` blocks (``per_sm``: the blocks of the kernel
+    that fit an SM at once, from the occupancy query), no more than give
+    every block a row, at least one. A block has ``rows_per_block`` warps
+    (both from ``cse_layer_norm_bwd_info``); warp w of the grid's W =
+    blocks * rows_per_block takes rows w, w + W, ... (on the wide path as
+    row w % R of the R-row tiles w // R, w // R + blocks, ...); each block
+    writes one row of four column sums."""
+    blocks = max(1, min(sms * max(per_sm, 1), -(-M // rows_per_block)))
+    return LnBwdPlan(blocks, -(-M // (blocks * rows_per_block)), (blocks, 4, D))
+
+
+@functools.cache
+def _ln_bwd_launch(D: int, g_bf16: bool, out_bf16: bool, aligned: bool) -> dict:
+    return _build.query("cse_layer_norm_bwd_info", LN_BWD_INFO_KEYS, D, int(g_bf16), int(out_bf16), int(aligned))
+
+
+def _ln_bwd_plan_of(M: int, D: int, launch: dict, device: int) -> LnBwdPlan:
+    return ln_bwd_plan(M, D, _sm_count(device), launch["blocks_per_sm"], launch["rows_per_block"])
+
+
 def layer_norm_backward(dh, x, scale, g_in, out32=None, cd=None):
     """See :func:`layer_norm_backward_plain`; kernel (b) of fused_train.cu on
-    CUDA (``out32`` may be ``g_in`` itself when that is fp32)."""
+    CUDA (``out32`` may be ``g_in`` itself when that is fp32): a persistent
+    grid (:func:`ln_bwd_plan`), then the fixed-order sum of its partials."""
     if not fs._route(dh, x, scale, g_in, out32):
         return layer_norm_backward_plain(dh, x, scale, g_in, out32, cd)
     for t, n in ((dh, "dh"), (x, "x")):
@@ -249,16 +284,35 @@ def layer_norm_backward(dh, x, scale, g_in, out32=None, cd=None):
     if out32 is not None:
         fs._check(out32, "out32", torch.float32, 2)
     out_cd = None if cd is None else torch.empty(M, D, dtype=cd, device=x.device)
-    blocks = max(1, min(-(-M // 8), LNB_BLOCKS))
-    partials = torch.empty(blocks, 4, D, dtype=torch.float32, device=x.device)
+    g_bf16, o_bf16 = g_in.dtype == torch.bfloat16, cd == torch.bfloat16
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (dh, x, g_in, out32, out_cd))
+    plan = _ln_bwd_plan_of(M, D, _ln_bwd_launch(D, g_bf16, o_bf16, aligned), x.device.index or 0)
+    partials = torch.empty(plan.partials, dtype=torch.float32, device=x.device)
     sums = torch.empty(4, D, dtype=torch.float32, device=x.device)
     err = _build.library().cse_layer_norm_bwd(
         dh.data_ptr(), x.data_ptr(), scale.data_ptr(), g_in.data_ptr(), _ptr(out32), _ptr(out_cd),
-        partials.data_ptr(), sums.data_ptr(), int(g_in.dtype == torch.bfloat16),
-        int(cd == torch.bfloat16), M, D, LN_EPS, blocks, fs._stream())
+        partials.data_ptr(), sums.data_ptr(), int(g_bf16), int(o_bf16), M, D, LN_EPS, plan.blocks, fs._stream())
     fs._check_launch("layer_norm_backward", err)
     layer_norm_backward.launches += 1
     return out32, out_cd, sums
+
+
+def layer_norm_backward_info(M: int, D: int = 256, g_dtype: torch.dtype = torch.float32,
+                             cd: torch.dtype | None = torch.bfloat16, aligned: bool = True) -> dict:
+    """How :func:`layer_norm_backward` launches for ``M`` rows of width ``D``,
+    g_in in ``g_dtype`` and g_out in ``cd`` (the main path: fp32 in, bf16
+    out), every tensor 16-byte aligned unless ``aligned`` is false: its path ("wide" for D % 128 == 0:
+    tiles of rows through a ring of bulk copies, 16-byte accesses; else
+    "narrow": a column a lane), threads, rows a block takes at a time,
+    dynamic shared bytes, registers and local-memory bytes a thread, blocks
+    per SM (the occupancy query), and the grid and the most rows a warp takes
+    (:func:`ln_bwd_plan`)."""
+    if D % 32 or D > 256 or D < 32:
+        raise ValueError(f"layer_norm_backward takes D % 32 == 0, D <= 256; got {D}")
+    info = dict(_ln_bwd_launch(D, g_dtype == torch.bfloat16, cd == torch.bfloat16, aligned))
+    plan = _ln_bwd_plan_of(M, D, info, torch.cuda.current_device())
+    info.update(path=LN_BWD_PATHS[info["path_code"]], grid=plan.blocks, rows_per_warp=plan.rows_per_warp)
+    return info
 
 
 def attention_backward(qkv, dattn, stats, seq_len, nhead, cd):

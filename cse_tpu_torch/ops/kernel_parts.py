@@ -28,9 +28,10 @@ agrees with it); and those modes contract ``p [Lp, Lp]`` with ``jmat [D, .]``,
 so they need ``Lp == D``.
 
 On the card one layer is six launches on the fp32 residual in device memory:
-:func:`kp_layer_norm`, ``linear`` (qkv), :func:`kp_attention` (adds the head
-outputs into the residual), :func:`kp_layer_norm`, ``linear`` (FFN1, relu),
-``linear`` (FFN2, residual). The products are
+:func:`kp_layer_norm` (the bf16 J modes on staged rows), ``linear`` (qkv),
+:func:`kp_attention` (adds the head outputs into the residual),
+:func:`kp_layer_norm`, ``linear`` (FFN1, relu), ``linear`` (FFN2,
+residual). The products are
 :func:`cse_tpu_torch.ops.fused_stack.linear`, the port's GEMM kernel, with a
 zero bias; the LayerNorm and attention kernels are ``csrc/kernel_parts.cu``.
 Each wrapper launches its kernel for CUDA tensors, takes the plain version
@@ -70,6 +71,9 @@ MODES = {
 }
 # the modes whose softmax sum goes through jmat: D x softmax, and Lp == D
 JMAT_SOFTMAX = ("cd", "x2")
+KPLN_MAXD = 1024  # csrc/kernel_parts.cu's KPLN_MAXD: the widest row of the staged LayerNorm
+# what cse_kp_layer_norm_info writes, in order
+KP_LN_INFO_KEYS = ("staged", "threads", "rows_per_block", "smem_bytes", "registers", "local_bytes", "blocks_per_sm")
 
 
 def _check_mode(table, mode, what):
@@ -148,7 +152,11 @@ def _check_jmat(jmat, cd, rows):
 
 
 def kp_layer_norm(x, jmat, ln_mode, cd):
-    """See :func:`kp_layer_norm_plain`; ``kp_ln_*_kernel`` on CUDA."""
+    """See :func:`kp_layer_norm_plain`; on CUDA ``kp_ln_staged_kernel`` for the
+    bf16 J modes ('cd', 'exact', 'x2': x staged once through shared memory;
+    D % 16 == 0, D <= :data:`KPLN_MAXD`, a 16-byte aligned x),
+    ``kp_ln_rows_kernel`` for the rest (:func:`kp_layer_norm_info` names the
+    route)."""
     _check_mode(LN_MODES, ln_mode, "LayerNorm mode")
     if not fs._route(x, jmat):
         return kp_layer_norm_plain(x, jmat, ln_mode, cd)
@@ -157,8 +165,9 @@ def kp_layer_norm(x, jmat, ln_mode, cd):
     fs._check(x, "x", torch.float32, 2)
     M, D = x.shape
     _check_jmat(jmat, cd, D)
-    if cd == torch.bfloat16 and ln_mode in ("cd", "x2") and D % 16:
-        raise ValueError(f"the bf16 {ln_mode!r} LayerNorm kernel needs D % 16 == 0, got {D}")
+    if cd == torch.bfloat16 and ln_mode in ("cd", "exact", "x2") and (D % 16 or D > KPLN_MAXD or x.data_ptr() % 16):
+        raise ValueError(f"the bf16 {ln_mode!r} LayerNorm kernel needs D % 16 == 0, D <= {KPLN_MAXD} and a "
+                         f"16-byte aligned x, got D={D}")
     out = torch.empty(M, D, dtype=cd, device=x.device)
     err = _build.library().cse_kp_layer_norm(
         x.data_ptr(), jmat.data_ptr(), jmat.stride(0), out.data_ptr(), int(cd == torch.bfloat16),
@@ -166,6 +175,22 @@ def kp_layer_norm(x, jmat, ln_mode, cd):
     fs._check_launch("kp_layer_norm", err)
     kp_layer_norm.launches += 1
     return out
+
+
+def kp_layer_norm_info(M: int, D: int, ln_mode: str, cd: torch.dtype = torch.bfloat16) -> dict:
+    """How :func:`kp_layer_norm` launches for ``M`` rows of width ``D`` (a
+    16-byte aligned x) in ``ln_mode``: ``route`` "staged" (the bf16 J modes:
+    tiles of rows through a ring in shared memory, a persistent grid) or
+    "rows" (a warp a row), threads, rows a block takes at a time, dynamic
+    shared bytes, registers and local-memory bytes a thread, blocks per SM,
+    and the grid for M rows."""
+    _check_mode(LN_MODES, ln_mode, "LayerNorm mode")
+    info = _build.query("cse_kp_layer_norm_info", KP_LN_INFO_KEYS, LN_MODES[ln_mode], D, int(cd == torch.bfloat16))
+    info["route"] = "staged" if info["staged"] else "rows"
+    tiles = -(-M // info["rows_per_block"])
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    info["grid"] = min(tiles, sms * info["blocks_per_sm"]) if info["staged"] else tiles
+    return info
 
 
 def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):

@@ -8,9 +8,11 @@ L=127; B=16, T=125000), by CUDA events after two warm-ups:
 
 - training: a layer's four weight gradients (``ops.fused_train.weight_grad``
   at (K, N) = (256, 768), (256, 256), (256, 1024), (1024, 256)), the
-  attention backward (``ops.fused_train.attention_backward``), one 8-layer
-  stack's forward and backward through ``fused_stack_train``, and the bench
-  recipe's train step (``make_train_step(fused=True)``);
+  attention backward (``ops.fused_train.attention_backward``), the LayerNorm
+  backward (``ops.fused_train.layer_norm_backward``, g_in bf16 or fp32, g_out
+  fp32 and bf16), one 8-layer stack's forward and backward through
+  ``fused_stack_train``, and the bench recipe's train step
+  (``make_train_step(fused=True)``);
 - the flash path: ``ops.attention.flash_bwd`` and the layer-by-layer train step
   (``make_train_step(fused=False)``, ``use_flash_attention=True``,
   ``remat='layer'``);
@@ -18,7 +20,11 @@ L=127; B=16, T=125000), by CUDA events after two warm-ups:
   with the QKV, out-proj, FFN1 and FFN2 epilogues), ``ServingEngine(quant=
   "w8a8")``'s forward, and the card's own memory rates beside them: a write
   of an fp32 [M, 1024] tensor (``fill_``) and a copy of one (``copy_``);
-- bf16 serving: ``ServingEngine``'s forward.
+- bf16 serving: ``ServingEngine``'s forward;
+- the kernel-parts tool at its defaults (G=1008, Lp=D=256, 2 layers): its
+  LayerNorm in each of the five modes (``ops.kernel_parts.kp_layer_norm``,
+  x [258048, 256] fp32 -> bf16) and the whole forward in modes
+  ``combined_x2``, ``ln_matmul`` and ``full``.
 
 Each checkout runs in a process of its own with its own ``cse_tpu_torch``
 (built into its own ``_build/``); with ``--other PATH`` the checkout at PATH
@@ -51,7 +57,9 @@ def measure(reps: int) -> dict:
     from cse_tpu_torch.ops import fused_stack as fs
     from cse_tpu_torch.ops import fused_stack_w8a8 as w8
     from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops import kernel_parts as kp
     from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.scripts.bench_kernel_parts import make_inputs
     from cse_tpu_torch.serving import ServingEngine
     from cse_tpu_torch.train.optimizer import build_optimizer
     from cse_tpu_torch.train.schedules import cosine_warmup_schedule
@@ -92,6 +100,13 @@ def measure(reps: int) -> dict:
         dattn = torch.randn(M, D, device="cuda", generator=gen)
         o["attention_backward_ms"] = ms(lambda: ft.attention_backward(qkv, dattn, stats, L, H, cd))
         del qkv, stats, dattn
+        x, dh = (torch.randn(M, D, device="cuda", generator=gen) for _ in range(2))
+        sc, out32 = torch.ones(D, device="cuda"), torch.empty(M, D, device="cuda")
+        g = torch.randn(M, D, device="cuda", generator=gen)
+        gb = g.to(cd)
+        o["layer_norm_backward_ms"] = ms(lambda: ft.layer_norm_backward(dh, x, sc, gb, out32, cd))
+        o["layer_norm_backward_g32_ms"] = ms(lambda: ft.layer_norm_backward(dh, x, sc, g, out32, cd))
+        del x, dh, sc, out32, g, gb
         stack = TransformerStack(SepformerConfig(num_tf_layers=8)).cuda()
         x = torch.randn(G, L, D, device="cuda", generator=gen)
         gy = torch.randn(G, L, D, device="cuda", generator=gen)
@@ -125,6 +140,15 @@ def measure(reps: int) -> dict:
         del big, other
         torch.cuda.empty_cache()
         out[name] = o
+
+    G, Lp = 1008, 256
+    args = make_inputs(G, Lp, D, 2)
+    r = args[0].reshape(G * Lp, D)
+    out["kp_layer_norm_ms"] = {m: ms(lambda m=m: kp.kp_layer_norm(r, args[4], m, cd)) for m in kp.LN_MODES}
+    out["kernel_parts_ms"] = {m: ms(lambda m=m: kp.kernel_parts_apply(*args, m, H))
+                              for m in ("combined_x2", "ln_matmul", "full")}
+    del args, r
+    torch.cuda.empty_cache()
 
     serve_cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=cd)
     for key, quant in (("serve_bf16_forward_ms", None), ("serve_w8a8_forward_ms", "w8a8")):

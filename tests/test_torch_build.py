@@ -25,10 +25,49 @@ ROUTE_ENTRIES = [("attention.cu", "cse_flash_fwd_info"), ("attention.cu", "cse_f
                  ("fused_train.cu", "cse_attention_bwd_info")]
 
 
+# the LayerNorm launchers' *_info entry points: {entry: its Python reader's key list}
+LN_INFO_ENTRIES = {("fused_train.cu", "cse_layer_norm_bwd_info"): "LN_BWD_INFO_KEYS",
+                   ("kernel_parts.cu", "cse_kp_layer_norm_info"): "KP_LN_INFO_KEYS"}
+
+
 def test_route_entries_are_every_info_entry():
     found = {(src, e) for src in _build.SOURCES for e in re.findall(r"^int (cse_\w+_info)\(",
                                                                     (_build.CSRC / src).read_text(), flags=re.M)}
-    assert found == set(ROUTE_ENTRIES)
+    assert found == set(ROUTE_ENTRIES) | set(LN_INFO_ENTRIES)
+
+
+@pytest.mark.parametrize("src, entry", sorted(LN_INFO_ENTRIES))
+def test_layer_norm_info_entries_match_their_readers(src, entry, monkeypatch):
+    """Each LayerNorm ``*_info`` entry writes as many ints as its reader names,
+    and ``_build.query`` names them in order and raises on a failed query."""
+    from cse_tpu_torch.ops import fused_train, kernel_parts
+
+    keys = getattr(fused_train if "bwd" in entry else kernel_parts, LN_INFO_ENTRIES[(src, entry)])
+    comment = re.search(rf"((?://[^\n]*\n)+)int {entry}\(", (_build.CSRC / src).read_text()).group(1)
+    assert f"info[{len(keys)}]" in comment
+
+    def fake(err):
+        def call(*args):
+            for i in range(len(keys)):
+                args[-1][i] = 10 + i
+            return err
+        return type("Lib", (), {entry: staticmethod(call)})()
+
+    monkeypatch.setattr(_build, "library", lambda: fake(0))
+    assert _build.query(entry, keys, 256, 1, 1) == {k: 10 + i for i, k in enumerate(keys)}
+    monkeypatch.setattr(_build, "library", lambda: fake(2))
+    with pytest.raises(RuntimeError, match="cudaError 2"):
+        _build.query(entry, keys, 256, 1, 1)
+
+
+def test_staged_layer_norm_width_matches_the_source():
+    """kp_layer_norm refuses the bf16 J modes above the staged kernel's widest
+    row before it launches: its KPLN_MAXD is the source's."""
+    from cse_tpu_torch.ops import kernel_parts
+
+    text = (_build.CSRC / "kernel_parts.cu").read_text()
+    assert f"constexpr int KPLN_MAXD = {kernel_parts.KPLN_MAXD};" in text
+    assert "D % 16 == 0 && D <= KPLN_MAXD" in text
 
 
 @pytest.mark.parametrize("src, entry", ROUTE_ENTRIES)

@@ -271,6 +271,72 @@ def test_layer_norm_backward_matches_plain(gen, cd, g_dtype):
     _close(g32, p32, torch.float32)
 
 
+@pytest.mark.parametrize("cd", DTYPES)
+@pytest.mark.parametrize("g_dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 7, 3001, 50003])
+@pytest.mark.parametrize("d", [32, 64, 256])
+def test_layer_norm_backward_widths_rows_and_repeats(gen, d, m, g_dtype, cd):
+    """Both load paths (D 256: 16-byte accesses; 32, 64: a column a lane), a
+    grid larger than the rows (1, 7), one smaller (3001) and one whose warps
+    end one row apart (50003); g_out in place; the fixed-order sums give the
+    same bits on a repeat."""
+    x = 3 * torch.randn(m, d, device="cuda", generator=gen) + 0.5
+    dh = torch.randn(m, d, device="cuda", generator=gen)
+    s = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    g = torch.randn(m, d, device="cuda", generator=gen).to(g_dtype)
+    first = ft.layer_norm_backward(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    p32, pcd, psums = ft.layer_norm_backward_plain(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    _close(first[0], p32, torch.float32)
+    _close(first[1], pcd, cd)
+    _close(first[2], psums, torch.float32)
+    again = ft.layer_norm_backward(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    g32 = g.float()  # in place into an fp32 g_in, no cd copy
+    o_in, o_cd, sums = ft.layer_norm_backward(dh, x, s, g32, g32, None)
+    assert o_in is g32 and o_cd is None
+    _close(g32, p32, torch.float32)
+    _close(sums, psums, torch.float32)
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+def test_layer_norm_backward_unaligned_rows_take_the_narrow_path(gen, cd):
+    """Tensors that are not 16-byte aligned at D 256 (a view one element into
+    its storage) go through the column-a-lane kernel, on a grid sized by that
+    kernel's occupancy, with the same results and the same bits on a repeat."""
+    m, d = 3001, 256
+
+    def unaligned(scale, shift=0.0):
+        flat = scale * torch.randn(m * d + 1, device="cuda", generator=gen) + shift
+        return flat[1:].view(m, d)
+
+    x, dh, g = unaligned(3.0, 0.5), unaligned(1.0), unaligned(1.0)
+    s = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    assert x.data_ptr() % 16 and dh.data_ptr() % 16
+    o32, ocd, sums = ft.layer_norm_backward(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    p32, pcd, psums = ft.layer_norm_backward_plain(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    _close(o32, p32, torch.float32)
+    _close(ocd, pcd, cd)
+    _close(sums, psums, torch.float32)
+    again = ft.layer_norm_backward(dh, x, s, g, torch.empty(m, d, device="cuda"), cd)
+    assert all(torch.equal(a, b) for a, b in zip((o32, ocd, sums), again))
+    narrow, wide = (ft.layer_norm_backward_info(m, d, torch.float32, cd, aligned) for aligned in (False, True))
+    assert narrow["path"] == "narrow" and wide["path"] == "wide" and narrow["local_bytes"] == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert narrow["grid"] == min(sms * narrow["blocks_per_sm"], -(-m // narrow["rows_per_block"]))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_layer_norm_backward_launch(gen, d):
+    """The persistent grid fills the card: blocks per SM from the occupancy
+    query, no local memory, the wide path for D % 128 == 0."""
+    info = ft.layer_norm_backward_info(506016, d)
+    assert info["path"].startswith("wide") == (d % 128 == 0)
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0 and info["threads"] == 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert info["grid"] == sms * info["blocks_per_sm"]
+    assert info["rows_per_warp"] == -(-506016 // (info["grid"] * info["rows_per_block"]))
+
+
 def _rel(a, b):
     return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
 
@@ -544,6 +610,35 @@ def test_kp_layer_norm_matches_plain(gen, cd, ln_mode):
     _close(got, want, cd)
 
 
+@pytest.mark.parametrize("ln_mode", ["cd", "exact", "x2"])
+@pytest.mark.parametrize("d,m", [(256, 1), (256, 63), (256, 1003), (256, 258048 + 37), (64, 1003), (512, 1003),
+                                 (1024, 77)])
+def test_kp_layer_norm_staged_matches_plain_and_repeats(gen, ln_mode, d, m):
+    """The bf16 J modes on the staged kernel: tiles of 32 or 16 rows by D,
+    the last one partial, a constant row, the same bits on a repeat."""
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    cd, j = torch.bfloat16, _kp_jmat(torch.bfloat16, d)
+    x = 0.3 + 2 * torch.randn(m, d, device="cuda", generator=gen)
+    x[m - 2 if m > 1 else 1:] = 0.5  # a constant row (not the only one): var is exactly 0
+    got = kp.kp_layer_norm(x, j, ln_mode, cd)
+    assert got.dtype == cd and (m == 1 or float(got[m - 2].float().abs().max()) == 0.0)
+    _close(got, kp.kp_layer_norm_plain(x, j, ln_mode, cd), cd)
+    assert torch.equal(got, kp.kp_layer_norm(x, j, ln_mode, cd))
+    info = kp.kp_layer_norm_info(m, d, ln_mode)
+    assert info["route"] == "staged" and info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+    assert info["rows_per_block"] == (16 if d > 512 else 32)
+
+
+@pytest.mark.parametrize("ln_mode", ["none", "centred"])
+def test_kp_layer_norm_other_modes_take_rows(gen, ln_mode):
+    from cse_tpu_torch.ops import kernel_parts as kp
+
+    for cd in DTYPES:
+        assert kp.kp_layer_norm_info(1003, 256, ln_mode, cd)["route"] == "rows"
+    assert kp.kp_layer_norm_info(1003, 256, "exact", torch.float32)["route"] == "rows"
+
+
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("sm_mode,seq_len", [("skip", 256), ("sum", 256), ("cd", 256), ("ones", 256), ("x2", 256),
                                              ("skip", 7), ("sum", 127), ("sum", 300), ("ones", 513),
@@ -625,6 +720,13 @@ def test_kernel_parts_wrappers_refuse_what_the_kernels_do_not_take(gen):
         kp.kp_layer_norm(torch.zeros(4, 256, device="cuda"), j.half(), "centred", torch.float16)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         kp.kp_layer_norm(torch.zeros(4, 256, device="cuda"), j.cpu(), "centred", torch.bfloat16)
+    for ln_mode in ("cd", "exact", "x2"):  # the bf16 J modes' staged kernel: D % 16 == 0, D <= 1024, aligned x
+        for d in (40, 2048):
+            with pytest.raises(ValueError, match="D % 16 == 0"):
+                kp.kp_layer_norm(torch.zeros(4, d, device="cuda"), _kp_jmat(torch.bfloat16, d), ln_mode,
+                                 torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kp.kp_layer_norm(torch.zeros(4 * 256 + 1, device="cuda")[1:].view(4, 256), j, ln_mode, torch.bfloat16)
 
 
 @pytest.mark.parametrize("path", [[], ["--no_fused_train", "--flash_attention", "--remat", "layer"]])
