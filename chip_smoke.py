@@ -106,6 +106,29 @@ Phases (any failure exits non-zero and prints no result line):
      layer by layer without either (the reference): losses before the first update and
      after each of three (lr 1e-3), held against the reference's; (c) both
      kernel paths in bf16: finite losses, the kernels launched.
+ 13. the eval entry point at full width (seeded random weights, every entry
+     off its init value): (a) a released-form .ckpt written by
+     save_torch_checkpoint and read back by restore_checkpoint and
+     sepformer_from_state_dict: every state_dict entry and the bf16 fused
+     forward (B=16, T=125000, cuDNN's deterministic algorithms: the decoder's
+     default conv_transpose1d is not) give the same bits; (b) python -m
+     cse_tpu_torch.test's main on that checkpoint over the synthetic corpus
+     (--synthetic_smoke --test_model ContExt --bf16 --max_sp_len 16, batch 16,
+     utterances of 8-16 s), once with --fused_eval and once with
+     --flash_attention layer by layer, and once ContSep --fused_eval from random
+     init: result files, n (the test set's size), finite metrics, the stack
+     kernels' and the flash kernels' launches against their formulas times
+     the batches, each fused batch's output against the plain fp32 model (rel
+     L2 <= 5e-2); the fused run scores 256 mixtures (16 batches), the other
+     two the default 6; for each, the seconds of evaluate alone (corpus, model
+     and loader set-up outside), its mixtures/s, and the card's busy share of
+     that window (each step's span between CUDA events, summed);
+ 14. python -m cse_tpu_torch.bench in subprocesses: the default, --variant
+     contsep, --infer and --infer --serving_quant w8a8: one JSON line each,
+     the expected metric name, a finite value > 0, printed beside [7c]'s
+     mixtures/s, [4]'s and [9b]'s realtime factors of this run; the launch
+     report on its standard error against the wrappers' formula times the
+     steps or forwards it ran.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -142,6 +165,9 @@ TOL_SERVE_FP32 = 1e-4
 # serving bar (tests/test_serving.py::test_w8a8_engine_close_to_exact) ->
 # relative L2 <= 5e-2.
 TOL_SERVE_BF16 = 5e-2
+# [13]'s fused eval scores this many synthetic mixtures (16 batches of 16): a
+# test set's size, so that its mixtures/s is evaluate's rate, not its start-up
+EVAL_MIXTURES = 256
 # The whole 8-layer training stack, kernels against plain. Its output keeps
 # the per-kernel bars. Its gradients do not: a ReLU whose input lies within
 # a rounding of 0 flips its mask between two summation orders, a jump of the
@@ -1781,6 +1807,228 @@ def phase12(card, failures):
     return out
 
 
+def _recording_eval_steps(step_lib, recorded):
+    """Wrap make_eval_step so that each step the CLI builds keeps every batch's
+    model inputs and enhanced output (for holding them against plain fp32) and
+    a pair of CUDA events around the step's work."""
+    orig = step_lib.make_eval_step
+
+    def make(*a, **k):
+        step = orig(*a, **k)
+
+        def recording(batch):
+            t_s, t_e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t_s.record()
+            out = step(batch)
+            t_e.record()
+            recorded.append((batch, out[0], t_s, t_e))
+            return out
+        return recording
+    return orig, make
+
+
+def _timed_evaluate(ev_lib, seconds):
+    """Wrap evaluate so that its host seconds alone (no corpus, model or loader
+    set-up) land in ``seconds``."""
+    orig = ev_lib.evaluate
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    return orig, timed
+
+
+def phase13(card, failures):
+    """The eval entry point at full width: a released checkpoint's round trip,
+    then python -m cse_tpu_torch.test on it (fused and flash) and on ContSep."""
+    import os
+    import tempfile
+
+    from cse_tpu_torch import test as eval_cli
+    from cse_tpu_torch.compat.torch_export import save_torch_checkpoint
+    from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
+    from cse_tpu_torch.eval import evaluator as ev_lib
+    from cse_tpu_torch.models.context_encoder import build_context_encoder
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.serving import sepformer_fused_forward
+    from cse_tpu_torch.train import checkpoint as ckpt_lib
+    from cse_tpu_torch.train import step as step_lib
+
+    root = tempfile.mkdtemp(prefix="cse_eval_")
+    gen = torch.Generator().manual_seed(13)
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+    model = Sepformer(cfg, generator=gen)
+    with torch.no_grad():  # no parameter at its init value (biases 0, norms 1)
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    ckpt = os.path.join(root, "ckpts", "released.ckpt")
+    os.makedirs(os.path.dirname(ckpt))
+    save_torch_checkpoint(ckpt, model)
+    log(f"[13] eval entry point, full width: released checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB  [{card}]")
+
+    # (a) the round trip: the same bits in every entry and through the bf16 fused forward
+    restored = ckpt_lib.restore_checkpoint(ckpt)
+    back = Sepformer(cfg)
+    back.load_state_dict(sepformer_from_state_dict(restored["state_dict"], cfg.num_dp_layers, cfg.num_tf_layers))
+    a_sd, b_sd = model.state_dict(), back.state_dict()
+    differ = [k for k in a_sd if not torch.equal(a_sd[k], b_sd[k])]
+    B, T = 16, aligned_bucket(128000)
+    mix = torch.randn(B, T, device="cuda", generator=torch.Generator(device="cuda").manual_seed(13))
+    ctx = torch.randn(B, 1, 4096, device="cuda", generator=torch.Generator(device="cuda").manual_seed(14))
+    fs.reset_launches()
+    # the decoder's cuDNN conv_transpose1d picks a non-deterministic algorithm by
+    # default (two calls differ by ~1e-3 in bf16); the bits are compared under
+    # cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        o1 = sepformer_fused_forward(model.cuda().eval(), mix, ctx)
+        o2 = sepformer_fused_forward(back.cuda().eval(), mix, ctx)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = torch.equal(o1, o2) and bool(torch.isfinite(o1).all())
+    log(f"  (a) {len(a_sd)} state_dict entries, {len(differ)} with other bits; bf16 fused forward B={B} T={T} "
+        f"(cuDNN deterministic): {'same bits' if same else 'OTHER BITS'}; launches {fs.launch_counts()}")
+    if differ or set(a_sd) != set(b_sd) or not same or not fs.launch_counts()["attention"]:
+        fail(f"released checkpoint round trip: entries {differ[:5]}, forward same bits {same}")
+    plain_model = Sepformer(SepformerConfig(variant="context", num_spks=2))  # fp32: the fused eval's reference
+    plain_model.load_state_dict(model.state_dict())
+    del back, o1, o2, mix, ctx, restored, model
+    torch.cuda.empty_cache()
+
+    # (b) the CLI; the fused run scores EVAL_MIXTURES for its throughput
+    base = ["--synthetic_smoke", "--train_data", "dailytalk", "--bf16", "--max_sp_len", "16",
+            "--batch_size", "16", "--synthetic_seconds", "8", "16"]
+    runs = (("ContExt --fused_eval", EVAL_MIXTURES, ["--test_model", "ContExt", "--checkpoint", ckpt, "--fused_eval"]),
+            ("ContExt --flash_attention", 6, ["--test_model", "ContExt", "--checkpoint", ckpt, "--flash_attention"]),
+            ("ContSep --fused_eval", 6, ["--test_model", "ContSep", "--fused_eval"]))
+    out = {}
+    for name, n_mix, extra in runs:
+        save = os.path.join(root, name.split()[0] + ("_fused" if "fused" in name else "_flash"))
+        argv = base + extra + ["--save_dir", save, "--synthetic_eval", str(n_mix)]
+        recorded, eval_s = [], []
+        orig, make = _recording_eval_steps(step_lib, recorded)
+        orig_eval, timed = _timed_evaluate(ev_lib, eval_s)
+        step_lib.make_eval_step, ev_lib.evaluate = make, timed
+        fs.reset_launches()
+        at.reset_launches()
+        t0 = time.time()
+        try:
+            res = eval_cli.main(argv)
+        finally:
+            step_lib.make_eval_step, ev_lib.evaluate = orig, orig_eval
+        whole = time.time() - t0
+        torch.cuda.synchronize()
+        took = eval_s[0]
+        step_ms = sum(t_s.elapsed_time(t_e) for _, _, t_s, t_e in recorded)
+        busy = step_ms / 1e3 / took
+        counts, fcounts = fs.launch_counts(), at.launch_counts()
+        n_fwd = len(recorded)
+        n_att = 2 * cfg.num_dp_layers * cfg.num_tf_layers
+        if "fused" in name:
+            want = {k: v * 2 * cfg.num_dp_layers * n_fwd for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
+            fwant = {k: 0 for k in fcounts}
+        else:
+            want = {k: 0 for k in counts}
+            fwant = {k: v * n_fwd for k, v in at.launches_per_step(n_att, False, train=False).items()}
+        tag = "ckpts/released" if "--checkpoint" in extra else "random_init"
+        files = [os.path.join(save, tag, "2_speaker_0_ctx", f"{f}_dailytalk.txt") for f in ("test_results", "acc")]
+        finite = all(math.isfinite(res[k]) for k in ("si_snr", "sdr", "si_snr_i", "sdr_i", "pesq", "pesq_i"))
+        lens = sorted({b["mixed"].shape[1] for b, *_ in recorded})
+        log(f"  (b) {name}: n {res['n']} in {n_fwd} batches (T {lens[0]}-{lens[-1]}, {len(lens)} lengths); "
+            f"evaluate {took:.3f} s -> {res['n'] / took:.3f} mixtures/s (the whole main() {whole:.3f} s); "
+            f"eval steps {step_ms:.1f} ms on the card = busy {100 * busy:.2f}%, idle {100 * (1 - busy):.2f}%; "
+            f"SI-SNR {res['si_snr']:.4f} SDR {res['sdr']:.4f} SI-SNR-i {res['si_snr_i']:.4f} PESQ "
+            f"{res['pesq']:.4f} acc {res['acc']:.4f}; stack launches {counts} (want {want}), flash {fcounts} "
+            f"(want {fwant})  [{card}]")
+        if not (finite and all(os.path.exists(f) for f in files) and res["n"] == n_mix):
+            failures.append(f"eval {name}: files, metrics or n {res['n']} != {n_mix}")
+        if counts != want or fcounts != fwant:
+            failures.append(f"eval {name}: launches {counts} / {fcounts} != {want} / {fwant}")
+        entry = {"n": res["n"], "batches": n_fwd, "seconds": took, "main_seconds": whole,
+                 "mixtures_per_s": res["n"] / took, "step_ms": step_ms, "busy_share": busy,
+                 "launches": {**counts, **fcounts}, "metrics": {k: res[k] for k in res if k != "n"}}
+        if name == "ContExt --fused_eval":
+            # every batch's bf16 fused output against the plain fp32 model on the same inputs
+            llm_fn, llm_ps = build_context_encoder("__none__", ctx_length=1, device="cuda").pure()
+            plain = orig(plain_model, step_lib.TrainConfig(variant="context"), device="cuda", llm_apply=llm_fn,
+                         llm_params=llm_ps)
+            rl2s = []
+            for batch, enhanced, *_ in recorded:
+                _, _, rl2 = errs(enhanced, plain(batch)[0])
+                rl2s.append(rl2)
+            ok = max(rl2s) <= TOL_SERVE_BF16
+            log(f"      each batch's output vs the plain fp32 model: rel_l2 {min(rl2s):.3e}-{max(rl2s):.3e} over "
+                f"{len(rl2s)} batches (tol {TOL_SERVE_BF16:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("fused eval vs plain fp32")
+            entry["rel_l2_vs_fp32"] = rl2s
+        out[name] = entry
+        del recorded
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"eval entry point checks failed: {failures}")
+    del plain_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase14(card, references):
+    """python -m cse_tpu_torch.bench in subprocesses, in four forms; each value
+    beside the in-process number it should match (for reading, not a gate)."""
+    import os
+
+    from cse_tpu_torch.models.sepformer import SepformerConfig
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+
+    cfg = SepformerConfig(variant="context")
+    n_stacks = 2 * cfg.num_dp_layers
+    train = {k: v * n_stacks for k, v in ft.launches_per_train_stack(cfg.num_tf_layers).items()}
+    infer = {k: v * n_stacks for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
+    w8a8 = {k: v * n_stacks for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8").items()}
+    # (name, flags, metric, the phase to read it beside, launches per step or forward)
+    forms = (("default", [], "train_throughput_contextual_extraction", "[7c] mixtures/s", train),
+             ("--variant contsep", ["--variant", "contsep"], "train_throughput_contsep", "[7c] mixtures/s", train),
+             ("--infer", ["--infer"], "inference_rtf_contextual_extraction", "[4] realtime factor", infer),
+             ("--infer --serving_quant w8a8", ["--infer", "--serving_quant", "w8a8"],
+              "inference_rtf_contextual_extraction", "[9b] realtime factor", w8a8))
+    log(f"[14] python -m cse_tpu_torch.bench, four forms  [{card}]")
+    out = {}
+    for name, extra, metric, ref, per_call in forms:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "cse_tpu_torch.bench", *extra], capture_output=True, text=True,
+                              timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        took = time.time() - t0
+        lines = proc.stdout.strip().splitlines()
+        try:
+            line = json.loads(lines[-1]) if proc.returncode == 0 and len(lines) == 1 else None
+        except json.JSONDecodeError:
+            line = None
+        if line is None:
+            fail(f"bench {name}: rc {proc.returncode}, stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+        # the launch report: the last line of standard error
+        report = json.loads(proc.stderr.strip().splitlines()[-1])
+        want = {k: v * report["calls"] for k, v in per_call.items()}
+        ok = line["metric"] == metric and math.isfinite(line["value"]) and line["value"] > 0
+        launched = report["launches"] == want
+        log(f"  {name:<30s} {line['metric']} = {line['value']:.3f} ({line['unit']}); {ref} in this run "
+            f"{references[ref]:.3f}; {took:.1f} s  {'ok' if ok else 'FAIL'}")
+        log(f"  {'':<30s} launches over {report['calls']} calls: {report['launches']} (want {want})  "
+            f"{'ok' if launched else 'FAIL'}")
+        if not (ok and launched):
+            fail(f"bench {name}: {line}, launches {report}")
+        out[name] = {**line, "seconds": took, "reference": {ref: references[ref]}, "launches": report["launches"],
+                     "calls": report["calls"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -2036,6 +2284,14 @@ def main() -> int:
         tiny = phase12(card, failures)
     tiny.update(kernels=tiny_err)
     log(f"  [12] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    evals = phase13(card, failures)
+    log(f"  [13] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    benches = phase14(card, {"[7c] mixtures/s": bench["mixtures_per_s"],
+                             "[4] realtime factor": audio_s / (fwd_ms / 1e3),
+                             "[9b] realtime factor": w8_serve["realtime_factor"]})
+    log(f"  [14] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -2174,7 +2430,8 @@ def main() -> int:
                       "forward_ms": fwd_ms, "realtime_factor": audio_s / (fwd_ms / 1e3),
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
-                      "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny}),
+                      "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
+                      "eval": evals, "bench": benches}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

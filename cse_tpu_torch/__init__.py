@@ -17,9 +17,12 @@ with a hand-written CUDA port of ``cse_tpu/ops/fused_stack.py::_stack_kernel``
 with the loaders and the on-device mixture synthesis of
 :mod:`cse_tpu_torch.data.pipeline`) and the kernel-parts dev tool
 (``python -m cse_tpu_torch.scripts.bench_kernel_parts``,
-``csrc/kernel_parts.cu``).
+``csrc/kernel_parts.cu``), the eval entry point (``python -m
+cse_tpu_torch.test``: :mod:`cse_tpu_torch.eval`, released-checkpoint import
+and export in :mod:`cse_tpu_torch.compat`) and the bench (``python -m
+cse_tpu_torch.bench``).
+
+The package file imports nothing (device resolution lives in
+:mod:`cse_tpu_torch.core.device`): the eval's metric workers import
+:mod:`cse_tpu_torch.eval.host_metrics` and stay numpy-only.
 """
-
-from cse_tpu_torch.core.device import resolve_device
-
-__all__ = ["resolve_device"]

@@ -1,0 +1,250 @@
+"""Benchmark: training throughput of the CSE separator variants on one GPU.
+
+    python -m cse_tpu_torch.bench                      # ContExt train step, B=16, 16 s
+    python -m cse_tpu_torch.bench --variant contsep
+    python -m cse_tpu_torch.bench --infer [--serving_quant w8a8]
+    python -m cse_tpu_torch.bench --smoke [--infer]    # tiny config on the CPU
+
+The port's counterpart of the root ``bench.py``, for the flags the port can
+serve. Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
+the root bench's metric names.
+
+Metric: mixtures/s on one GPU through the whole train step
+(``make_train_step(fused=True)``: the fused forward and backward stacks, the
+loss, the backward and the AdamW-amsgrad update) at the reference training
+shape: 16 s at 8 kHz (``aligned_bucket``: 125000 samples), one context vector
+per mixture, bf16, B=16, the ``cosine_warmup_schedule(1.5e-4, 500000,
+10000)`` schedule. ``--variant`` selects the recipe: ``context`` (-SI-SNR on
+stream 0) or ``contsep`` (PIT SI-SNR + the weighted BCE selector loss, 2
+decoded streams). ``--infer`` measures the realtime factor of the fused
+serving engine instead (``--variant hcontext`` there too, with a random
+speaker embedding and cue 0), ``--serving_quant w8a8`` its int8 stacks.
+
+It runs on the card, and raises without one; only ``--smoke`` selects the
+CPU. ``--with_llm``, ``--ctx_sim``, ``--mesh_data``, ``--cascaded`` and the
+H-ContExt training recipe raise ``NotImplementedError``: they need modules
+not ported yet.
+
+vs_baseline: the reference publishes no throughput (BASELINE.md), so the
+denominator is the root bench's documented estimate of the 8xA100 recipe's
+per-GPU rate: ~0.5 s/iter at per-GPU batch 2 => ~4 mixtures/s per A100,
+taken as audio seconds per second at 16 s clips.
+
+Its standard error gets one JSON line too, ``{"launches", "calls"}``: each
+kernel wrapper's launches over the warmup and the timed calls (zero counts
+left out; on the CPU, where the plain versions run, none), and how many
+steps or forwards that was.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.models import Sepformer, SepformerConfig
+from cse_tpu_torch.ops.buckets import aligned_bucket
+
+REF_MIXTURES_PER_SEC_PER_GPU = 4.0  # documented estimate, see module docstring
+
+UNPORTED = (
+    ("with_llm", "--with_llm needs the Llama context encoder (ROADMAP queue 1, item 6)"),
+    ("ctx_sim", "--ctx_sim needs the Llama context encoder (ROADMAP queue 1, item 6)"),
+    ("mesh_data", "--mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"),
+    ("cascaded", "--cascaded needs Whisper and the cascaded selector (ROADMAP queue 1, item 8)"),
+)
+
+
+def _metric_name(args) -> str:
+    if args.infer:
+        return {
+            "context": "inference_rtf_contextual_extraction",
+            "contsep": "inference_rtf_contsep",
+            "hcontext": "inference_rtf_hcontext",
+        }[args.variant]
+    if args.cascaded:
+        return "cascaded_pipeline_rtf"
+    stem = {
+        "context": "train_throughput_contextual_extraction",
+        "contsep": "train_throughput_contsep",
+        "hcontext": "train_throughput_hcontext",
+    }[args.variant]
+    return stem + ("_with_llm" if args.with_llm else "")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=16, help="mixtures per step (one GPU)")
+    ap.add_argument("--seconds", type=float, default=16.0, help="mixture length (s)")
+    ap.add_argument("--sr", type=int, default=8000)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--smoke", action="store_true", help="tiny config on the CPU (plumbing only)")
+    ap.add_argument("--variant", choices=("context", "contsep", "hcontext"), default="context",
+                    help="the paper recipe measured: context (ContExt, the default), contsep (PIT + "
+                         "selector losses, 2 decoded streams), hcontext (--infer only)")
+    ap.add_argument("--infer", action="store_true",
+                    help="measure the realtime factor of the fused serving engine instead")
+    ap.add_argument("--serving_quant", choices=("w8a8",), default=None,
+                    help="with --infer: int8 weights and per-row int8 activations in the stacks")
+    ap.add_argument("--with_llm", action="store_true", help="not ported yet: raises")
+    ap.add_argument("--ctx_sim", action="store_true", help="not ported yet: raises")
+    ap.add_argument("--mesh_data", type=int, default=None, help="not ported yet: raises")
+    ap.add_argument("--cascaded", action="store_true", help="not ported yet: raises")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    for flag, why in UNPORTED:
+        if getattr(args, flag):
+            raise NotImplementedError(f"cse_tpu_torch.bench: {why}")
+    if args.variant == "hcontext" and not args.infer:
+        raise NotImplementedError("cse_tpu_torch.bench: the H-ContExt train recipe needs the speaker "
+                                  "encoder (ECAPA), not ported yet (ROADMAP queue 1, item 7)")
+    dev = resolve_device("cpu" if args.smoke else None)
+
+    model_variant = "contsep" if args.variant == "contsep" else "context"
+    vkw = dict(add_se=True) if args.variant == "hcontext" else {}
+    if args.smoke:
+        cfg = SepformerConfig(
+            variant=model_variant, enc_channels=16, enc_kernel=8, enc_stride=4,
+            d_model=16, nhead=4, d_ffn=32, num_tf_layers=1, num_dp_layers=1,
+            chunk_size=10, llm_dim=64, pe_max_len=256, **vkw,
+        )
+        B, T = 2, 2000
+    else:
+        # the fused stacks keep only each chunk's input for the backward: no remat
+        cfg = SepformerConfig(variant=model_variant, num_spks=2, compute_dtype=torch.bfloat16, **vkw)
+        # the aligned bucket: the largest T <= 16 s whose inter sequence fits 128 rows
+        B, T = args.batch, aligned_bucket(int(args.seconds * args.sr))
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(0))
+    line = (_bench_infer if args.infer else _bench_train)(args, cfg, model, B, T, dev)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _dtype_name(cfg) -> str:
+    return "bf16" if cfg.compute_dtype == torch.bfloat16 else "fp32"
+
+
+def _bench_train(args, cfg, model, B, T, dev) -> dict:
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+    from cse_tpu_torch.train.step import TrainConfig, make_train_step
+
+    rng = np.random.default_rng(0)
+    gt = rng.standard_normal((B, T)).astype(np.float32)
+    batch = {
+        "mixed": 0.7 * gt + 0.3 * rng.standard_normal((B, T)).astype(np.float32),
+        "gt": gt,
+    }
+    if args.variant == "contsep":
+        # PIT targets: gt + 1 interferer (the 2-speaker DailyTalk recipe)
+        batch["noises"] = rng.standard_normal((B, T, 1)).astype(np.float32)
+    batch["ctx_feat"] = rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    tcfg = TrainConfig(
+        variant=args.variant, num_spks=2,
+        # DailyTalk 2-speaker ContSep recipe: ce forced off (BCE), ctx_weight 5.0
+        # (reference train_ContSep.py:167-168, README.md:119)
+        use_ce=False, ctx_weight=5.0,
+    )
+    step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)), tcfg,
+                           fused=not args.smoke, device=dev)
+    _reset_launches()
+    for _ in range(args.warmup):
+        m = step.tensors(batch)
+    float(m["loss"])  # one read: the device has finished the warmup
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        m = step.tensors(batch)
+    float(m["loss"])
+    dt = time.perf_counter() - t0
+    _report_launches(args.warmup + args.steps)
+
+    var_note = {"context": "", "contsep": ", PIT+BCE-selector 2-stream"}[args.variant]
+    mixtures_per_sec = B * args.steps / dt
+    audio_s_per_s = mixtures_per_sec * T / args.sr
+    ref_audio_s = REF_MIXTURES_PER_SEC_PER_GPU * 16.0  # per A100, 16 s clips
+    return {
+        "metric": _metric_name(args),
+        "value": mixtures_per_sec,
+        "unit": "mixtures/s%s (%.3fs@8kHz, %s, batch %d%s; %.1f audio-s/s; %s)"
+                % ("/GPU" if dev.type == "cuda" else "", T / args.sr, _dtype_name(cfg), B, var_note,
+                   audio_s_per_s, _where(dev)),
+        "vs_baseline": audio_s_per_s / ref_audio_s,
+    }
+
+
+def _bench_infer(args, cfg, model, B, T, dev) -> dict:
+    """The realtime factor of the fused serving engine. ``--variant``
+    composes: contsep serves 2 decoded streams + the selector head; hcontext
+    adds the speaker-embedding cue fusion (fixed cue 0, like the eval CLIs'
+    ``--cue``)."""
+    from cse_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(0)
+    mix = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32)).to(dev)
+    ctx = torch.from_numpy(rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)).to(dev)
+    call_kw = {}
+    if cfg.add_se:
+        se = torch.from_numpy(rng.standard_normal((B, 1, cfg.se_dim)).astype(np.float32)).to(dev)
+        call_kw = dict(se=se, cue_index=0)
+    engine = ServingEngine(cfg, model, device=dev, quant=args.serving_quant)
+
+    def run():
+        out = engine(mix, ctx, **call_kw)
+        est = out[0] if isinstance(out, tuple) else out  # contsep: (est, logits)
+        return float(est.float().sum())
+
+    _reset_launches()
+    run()
+    t0 = time.perf_counter()
+    for _ in range(args.steps - 1):
+        engine(mix, ctx, **call_kw)
+    run()
+    dt = (time.perf_counter() - t0) / args.steps
+    _report_launches(args.steps + 1)
+    rtf = (B * T / args.sr) / dt
+    qnote = ", %s stacks" % args.serving_quant if args.serving_quant else ""
+    return {
+        "metric": _metric_name(args),
+        "value": rtf,
+        "unit": "x realtime (fused serving, batch %d, %.3fs@8kHz, %s%s; %s)"
+                % (B, T / args.sr, _dtype_name(cfg), qnote, _where(dev)),
+        "vs_baseline": None,
+    }
+
+
+def _reset_launches():
+    from cse_tpu_torch.ops import attention, fused_stack_w8a8, fused_train
+
+    fused_train.reset_launches()  # and fused_stack's
+    fused_stack_w8a8.reset_launches()
+    attention.reset_launches()
+
+
+def _report_launches(calls: int):
+    """Every kernel wrapper's launches since :func:`_reset_launches`, as one
+    JSON line on standard error (standard output holds the result alone)."""
+    from cse_tpu_torch.ops import attention, fused_stack_w8a8, fused_train
+
+    counts = {**fused_train.launch_counts(), **fused_stack_w8a8.launch_counts(), **attention.launch_counts()}
+    print(json.dumps({"launches": {k: v for k, v in counts.items() if v}, "calls": calls}),
+          file=sys.stderr, flush=True)
+
+
+def _where(dev) -> str:
+    """The card's name; a CPU run says it measures plumbing, not a device."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU smoke: plumbing only, no device time"
+
+
+if __name__ == "__main__":
+    main()

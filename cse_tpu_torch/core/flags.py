@@ -217,6 +217,10 @@ def parse_test_args(argv=None) -> argparse.Namespace:
     add_train_flags(p)
     add_test_flags(p)
     add_tpu_flags(p)
+    p.add_argument("--synthetic_eval", type=int, default=6,
+                   help="with --synthetic_smoke: premixed mixtures in the "
+                        "test set (and the val set); raise it to measure "
+                        "eval throughput")
     p.set_defaults(mode="test", workers=5, max_shift_sec=1.0)
     args = p.parse_args(argv)
     args.speed_perturb_ratio = tuple(

@@ -11,8 +11,10 @@ The reference's contract (``train_ContSep.py:179-211,458-513``):
 A checkpoint is one file holding ``{"format": FORMAT, "model": state_dict,
 "opt_state": the optimizer's state as a dict (moments, counts, the MultiSteps
 accumulator, the plateau scale), "step", "epoch", "best_val", "plateau"}``.
-A file without the ``format`` entry is a released PyTorch checkpoint of the
-reference; warm starts from those are not ported yet and raise.
+A released PyTorch checkpoint of the reference (a dict with a ``state_dict``,
+or a bare state_dict) is read too, through
+:mod:`cse_tpu_torch.compat.torch_import`, so both forms are consumable by the
+same flag.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any
 
 import torch
 
+from cse_tpu_torch.compat.torch_import import released_form
 from cse_tpu_torch.train.optimizer import OptState
 
 FORMAT = "cse_tpu_torch/1"
@@ -95,14 +98,17 @@ def latest_checkpoint(checkpoint_dir: str) -> str | None:
 
 
 def restore_checkpoint(path: str, map_location="cpu") -> dict[str, Any]:
-    """Load a checkpoint written by :func:`save_checkpoint`. A released
-    PyTorch ``.ckpt`` of the reference raises: warm starts from released
-    weights are not ported yet."""
+    """Load a checkpoint written by :func:`save_checkpoint`, or a released
+    PyTorch ``.ckpt`` of the reference, which comes back as
+    ``{"state_dict": reference names -> fp32 CPU tensors, "step", "epoch",
+    ...}`` for the caller to map through
+    :func:`cse_tpu_torch.compat.torch_import.sepformer_from_state_dict`.
+    Raises ValueError for a file of neither form."""
     obj = torch.load(path, map_location=map_location, weights_only=False)
-    if not (isinstance(obj, dict) and obj.get("format") == FORMAT):
-        raise NotImplementedError(
-            f"cse_tpu_torch: {path!r} is not a checkpoint of this package (a released PyTorch "
-            "checkpoint?); the warm start from released weights is not ported yet (ROADMAP queue 1, "
-            "'left of items 2 and 3')"
-        )
-    return obj
+    if isinstance(obj, dict) and obj.get("format") == FORMAT:
+        return obj
+    released = released_form(obj)
+    if released is None:
+        raise ValueError(f"cse_tpu_torch: {path!r} is neither a checkpoint of this package nor a released "
+                         "PyTorch checkpoint of the reference")
+    return released

@@ -11,7 +11,9 @@ behaviour:
 * validation every ``--eval_step`` with checkpoint + rolling Best;
 * ``--tot_iters`` stop (a clean exit, not the reference's assert-crash);
 * ``--resume`` / ``--checkpoint`` with ``--from_ckpt`` restore model,
-  optimizer, plateau, step and epoch.
+  optimizer, plateau, step and epoch; a released PyTorch checkpoint of the
+  reference warm-starts the weights (with ``--from_ckpt`` also step and
+  epoch) under fresh optimizer moments.
 
 Execution model: the host threads only decode and tokenize; per step the
 device runs the mixture synthesis, the frozen context encoder, the
@@ -27,8 +29,7 @@ card, and the run raises without one. The fused train path is on by default
 on the card and off on the CPU; ``--fused_train`` / ``--no_fused_train``
 force it. Not ported yet, each raising ``NotImplementedError``:
 ``variant="hcontext"`` (needs the speaker encoder), ``--mesh_data`` (data
-parallel), a real ``--llama_path``, and the warm start from released
-PyTorch checkpoints.
+parallel) and a real ``--llama_path``.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
 from cse_tpu_torch.core.banner import announce_assets
-from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.core.cli import TAG, TINY_MODEL, corpus_paths, device_of, setup_synthetic
 from cse_tpu_torch.data import datasets as ds
 from cse_tpu_torch.data.pipeline import EvalLoader, PipelineConfig, TrainLoader, prefetch
 from cse_tpu_torch.data.tokenizer import load_tokenizer
@@ -59,57 +61,12 @@ from cse_tpu_torch.train.step import TrainConfig, make_eval_step, make_train_ste
 from cse_tpu_torch.utils.logging import IterTimer, MetricLogger
 from cse_tpu_torch.utils.profiling import profile_dir_from_env, trace_if
 
-TAG = "[cse_tpu_torch]"
-
-
-def _corpus_paths(args) -> ds.CorpusPaths:
-    return ds.CorpusPaths(
-        dailytalk=args.dailytalk_data_path,
-        spokenwoz=args.spokenwoz_data_path,
-        tedlium=args.tedlium_data_path,
-        demand=args.acoustic_noise_path,
-        lists_root=getattr(args, "lists_root", "./data"),
-    )
-
-
-def setup_synthetic(args):
-    """--synthetic_smoke: build a tiny corpus and retarget the flags at it."""
-    import tempfile
-
-    from cse_tpu_torch.data.synthetic import make_synthetic_corpus
-
-    assert args.train_data in ("dailytalk", "spokenwoz", "tedlium"), (
-        f"--train_data {args.train_data!r}: unknown corpus"
-    )
-    root = tempfile.mkdtemp(prefix="cse_synth_")
-    info = make_synthetic_corpus(
-        root, num_test_mix=args.num_test_mix, corpus=args.train_data,
-        n_dialogs=getattr(args, "synthetic_dialogs", 4),
-        turns_per_dialog=getattr(args, "synthetic_turns", 8),
-        seconds=tuple(getattr(args, "synthetic_seconds", (1.0, 3.0))),
-    )
-    corpus = args.train_data
-    setattr(args, f"{corpus}_data_path", info[f"{corpus}_data_path"])
-    args.acoustic_noise_path = info["acoustic_noise_path"]
-    args.lists_root = info["lists_root"]
-    args.llama_path = "__none__"  # force the stub encoder
-    print(f"{TAG} synthetic corpus at {root}")
-    return args
-
 
 def build_model(args, variant: str) -> tuple[Sepformer, TrainConfig]:
     if variant == "contsep" and args.train_data == "dailytalk":
         args.ce = False  # forced, reference train_ContSep.py:167-168
     use_ce = bool(args.ce) if variant == "contsep" else True
-    tiny = {}
-    if getattr(args, "debug_tiny_model", False):
-        tiny = dict(
-            enc_channels=32, enc_kernel=8, enc_stride=4, d_model=32, nhead=4,
-            d_ffn=64, num_tf_layers=2, num_dp_layers=1, chunk_size=50,
-            # stride 4 at 16 s/8 kHz gives ~1300 inter-chunk positions;
-            # cover them (the full-size model's 2500 covers its own worst case)
-            pe_max_len=2048,
-        )
+    tiny = TINY_MODEL if getattr(args, "debug_tiny_model", False) else {}
     cfg = SepformerConfig(
         num_spks=args.num_max_mix,
         variant="context" if variant == "hcontext" else variant,
@@ -164,11 +121,6 @@ def _pipeline_cfg(args, mode: str) -> PipelineConfig:
     )
 
 
-def _device_of(args) -> torch.device:
-    platform = getattr(args, "platform", None)
-    return resolve_device({None: None, "gpu": "cuda"}.get(platform, platform))
-
-
 def train_net(args, variant: str, stats: dict | None = None):
     """Train ``variant``; returns the model. ``stats``, when given, receives
     the run's measurements: ``sustained_mixtures_per_s``, ``loss_reads`` (every
@@ -188,12 +140,12 @@ def train_net(args, variant: str, stats: dict | None = None):
         raise NotImplementedError(
             "cse_tpu_torch: --mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"
         )
-    dev = _device_of(args)
+    dev = device_of(args)
     stats = {} if stats is None else stats
     if args.synthetic_smoke:
         args = setup_synthetic(args)
 
-    paths = _corpus_paths(args)
+    paths = corpus_paths(args)
     tokenizer = load_tokenizer(args.llama_path, args.llama_auth_token)
     llm = None
     if variant != "base":
@@ -261,16 +213,24 @@ def train_net(args, variant: str, stats: dict | None = None):
     if args.checkpoint:
         print(f"{TAG} Loading checkpoint: {args.checkpoint}")
         restored = ckpt_lib.restore_checkpoint(args.checkpoint, map_location=dev)
-        model.load_state_dict(restored["model"])
-        if args.from_ckpt:
-            step_num = int(restored["step"])
-            start_epoch = int(restored["epoch"])
-            if not args.reset_optimizer:  # else fresh moments, keep step/epoch
-                ckpt_lib.load_opt_state(opt_state, restored["opt_state"])
-            best_val = float(restored.get("best_val", 0.0))
-            if plateau is not None and restored.get("plateau") is not None:
-                plateau.load_state_dict(dict(restored["plateau"]))
-                set_plateau_scale(opt_state, plateau.scale)
+        if "state_dict" in restored:  # released PyTorch weights: warm start under fresh moments
+            cfg = model.cfg
+            model.load_state_dict(sepformer_from_state_dict(
+                restored["state_dict"], cfg.num_dp_layers, cfg.num_tf_layers))
+            if args.from_ckpt:
+                step_num = int(restored.get("step", 0))
+                start_epoch = int(restored.get("epoch", 0))
+        else:
+            model.load_state_dict(restored["model"])
+            if args.from_ckpt:
+                step_num = int(restored["step"])
+                start_epoch = int(restored["epoch"])
+                if not args.reset_optimizer:  # else fresh moments, keep step/epoch
+                    ckpt_lib.load_opt_state(opt_state, restored["opt_state"])
+                best_val = float(restored.get("best_val", 0.0))
+                if plateau is not None and restored.get("plateau") is not None:
+                    plateau.load_state_dict(dict(restored["plateau"]))
+                    set_plateau_scale(opt_state, plateau.scale)
     stats["start_step"] = step_num
 
     schedule = build_schedule(args)

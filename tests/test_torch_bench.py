@@ -1,0 +1,64 @@
+"""The port's bench, ``python -m cse_tpu_torch.bench``, on the CPU: ``--smoke``
+prints one JSON line with the root bench's metric name (and its launch report
+on standard error); the flags that need
+unported modules raise, naming their ROADMAP item; without ``--smoke`` and
+without a card it raises and prints nothing."""
+
+import argparse
+import importlib.util
+import json
+import math
+from pathlib import Path
+
+import pytest
+import torch
+
+from cse_tpu_torch import bench
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _root_bench():
+    spec = importlib.util.spec_from_file_location("root_bench", REPO / "bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("extra", [[], ["--variant", "contsep"], ["--infer"], ["--infer", "--variant", "contsep"],
+                                   ["--infer", "--variant", "hcontext"], ["--infer", "--serving_quant", "w8a8"]])
+def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
+    got = bench.main(["--smoke", "--steps", "2", "--warmup", "1"] + extra)
+    captured = capsys.readouterr()
+    lines = captured.out.splitlines()
+    assert len(lines) == 1
+    # standard error's report: 3 train steps (1 + 2) or forwards (2 + 1), and
+    # no kernel launch, since the CPU runs the plain versions
+    assert json.loads(captured.err.splitlines()[-1]) == {"launches": {}, "calls": 3}
+    line = json.loads(lines[0])
+    assert line == got and set(line) == {"metric", "value", "unit", "vs_baseline"}
+    args = bench.parse_args(extra)
+    root = argparse.Namespace(infer=args.infer, variant=args.variant, cascaded=False, with_llm=False)
+    assert line["metric"] == _root_bench()._metric_name(root)
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    assert "CPU smoke" in line["unit"]  # a CPU number is never labelled as the GPU's
+    assert (line["vs_baseline"] is None) == args.infer
+
+
+@pytest.mark.parametrize("extra,item", [(["--with_llm"], "item 6"), (["--ctx_sim"], "item 6"),
+                                        (["--mesh_data", "2"], "item 5"), (["--cascaded"], "item 8"),
+                                        (["--variant", "hcontext"], "item 7")])
+def test_unported_flags_raise(extra, item, capsys):
+    with pytest.raises(NotImplementedError, match=item):
+        bench.main(["--smoke"] + extra)
+    assert capsys.readouterr().out == ""
+
+
+def test_without_smoke_and_card_it_raises(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--infer"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.main(extra)
+    assert capsys.readouterr().out == ""

@@ -748,3 +748,33 @@ def test_trainer_on_the_card_tiny(gen, tmp_path, path):
         stats = {}
         train_net(parse_train_args(argv + ["--resume", "--from_ckpt", "--tot_iters", "5"]), "base", stats=stats)
         assert stats["start_step"] == 4 and stats["final_step"] == 6
+
+
+@pytest.mark.parametrize("quant", [None, "w8a8"])
+def test_released_checkpoint_reloads_to_the_same_serving_bits(gen, tmp_path, monkeypatch, quant):
+    """A model exported as a released checkpoint and read back gives the
+    same bits through ServingEngine as the original (tiny widths, bf16)."""
+    from cse_tpu_torch.compat.torch_export import save_torch_checkpoint
+    from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
+    from cse_tpu_torch.core.cli import TINY_MODEL
+    from cse_tpu_torch.models import Sepformer, SepformerConfig
+    from cse_tpu_torch.serving import ServingEngine
+    from cse_tpu_torch.train import checkpoint as ckpt_lib
+
+    cfg = SepformerConfig(variant="context", compute_dtype=torch.bfloat16, **TINY_MODEL)
+    model = Sepformer(cfg, generator=torch.Generator().manual_seed(4))
+    path = str(tmp_path / "released.ckpt")
+    save_torch_checkpoint(path, model)
+    back = Sepformer(cfg)
+    back.load_state_dict(sepformer_from_state_dict(ckpt_lib.restore_checkpoint(path)["state_dict"],
+                                                   cfg.num_dp_layers, cfg.num_tf_layers))
+    mix = torch.randn(3, 16000, device="cuda", generator=gen)
+    ctx = torch.randn(3, 1, cfg.llm_dim, device="cuda", generator=gen)
+    fs.reset_launches()
+    # the decoder's default cuDNN conv_transpose1d is not deterministic
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a = ServingEngine(cfg, model, quant=quant)(mix, ctx)
+    b = ServingEngine(cfg, back, quant=quant)(mix, ctx)
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    if quant is None:
+        assert fs.launch_counts()["attention"] > 0  # the kernels ran, not their plain versions

@@ -69,14 +69,16 @@ TRAINER_MODULES = [
     "ops.kernel_parts", "ops.mixing", "ops.resample", "data.audio_io", "data.tokenizer", "data.datasets",
     "data.synthetic", "data.pipeline", "models.context_encoder", "train.checkpoint", "train.loop", "core.flags",
     "core.banner", "utils.logging", "utils.profiling", "train_ContExt", "train_ContSep", "train_Sepformer",
-    "scripts.bench_kernel_parts",
+    "scripts.bench_kernel_parts", "eval.evaluator", "eval.metrics", "eval.host_metrics", "eval.pesq",
+    "compat.torch_import", "compat.torch_export", "test", "bench", "core.cli",
 ]
 
 
 @pytest.mark.parametrize("name", TRAINER_MODULES)
 def test_trainer_and_tool_modules_are_walked(name):
-    """The trainer's modules, the three entry points and the kernel-parts tool
-    are modules of the package, so the two tests above cover them."""
+    """The trainer's and the eval's modules, the five entry points and the
+    kernel-parts tool are modules of the package, so the two tests above
+    cover them."""
     assert f"cse_tpu_torch.{name}" in _modules()
     assert (PKG_DIR / (name.replace(".", "/") + ".py")).exists()
 

@@ -28,6 +28,7 @@ from cse_tpu.data.pipeline import TrainLoader as JaxTrainLoader
 from cse_tpu.data.tokenizer import load_tokenizer as jax_load_tokenizer
 from cse_tpu.models.context_encoder import HashProjectionEncoder as JaxEncoder
 from cse_tpu_torch.compat.jax_params import hash_encoder_tables, jax_params_to_state_dict, load_jax_params
+from cse_tpu_torch.core.cli import corpus_paths, setup_synthetic
 from cse_tpu_torch.core.flags import parse_train_args
 from cse_tpu_torch.data import datasets as tds
 from cse_tpu_torch.data.pipeline import TrainLoader
@@ -121,9 +122,10 @@ def test_device_activity_reads_busy_share_and_longest_gap():
 def _first_batches(args, jargs):
     """The first train batch of each package from its own loader and synthesis."""
     out = []
-    for a, ds_, Loader, load_tok, loop in ((jargs, jds, JaxTrainLoader, jax_load_tokenizer, jloop),
-                                           (args, tds, TrainLoader, load_tokenizer, tloop)):
-        paths = loop._corpus_paths(a)
+    for a, ds_, Loader, load_tok, loop, paths_of in (
+            (jargs, jds, JaxTrainLoader, jax_load_tokenizer, jloop, jloop._corpus_paths),
+            (args, tds, TrainLoader, load_tokenizer, tloop, corpus_paths)):
+        paths = paths_of(a)
         kw = dict(seed=a.seed, num_workers=a.workers, process_index=0, process_count=1,
                   demand_files=ds_.demand_noise_list(paths) if a.noise_add else None)
         if Loader is TrainLoader:
@@ -138,7 +140,7 @@ def _first_batches(args, jargs):
 @pytest.mark.parametrize("variant,extra", [("context", ["--augmentation", "--noise_add"]), ("contsep", []),
                                            ("base", [])])
 def test_first_batch_loss_and_grads_match_jax(variant, extra):
-    args = tloop.setup_synthetic(_args(extra))
+    args = setup_synthetic(_args(extra))
     jargs = _args(extra, jax_parse_train_args)
     for k in ("dailytalk_data_path", "acoustic_noise_path", "lists_root", "llama_path"):
         setattr(jargs, k, getattr(args, k))  # both read the port's copy of the corpus
@@ -244,10 +246,14 @@ def test_checkpoint_names_best_rolls_and_latest_orders(tmp_path):
     fresh.count = 99
     ckpt_lib.load_opt_state(fresh, got["opt_state"])
     assert fresh.count == 0 and fresh.acc_grads is not None and fresh.plateau_scale == 1.0
-    # a released PyTorch checkpoint (no format entry) is refused
+    # a released PyTorch checkpoint (no format entry) comes back in the reference's form;
+    # a file of neither form is refused
     released = str(tmp_path / "released.ckpt")
     torch.save({"state_dict": lin.state_dict(), "step": 3}, released)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    rel = ckpt_lib.restore_checkpoint(released)
+    assert rel["step"] == 3 and all(torch.equal(rel["state_dict"][k], v) for k, v in lin.state_dict().items())
+    torch.save({"weights": lin.state_dict()}, released)
+    with pytest.raises(ValueError, match="neither"):
         ckpt_lib.restore_checkpoint(released)
     with pytest.raises(ValueError, match="does not fit"):
         ckpt_lib.load_opt_state(build_optimizer(1e-3).init(list(torch.nn.Linear(2, 2).parameters())),
