@@ -129,6 +129,20 @@ Phases (any failure exits non-zero and prints no result line):
      mixtures/s, [4]'s and [9b]'s realtime factors of this run; the launch
      report on its standard error against the wrappers' formula times the
      steps or forwards it ran.
+ 15. the frozen Llama-3 context encoder (models/llama.py; no kernel of the
+     port, kernels #3 and #4 beside it in the step): (a) one tiny checkout
+     written here (vocab 320, hidden 64, 2 layers, 4 / 2 heads) loaded on
+     the card and on the CPU: fp32, bf16, int8 and w8a8 hidden states (and
+     logits) card against CPU, left-padded rows finite, a 16-row w8a8 call;
+     (b) the 32-layer 8B shape on random weights in bf16, int8 and w8a8:
+     weight bytes, peak memory, the bare prefill's median at B=8 x 512
+     tokens beside its bound; (c) python -m cse_tpu_torch.bench --with_llm
+     (int8), --llama_quant w8a8 and --ctx_sim: one JSON line each, a value
+     > 0, the launch report against the formula; (d) train_net ContExt at
+     paper width, B=16, on a Llama checkout at the real width (4096, 32 / 8
+     heads, intermediate 14336, 2 layers) with --llama_int8: the banner says
+     llm=real, finite losses, launches per update as in [7c], the sustained
+     mixtures/s beside [11]'s; the native WAV decoder is in use.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -2029,6 +2043,309 @@ def phase14(card, references):
     return out
 
 
+# [15]'s bars. The same Llama weights on the card and on the CPU: fp32 differs
+# only in summation order -> relative L2 <= 1e-4; bf16 on the card against
+# fp32 -> <= 2e-2 (the bf16 bar of [3], over 2 layers); int8 weight-only,
+# fp32 activations, card against CPU -> <= 1e-3; w8a8 -> <= 1e-2 (a one-ulp
+# difference in h / sa flips an activation's int8 rounding by a whole step,
+# as in [9a]).
+TOL_LLAMA = {"fp32": 1e-4, "bf16": 2e-2, "int8": 1e-3, "w8a8": 1e-2}
+HF_MATRICES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+               "gate": "mlp.gate_proj", "up": "mlp.up_proj", "down": "mlp.down_proj"}
+
+
+def write_safetensors(path, tensors: dict):
+    """A safetensors file (u64 header length, JSON header, raw bytes) of CPU
+    tensors in fp32 or bf16, written without the safetensors package."""
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+    header, blobs, off = {}, [], 0
+    for k, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for b in blobs:
+            f.write(b)
+
+
+def write_llama_dir(path, vocab, hidden, inter, layers, heads, kv_heads, dtype, gen, lm_head=True):
+    """A Llama checkout (config.json + model.safetensors, HF names and
+    [dout, din] layout) of random weights drawn on the card from ``gen``."""
+    import os
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vocab_size": vocab, "hidden_size": hidden, "intermediate_size": inter,
+                   "num_hidden_layers": layers, "num_attention_heads": heads, "num_key_value_heads": kv_heads,
+                   "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "tie_word_embeddings": False}, f)
+    dh = hidden // heads
+    dims = {"q": (heads * dh, hidden), "k": (kv_heads * dh, hidden), "v": (kv_heads * dh, hidden),
+            "o": (hidden, heads * dh), "gate": (inter, hidden), "up": (inter, hidden), "down": (hidden, inter)}
+
+    def rnd(*shape, scale=1.0, mean=0.0):
+        return (mean + scale * torch.randn(*shape, device=gen.device, generator=gen)).to(dtype).cpu()
+
+    t = {"model.embed_tokens.weight": rnd(vocab, hidden, scale=0.02), "model.norm.weight": rnd(hidden, scale=0.1, mean=1.0)}
+    if lm_head:
+        t["lm_head.weight"] = rnd(vocab, hidden, scale=hidden ** -0.5)
+    for i in range(layers):
+        t[f"model.layers.{i}.input_layernorm.weight"] = rnd(hidden, scale=0.1, mean=1.0)
+        t[f"model.layers.{i}.post_attention_layernorm.weight"] = rnd(hidden, scale=0.1, mean=1.0)
+        for name, (dout, din) in dims.items():
+            t[f"model.layers.{i}.{HF_MATRICES[name]}.weight"] = rnd(dout, din, scale=din ** -0.5)
+    write_safetensors(os.path.join(path, "model.safetensors"), t)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested dict) weight tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def llama_bound(cfg, B, T, quant):
+    """The least time of the prefill's work (ms): the layer products' and the
+    attention's operations over their peak, or the bytes (weights once, the
+    embedded rows and the hidden states out), the larger; and for int8
+    weight-only the extra traffic of the bf16 copy each product makes of its
+    weight (int8 read + bf16 written + bf16 read), which runs beside it."""
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, KV, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    weights = L * (D * H * dh + 2 * D * KV * dh + H * dh * D + 3 * D * I)
+    tokens = B * T
+    mm_ops = 2 * weights * tokens
+    att_ops = L * 4 * B * H * T * T * dh
+    ops_ms = 1e3 * (mm_ops / (PEAK_INT8 if quant == "w8a8" else PEAK_BF16) + att_ops / PEAK_BF16)
+    scales = 0 if quant == "bf16" else 4 * L * (H * dh + 2 * KV * dh + 2 * D + 2 * I)
+    norms = 2 * (2 * L + 1) * D
+    # weights, scales and norms once; the embedded rows and the ids and mask in; the hidden states out
+    nbytes = weights * (2 if quant == "bf16" else 1) + scales + norms + tokens * (2 * D + 8) + tokens * 2 * D
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_S
+    copy_ms = 1e3 * weights * (1 + 2 + 2) / HBM_BYTES_S if quant == "int8" else 0.0
+    return {"weights": weights, "ops": mm_ops + att_ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "dequant_copy_ms": copy_ms}
+
+
+def prefill_split(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time of its
+    kernels summed by kind (the library's GEMMs, the int8 GEMMs, softmax,
+    reductions, copies and casts, other elementwise), in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # cuBLAS 12.8's Hopper GEMMs are named nvjet_*; its int8 ones carry s8 / imma
+    kinds = (("int8 gemm", ("imma", "int8", "s8")), ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")),
+             ("softmax", ("softmax",)), ("reduce", ("reduce",)), ("copy and cast", ("copy", "cat", "index")),
+             ("elementwise", ("elementwise", "vectorized")))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            name = e.name.lower()
+            kind = next((k for k, keys in kinds if any(x in name for x in keys)), "other")
+            out[kind] = out.get(kind, 0.0) + us / 1e3
+    return out
+
+
+def phase15(card, failures, references):
+    """The frozen Llama-3 context encoder (cse_tpu_torch/models/llama.py): (a)
+    the same tiny checkout loaded on the card and on the CPU in fp32, bf16,
+    int8 and w8a8; (b) the 32-layer 8B shape on random weights in bf16, int8
+    and w8a8: weight bytes, peak memory, the bare prefill at B=8 x 512 tokens
+    beside its bound; (c) the bench's --with_llm forms in subprocesses; (d)
+    train_net on a Llama checkout at the real width (2 layers), int8."""
+    import os
+    import tempfile
+
+    from cse_tpu_torch.models import llama as tl
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    # ---- (a) parity on the card
+    root = tempfile.mkdtemp(prefix="cse_llama_tiny_")
+    write_llama_dir(root, vocab=320, hidden=64, inter=128, layers=2, heads=4, kv_heads=2, dtype=torch.float32,
+                    gen=gen)
+    log(f"[15a] Llama parity, card against CPU: vocab 320, hidden 64, 2 layers, 4 query / 2 key-value heads, "
+        f"B=3 x T=24 left-padded by 0 / 7 / 23  [{card}]")
+    B, T = 3, 24
+    ids = torch.randint(1, 320, (B, T), generator=torch.Generator().manual_seed(0))
+    mask = torch.ones(B, T, dtype=torch.int32)
+    for b, pad in enumerate((0, 7, T - 1)):
+        ids[b, :pad] = 0
+        mask[b, :pad] = 0
+    small_ids, small_mask = ids[:2, -8:].contiguous(), mask[:2, -8:].contiguous()  # 16 rows: _int_mm's padding
+    parity = {}
+    for form, dtype, quant in (("fp32", torch.float32, None), ("bf16", torch.bfloat16, None),
+                               ("int8", torch.float32, "int8"), ("w8a8", torch.float32, "w8a8")):
+        # the CPU form: fp32 activations, the same quantization (bf16 is held against fp32)
+        pc, cfg = tl.load_llama_params(root, dtype=torch.float32, quant=quant, device="cpu")
+        pg, _ = tl.load_llama_params(root, dtype=dtype, quant=quant, device="cuda")
+        rows = {"hidden": (tl.llama_forward(pg, ids, mask, cfg).float().cpu(), tl.llama_forward(pc, ids, mask, cfg))}
+        if form in ("fp32", "w8a8"):
+            rows["logits"] = (tl.llama_forward(pg, ids, mask, cfg, return_logits=True).cpu(),
+                              tl.llama_forward(pc, ids, mask, cfg, return_logits=True))
+        if form == "w8a8":
+            rows["16 rows"] = (tl.llama_forward(pg, small_ids, small_mask, cfg).cpu(),
+                               tl.llama_forward(pc, small_ids, small_mask, cfg))
+        parity[form] = {}
+        for what, (g, w) in rows.items():
+            mx, _, rl2 = errs(g, w)
+            ok = rl2 <= TOL_LLAMA[form] and bool(torch.isfinite(g).all())
+            log(f"  {form:<5s} {what:<7s} card vs {'CPU fp32' if form == 'bf16' else 'CPU'}: max_abs {mx:.3e} "
+                f"rel_l2 {rl2:.3e} (tol {TOL_LLAMA[form]:.0e}); finite at every position  {'ok' if ok else 'FAIL'}")
+            parity[form][what] = {"max_abs": mx, "rel_l2": rl2}
+            if not ok:
+                failures.append(f"llama {form} {what}")
+        del pc, pg
+    out["parity"] = parity
+    if failures:
+        fail(f"Llama parity failed: {failures}")
+
+    # ---- (b) the 8B shape, random weights on the card
+    cfg = tl.LlamaConfig()
+    B, T = 8, 512
+    log(f"[15b] Llama-3-8B shape (32 layers, 4096 / 14336, 32 query / 8 key-value heads, vocab 128256), random "
+        f"weights, no LM head; bare prefill at B={B} x {T} tokens, median of 5 after 2 warmups  [{card}]")
+    ids = torch.randint(0, cfg.vocab_size, (B, T), device="cuda", generator=gen)
+    mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    prefill = {}
+    for form in ("bf16", "int8", "w8a8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = tl.random_llama_params(cfg, dtype=torch.bfloat16, quant=None if form == "bf16" else form,
+                                        with_lm_head=False, device="cuda")
+        torch.cuda.synchronize()
+        built_s = time.time() - t0
+        h = tl.llama_forward(params, ids, mask, cfg)
+        finite = bool(torch.isfinite(h).all())
+        del h
+        times = cuda_ms(lambda: tl.llama_forward(params, ids, mask, cfg))
+        ms = statistics.median(times)
+        b = llama_bound(cfg, B, T, form)
+        split = prefill_split(lambda: tl.llama_forward(params, ids, mask, cfg))
+        r = {"weight_bytes": tree_bytes(params), "peak_bytes": torch.cuda.max_memory_allocated(), "ms": ms,
+             "times_ms": times, "built_s": built_s, "finite": finite, "split_ms": split, **b}
+        prefill[form] = r
+        extra = f", + {b['dequant_copy_ms']:.2f} ms of bf16 weight copies" if form == "int8" else ""
+        log(f"  {form:<5s} weights {r['weight_bytes'] / 1e9:.3f} GB, peak {r['peak_bytes'] / 2**30:.3f} GiB, drawn "
+            f"in {built_s:.1f} s; prefill {ms:.3f} ms ({[round(t, 3) for t in times]}); bound {b['bound_ms']:.2f} ms "
+            f"({b['bound_by']}: {b['ops'] / 1e12:.1f} TOP{extra}); {b['bound_ms'] / ms:.1%} of the bound; hidden "
+            f"states finite {finite}  {'ok' if finite else 'FAIL'}")
+        log(f"  {form:<5s} one profiled prefill, device ms by kind: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+        del params
+        if not finite:
+            fail(f"Llama 8B {form} prefill gave non-finite hidden states")
+    out["prefill"] = prefill
+    torch.cuda.empty_cache()
+
+    # ---- (c) the bench with the prefill in the step
+    from cse_tpu_torch.models.sepformer import SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+
+    scfg = SepformerConfig(variant="context")
+    train = {k: v * 2 * scfg.num_dp_layers for k, v in ft.launches_per_train_stack(scfg.num_tf_layers).items()}
+    log(f"[15c] python -m cse_tpu_torch.bench --with_llm, three forms (B=8, 8B shape, prefill in the step)  [{card}]")
+    benches = {}
+    for name, extra in (("--with_llm", []), ("--with_llm --llama_quant w8a8", ["--llama_quant", "w8a8"]),
+                        ("--with_llm --ctx_sim", ["--ctx_sim"])):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "cse_tpu_torch.bench", "--with_llm", *extra], capture_output=True,
+                              text=True, timeout=400, cwd=os.path.dirname(os.path.abspath(__file__)))
+        took = time.time() - t0
+        lines = proc.stdout.strip().splitlines()
+        try:
+            line = json.loads(lines[-1]) if proc.returncode == 0 and len(lines) == 1 else None
+        except json.JSONDecodeError:
+            line = None
+        if line is None:
+            fail(f"bench {name}: rc {proc.returncode}, stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+        err = proc.stderr.strip().splitlines()
+        report, decomposition = json.loads(err[-1]), err[-2]
+        want = {k: v * report["calls"] for k, v in train.items()}
+        ok = (line["metric"] == "train_throughput_contextual_extraction_with_llm" and math.isfinite(line["value"])
+              and line["value"] > 0 and decomposition.startswith("bench decomposition: bare"))
+        launched = report["launches"] == want
+        log(f"  {name:<30s} {line['metric']} = {line['value']:.3f} ({line['unit']}); {took:.1f} s  "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"  {'':<30s} {decomposition}; [7c] without the Llama at B=16: {references['[7c] mixtures/s']:.3f}")
+        log(f"  {'':<30s} launches over {report['calls']} calls: {report['launches']} (want {want})  "
+            f"{'ok' if launched else 'FAIL'}")
+        if not (ok and launched):
+            fail(f"bench {name}: {line}, launches {report}")
+        benches[name] = {**line, "seconds": took, "decomposition": decomposition, "launches": report["launches"],
+                         "calls": report["calls"]}
+    out["bench"] = benches
+
+    # ---- (d) the trainer on a Llama checkout at the real width
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.data.audio_io import native
+    from cse_tpu_torch.data.synthetic import make_synthetic_corpus
+    from cse_tpu_torch.train.loop import train_net
+
+    if native() is None:
+        fail("the native WAV decoder (cse_tpu_torch/native) did not build or load on this machine")
+    t0 = time.time()
+    ldir = tempfile.mkdtemp(prefix="cse_llama_4096_")
+    write_llama_dir(ldir, vocab=128256, hidden=4096, inter=14336, layers=2, heads=32, kv_heads=8,
+                    dtype=torch.bfloat16, gen=gen, lm_head=False)
+    write_s = time.time() - t0
+    info = make_synthetic_corpus(tempfile.mkdtemp(prefix="cse_corpus_"), n_dialogs=24, turns_per_dialog=8,
+                                 seconds=(8.0, 16.0))
+    argv = ["--train_data", "dailytalk", "--dailytalk_data_path", info["dailytalk_data_path"],
+            "--acoustic_noise_path", info["acoustic_noise_path"], "--lists_root", info["lists_root"],
+            "--llama_path", ldir, "--llama_int8", "--allow_stub_nets", "--bf16", "--batch_size", "16",
+            "--max_sp_len", "16", "--augmentation", "--noise_add", "--log_every", "2", "--eval_step", "100",
+            "--tot_iters", "8", "--workers", "8", "--checkpoint_dir", tempfile.mkdtemp(prefix="cse_ckpt_llama_")]
+    log(f"[15d] trainer with a Llama checkout (hidden 4096, 32 / 8 heads, intermediate 14336, 2 layers, vocab "
+        f"128256, bf16 on disk, written in {write_s:.1f} s; no tokenizer files: ByteTokenizer): train_net("
+        f"parse_train_args({' '.join(a if not a.startswith('/') else '<dir>' for a in argv)}), 'context')  [{card}]")
+    ft.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    stats, text = {}, io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(text), torch.enable_grad():
+        model = train_net(parse_train_args(argv), "context", stats=stats)
+    torch.cuda.synchronize()
+    took = time.time() - t0
+    banner = [ln for ln in text.getvalue().splitlines() if "external nets:" in ln]
+    for ln in text.getvalue().splitlines():
+        if any(k in ln for k in ("external nets:", "train path:", "sustained", "Total Iteration")):
+            log(f"  | {ln}")
+    steps = stats["final_step"] - stats["start_step"]
+    per_step = {k: v * 2 * model.cfg.num_dp_layers for k, v in ft.launches_per_train_stack(model.cfg.num_tf_layers).items()}
+    counts, want = ft.launch_counts(), {k: v * steps for k, v in per_step.items()}
+    losses = stats["loss_reads"]
+    rate = stats.get("sustained_mixtures_per_s", float("nan"))
+    ok = (bool(banner) and "llm=real" in banner[0] and counts == want and steps == 9 and bool(losses)
+          and all(math.isfinite(v) for v in losses) and math.isfinite(rate))
+    log(f"  banner: {banner}; {steps} updates in {took:.1f} s; losses read {[round(v, 4) for v in losses]}; "
+        f"launches {counts} (want {want}, per update {per_step})  {'ok' if ok else 'FAIL'}")
+    log(f"  sustained {rate:.3f} mixtures/s (the loop's own line) beside [11]'s fused {references['[11] fused']:.3f} "
+        f"(the stub encoder); peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    if not ok:
+        failures.append("llama trainer")
+        fail(f"Llama trainer checks failed: {text.getvalue()[-3000:]}")
+    out["trainer"] = {"updates": steps, "seconds": took, "losses": losses, "launches": counts,
+                      "sustained_mixtures_per_s": rate, "banner": banner, "write_s": write_s,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -2292,6 +2609,10 @@ def main() -> int:
                              "[4] realtime factor": audio_s / (fwd_ms / 1e3),
                              "[9b] realtime factor": w8_serve["realtime_factor"]})
     log(f"  [14] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    llama = phase15(card, failures, {"[7c] mixtures/s": bench["mixtures_per_s"],
+                                     "[11] fused": trainer["fused"]["sustained_mixtures_per_s"]})
+    log(f"  [15] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -2431,7 +2752,7 @@ def main() -> int:
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
-                      "eval": evals, "bench": benches}),
+                      "eval": evals, "bench": benches, "llama": llama}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@
     python -m cse_tpu_torch.bench                      # ContExt train step, B=16, 16 s
     python -m cse_tpu_torch.bench --variant contsep
     python -m cse_tpu_torch.bench --infer [--serving_quant w8a8]
+    python -m cse_tpu_torch.bench --with_llm [--llama_quant w8a8] [--ctx_sim]
     python -m cse_tpu_torch.bench --smoke [--infer]    # tiny config on the CPU
 
 The port's counterpart of the root ``bench.py``, for the flags the port can
@@ -20,10 +21,21 @@ decoded streams). ``--infer`` measures the realtime factor of the fused
 serving engine instead (``--variant hcontext`` there too, with a random
 speaker embedding and cue 0), ``--serving_quant w8a8`` its int8 stacks.
 
+``--with_llm`` puts the frozen Llama-3-8B prefill inside the timed step
+(the trainers' path: ``llm_apply`` on ``context_ids`` / ``context_mask``),
+on the full 32-layer 8B shape (4096 / 14336, 32 query and 8 key-value heads)
+with random weights drawn on the card and no LM head, int8 weight-only
+(``--llama_quant w8a8``: int8 activations too), ``--ctx_tokens`` tokens a
+row; the batch defaults to 8 there. ``--ctx_sim`` draws each step's
+dialog-history lengths from a DailyTalk-like distribution (1-15 turns of
+~19 tokens, numpy seed 3) and pads each batch to the smallest of
+``--ctx_sim_buckets`` that fits. With ``--smoke`` the Llama is a 2-layer tiny
+configuration. Standard error gets the bare prefill's time on the same
+weights (a decomposition, not the result).
+
 It runs on the card, and raises without one; only ``--smoke`` selects the
-CPU. ``--with_llm``, ``--ctx_sim``, ``--mesh_data``, ``--cascaded`` and the
-H-ContExt training recipe raise ``NotImplementedError``: they need modules
-not ported yet.
+CPU. ``--mesh_data``, ``--cascaded`` and the H-ContExt training recipe raise
+``NotImplementedError``: they need modules not ported yet.
 
 vs_baseline: the reference publishes no throughput (BASELINE.md), so the
 denominator is the root bench's documented estimate of the 8xA100 recipe's
@@ -53,8 +65,6 @@ from cse_tpu_torch.ops.buckets import aligned_bucket
 REF_MIXTURES_PER_SEC_PER_GPU = 4.0  # documented estimate, see module docstring
 
 UNPORTED = (
-    ("with_llm", "--with_llm needs the Llama context encoder (ROADMAP queue 1, item 6)"),
-    ("ctx_sim", "--ctx_sim needs the Llama context encoder (ROADMAP queue 1, item 6)"),
     ("mesh_data", "--mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"),
     ("cascaded", "--cascaded needs Whisper and the cascaded selector (ROADMAP queue 1, item 8)"),
 )
@@ -79,7 +89,8 @@ def _metric_name(args) -> str:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=16, help="mixtures per step (one GPU)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="mixtures per step (one GPU); default 16, or 8 with --with_llm")
     ap.add_argument("--seconds", type=float, default=16.0, help="mixture length (s)")
     ap.add_argument("--sr", type=int, default=8000)
     ap.add_argument("--steps", type=int, default=10)
@@ -92,11 +103,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="measure the realtime factor of the fused serving engine instead")
     ap.add_argument("--serving_quant", choices=("w8a8",), default=None,
                     help="with --infer: int8 weights and per-row int8 activations in the stacks")
-    ap.add_argument("--with_llm", action="store_true", help="not ported yet: raises")
-    ap.add_argument("--ctx_sim", action="store_true", help="not ported yet: raises")
+    ap.add_argument("--with_llm", action="store_true",
+                    help="include the frozen Llama-3-8B context prefill in the step (32-layer 8B shape, random "
+                         "weights, --llama_quant)")
+    ap.add_argument("--ctx_tokens", type=int, default=512, help="context length for --with_llm (left-padded)")
+    ap.add_argument("--ctx_sim", action="store_true",
+                    help="with --with_llm: DailyTalk-like dialog-history lengths per batch, each batch padded to "
+                         "the smallest of --ctx_sim_buckets that fits")
+    ap.add_argument("--ctx_sim_buckets", type=str, default="128 256 384 512",
+                    help="buckets for --ctx_sim (space-separated)")
+    ap.add_argument("--llama_quant", choices=("int8", "w8a8"), default="int8",
+                    help="the --with_llm prefill's weights: int8 weight-only (bf16 products) or w8a8 (int8 "
+                         "activations too, torch._int_mm)")
     ap.add_argument("--mesh_data", type=int, default=None, help="not ported yet: raises")
     ap.add_argument("--cascaded", action="store_true", help="not ported yet: raises")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 8 if args.with_llm else 16
+    return args
 
 
 def main(argv=None) -> dict:
@@ -147,8 +171,13 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     if args.variant == "contsep":
         # PIT targets: gt + 1 interferer (the 2-speaker DailyTalk recipe)
         batch["noises"] = rng.standard_normal((B, T, 1)).astype(np.float32)
-    batch["ctx_feat"] = rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)
+    llm = _llm_setup(args, cfg, B, dev) if args.with_llm else None
+    if llm is None:
+        batch["ctx_feat"] = rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    batches = [batch]
+    if llm is not None:
+        batches = [dict(batch, context_ids=ids, context_mask=mask) for ids, mask in llm["contexts"]]
 
     tcfg = TrainConfig(
         variant=args.variant, num_spks=2,
@@ -156,18 +185,22 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
         # (reference train_ContSep.py:167-168, README.md:119)
         use_ce=False, ctx_weight=5.0,
     )
+    llm_kw = dict(llm_apply=llm["apply"], llm_params=llm["params"]) if llm else {}
     step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)), tcfg,
-                           fused=not args.smoke, device=dev)
+                           fused=not args.smoke, device=dev, **llm_kw)
     _reset_launches()
-    for _ in range(args.warmup):
-        m = step.tensors(batch)
+    # with --ctx_sim: one step at each context width first, as the root bench compiles one program per width
+    first = [next(b for b in batches if b["context_ids"].shape[1] == w) for w in llm["widths"]] if llm else []
+    for b in first + [batches[0]] * args.warmup:
+        m = step.tensors(b)
     float(m["loss"])  # one read: the device has finished the warmup
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        m = step.tensors(batch)
+    for s in range(args.steps):
+        m = step.tensors(batches[s % len(batches)])
     float(m["loss"])
     dt = time.perf_counter() - t0
-    _report_launches(args.warmup + args.steps)
+    llm_note = _llm_decomposition(args, llm, dt) if llm else ""
+    _report_launches(len(first) + args.warmup + args.steps)
 
     var_note = {"context": "", "contsep": ", PIT+BCE-selector 2-stream"}[args.variant]
     mixtures_per_sec = B * args.steps / dt
@@ -176,11 +209,81 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     return {
         "metric": _metric_name(args),
         "value": mixtures_per_sec,
-        "unit": "mixtures/s%s (%.3fs@8kHz, %s, batch %d%s; %.1f audio-s/s; %s)"
+        "unit": "mixtures/s%s (%.3fs@8kHz, %s, batch %d%s; %.1f audio-s/s%s; %s)"
                 % ("/GPU" if dev.type == "cuda" else "", T / args.sr, _dtype_name(cfg), B, var_note,
-                   audio_s_per_s, _where(dev)),
+                   audio_s_per_s, llm_note, _where(dev)),
         "vs_baseline": audio_s_per_s / ref_audio_s,
     }
+
+
+def _llm_setup(args, cfg, B, dev) -> dict:
+    """The frozen Llama of ``--with_llm``: random weights on ``dev`` (the 8B
+    shape; ``--smoke``: 2 tiny layers), its ``apply`` (the last hidden state,
+    fp32, as the ContSep recipe reads it) and the steps' (ids, mask): one
+    full ``--ctx_tokens`` batch (``full``), or with ``--ctx_sim`` one batch a
+    timed step at simulated dialog-history lengths."""
+    from cse_tpu_torch.models.llama import LlamaConfig, llama_forward, random_llama_params
+
+    if args.smoke:
+        lcfg = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+    else:
+        lcfg = LlamaConfig()
+    if lcfg.hidden_size != cfg.llm_dim:
+        raise ValueError(f"the Llama's width {lcfg.hidden_size} is not the model's llm_dim {cfg.llm_dim}")
+    params = random_llama_params(lcfg, dtype=torch.bfloat16, seed=0, quant=args.llama_quant, with_lm_head=False,
+                                 device=dev)
+
+    def apply(lp, ids, mask):
+        return llama_forward(lp, ids, mask, lcfg)[:, -1:].float()
+
+    rng = np.random.default_rng(0)
+    full = (torch.from_numpy(rng.integers(0, lcfg.vocab_size, (B, args.ctx_tokens)).astype(np.int32)).to(dev),
+            torch.ones(B, args.ctx_tokens, dtype=torch.int32, device=dev))
+    contexts, note = [full], ""
+    if args.ctx_sim:
+        # the root bench's draws (bench.py:323-345): per row 1-15 turns of ~19 tokens with the
+        # "Speaker i: " prefix, each batch left-padded to the smallest bucket that fits
+        buckets = sorted(int(b) for b in args.ctx_sim_buckets.split())
+        simrng = np.random.default_rng(3)
+        contexts = []
+        for _ in range(args.steps):
+            lens = []
+            for _ in range(B):
+                turns = int(simrng.integers(1, 16))
+                per_turn = simrng.normal(19.0, 4.0, turns).clip(6)
+                lens.append(int(min(1 + per_turn.sum(), args.ctx_tokens)))
+            W = next((b for b in buckets if b >= max(lens)), args.ctx_tokens)
+            ids = np.zeros((B, W), np.int32)
+            mask = np.zeros((B, W), np.int32)
+            for r, n in enumerate(lens):
+                ids[r, W - n:] = simrng.integers(1, lcfg.vocab_size, n)
+                mask[r, W - n:] = 1
+            contexts.append((torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)))
+        widths = [c[0].shape[1] for c in contexts]
+        note = ", ctx-sim buckets " + "/".join(f"{w}x{widths.count(w)}" for w in sorted(set(widths)))
+    return {"params": params, "apply": apply, "full": full, "contexts": contexts, "note": note,
+            "widths": sorted({c[0].shape[1] for c in contexts}) if args.ctx_sim else []}
+
+
+def _llm_decomposition(args, llm, step_s: float) -> str:
+    """Time the bare prefill alone on the step's weights at ``--ctx_tokens``
+    (standard error: a decomposition, not the result); return the unit's note."""
+    ids, mask = llm["full"]
+    out = llm["apply"](llm["params"], ids, mask)
+    float(out.sum())
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        out = llm["apply"](llm["params"], ids, mask)
+    float(out.sum())
+    prefill_s = (time.perf_counter() - t0) / args.steps
+    size = "tiny-smoke" if args.smoke else "8B"
+    print("bench decomposition: bare %s %s prefill %.1f ms/step @ %d tokens (integrated step %.1f ms)"
+          % (args.llama_quant, size, prefill_s * 1e3, ids.shape[1], step_s / args.steps * 1e3),
+          file=sys.stderr, flush=True)
+    if args.smoke:
+        return ", tiny-smoke llm in-step" + llm["note"]
+    return ", %s 8B prefill IN-STEP @ %d tokens%s" % (args.llama_quant, args.ctx_tokens, llm["note"])
 
 
 def _bench_infer(args, cfg, model, B, T, dev) -> dict:

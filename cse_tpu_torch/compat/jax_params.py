@@ -83,3 +83,27 @@ def hash_encoder_tables(w, p) -> tuple[torch.Tensor, torch.Tensor]:
     from a ``torch.Generator``, so the caller carries JAX's across to compare
     the same function on the same tables."""
     return tuple(torch.from_numpy(np.array(t, dtype=np.float32).reshape(-1)) for t in (w, p))
+
+
+def llama_params_from_jax(params: Mapping[str, Any], device="cpu") -> dict:
+    """``cse_tpu``'s Llama weight tree (numpy leaves) -> the port's
+    (``models/llama.py``), the same stacked layout: bf16 / fp32 leaves as
+    they are, int8 payloads under ``"w"`` (weight-only) or ``"w8"`` (w8a8,
+    stored K-major as the port's loader keeps them) and their fp32 scales
+    ``"s"``. numpy has no bf16: a JAX bf16 leaf arrives as ml_dtypes' bfloat16
+    and is read through its bits."""
+    def leaf(x, key):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":
+            t = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(x))
+        t = t.to(device)
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2) if key == "w8" else t
+
+    def tree(node, key=None):
+        if isinstance(node, Mapping):
+            return {k: tree(v, k) for k, v in node.items()}
+        return leaf(node, key)
+
+    return tree(params)

@@ -2,9 +2,11 @@
 
 Replaces the reference's librosa/soundfile dependency
 (``dataset_train_CSE.py:173,236``; ``train_ContSep.py:538-548``): WAV decode to
-float32 (PCM16/24/32, float32), peak utilities, and PCM_16 writes. This is
-the port's own copy of ``cse_tpu/data/audio_io.py``'s pure Python decoder;
-the native C++ batch decoder of the JAX package is not ported yet (ROADMAP).
+float32 (PCM16/24/32, float32), peak utilities, and PCM_16 writes. The port's
+copy of ``cse_tpu/data/audio_io.py``: the native C++ decoder with a
+thread-pool batch loader (:mod:`cse_tpu_torch.native.audio_native`) is used
+when it builds; this module's pure Python reader is the fallback and the
+reference for its behaviour.
 
 Note: sample-rate conversion does NOT happen here — files are decoded at
 native rate and resampled on device by cse_tpu_torch.ops.resample (the
@@ -25,7 +27,20 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     Handles PCM 16/24/32-bit and IEEE float32; multi-channel is averaged to
     mono (librosa.load(mono=True) behavior).
     """
+    lib = native()
+    if lib is not None:
+        out = lib.read_wav(path)
+        if out is not None:
+            return out
     return _read_wav_py(path)
+
+
+def native():
+    """The native decoder module when its library builds and loads, else None
+    (the build is tried once a process)."""
+    from cse_tpu_torch.native import audio_native
+
+    return audio_native if audio_native.available() else None
 
 
 def _read_wav_py(path: str) -> tuple[np.ndarray, int]:

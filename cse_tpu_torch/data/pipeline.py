@@ -34,7 +34,7 @@ import torch
 
 from cse_tpu_torch.core.device import resolve_device
 from cse_tpu_torch.data import datasets as ds
-from cse_tpu_torch.data.audio_io import peak_normalize_np, read_wav
+from cse_tpu_torch.data.audio_io import native, peak_normalize_np, read_wav
 from cse_tpu_torch.data.tokenizer import encode_batch
 from cse_tpu_torch.ops.mixing import (
     add_noise_snr,
@@ -319,7 +319,8 @@ class TrainLoader:
         out["demand"][row] = nx[idx]
 
     def _decode_audio(self, plans: list[dict], out: dict):
-        """Decode all sources/interferers on the thread pool."""
+        """Decode all sources/interferers: the native C++ batch loader when it
+        builds, the Python reader on the thread pool otherwise."""
         cfg = self.cfg
         T16 = cfg.t16
         B = len(plans)
@@ -331,14 +332,27 @@ class TrainLoader:
                 paths.append(noise)
         n_per = len(keys)
 
-        def load_one(arg):
-            k, j, key = arg
-            out[f"{key}_len"][k] = _load_into(
-                out[key][k], paths[k * n_per + j], T16
-            )
+        lib = native()
+        if lib is not None:
+            # ONE C++ scatter decode per batch, straight into the destination
+            # arrays (out[key] is freshly np.zeros'd per batch, so tail zeroing
+            # and intermediate copies are waste; one call keeps every file of
+            # the batch in one thread pool whichever array it lands in)
+            views = [out[key][k] for k in range(B) for key in keys]
+            lens, srs = lib.batch_load_rows(paths, views, peak_target=0.9, zero_tail=False)
+            if not (srs[lens > 0] == 16000).all():
+                raise ValueError(f"expected a 16 kHz corpus, got rates {sorted(set(srs.tolist()))}")
+            for j, key in enumerate(keys):
+                out[f"{key}_len"][:] = lens[j::n_per]
+        else:
+            def load_one(arg):
+                k, j, key = arg
+                out[f"{key}_len"][k] = _load_into(
+                    out[key][k], paths[k * n_per + j], T16
+                )
 
-        jobs = [(k, j, key) for k in range(B) for j, key in enumerate(keys)]
-        list(self.pool.map(load_one, jobs))
+            jobs = [(k, j, key) for k in range(B) for j, key in enumerate(keys)]
+            list(self.pool.map(load_one, jobs))
         list(
             self.pool.map(
                 lambda kp: self._decode_demand(kp[1], out, kp[0]),
@@ -465,33 +479,34 @@ class EvalLoader:
                 "sp_len": np.zeros(nb, np.int32),
             }
             gt_len16 = np.zeros(nb, np.int32)  # true gt extent (enrollment)
-            names = []
-            n_noise = self.num_test_mix - 1
+            lib = native()
+            if lib is not None:
+                ctxs = self._decode_native(lib, rows, out, gt_len16)
+            else:
+                def load_row(k_i):
+                    k, i = k_i
+                    mp, gp = self.mix_paths[i], self.gt_paths[i]
+                    # eval wavs are loaded raw (no peak renorm, reference :325-332)
+                    x, sr = read_wav(mp)
+                    assert sr == 16000, (mp, sr)
+                    n = min(len(x), T16)
+                    out["mixed"][k, :n] = x[:n]
+                    out["sp_len"][k] = n
+                    g, gsr = read_wav(gp)
+                    assert gsr == 16000, (gp, gsr)
+                    m = min(len(g), n)  # gt trimmed/padded to mix length
+                    gt_len16[k] = m
+                    out["gt"][k, :m] = g[:m]
+                    for c, npth in enumerate(ds.noise_paths_for(gp, self.num_test_mix)):
+                        nz, nsr = read_wav(npth)
+                        assert nsr == 16000, (npth, nsr)
+                        m2 = min(len(nz), n)
+                        out["noises"][k, :m2, c] = nz[:m2]
+                    return ds.assemble_context(
+                        mp, self.corpus, self.mode, context_length=cfg.context_length
+                    )
 
-            def load_row(k_i):
-                k, i = k_i
-                mp, gp = self.mix_paths[i], self.gt_paths[i]
-                # eval wavs are loaded raw (no peak renorm, reference :325-332)
-                x, sr = read_wav(mp)
-                assert sr == 16000, (mp, sr)
-                n = min(len(x), T16)
-                out["mixed"][k, :n] = x[:n]
-                out["sp_len"][k] = n
-                g, gsr = read_wav(gp)
-                assert gsr == 16000, (gp, gsr)
-                m = min(len(g), n)  # gt trimmed/padded to mix length
-                gt_len16[k] = m
-                out["gt"][k, :m] = g[:m]
-                for c, npth in enumerate(ds.noise_paths_for(gp, self.num_test_mix)):
-                    nz, nsr = read_wav(npth)
-                    assert nsr == 16000, (npth, nsr)
-                    m2 = min(len(nz), n)
-                    out["noises"][k, :m2, c] = nz[:m2]
-                return ds.assemble_context(
-                    mp, self.corpus, self.mode, context_length=cfg.context_length
-                )
-
-            ctxs = list(self.pool.map(load_row, list(enumerate(rows))))
+                ctxs = list(self.pool.map(load_row, list(enumerate(rows))))
             names = [
                 os.path.splitext(os.path.basename(self.mix_paths[i]))[0] for i in rows
             ]
@@ -511,6 +526,52 @@ class EvalLoader:
             batch["contexts"] = ctxs
             batch["paths"] = [self.mix_paths[i] for i in rows]
             yield batch
+
+
+    def _decode_native(self, lib, rows: list[int], out: dict, gt_len16: np.ndarray) -> list:
+        """One C++ scatter decode of a batch's mixtures, targets and
+        interferers straight into ``out`` (mixed and gt are freshly zeroed
+        [nb, T16]; only the noises need a scratch, since [nb, T, c] puts the
+        noise axis last); the files the C decoder skips go through the Python
+        reader. Returns the rows' contexts."""
+        cfg = self.cfg
+        T16 = cfg.t16
+        nb, n_noise = len(rows), self.num_test_mix - 1
+        n_per = 2 + n_noise  # mix, gt, noises...
+        nbuf = np.zeros((nb * n_noise, T16), np.float32)
+        paths: list[str] = []
+        views: list[np.ndarray] = []
+        for k, i in enumerate(rows):
+            gp = self.gt_paths[i]
+            paths += [self.mix_paths[i], gp]
+            views += [out["mixed"][k], out["gt"][k]]
+            for c, npth in enumerate(ds.noise_paths_for(gp, self.num_test_mix)):
+                paths.append(npth)
+                views.append(nbuf[k * n_noise + c])
+        # eval wavs stay raw: peak_target <= 0 disables the renorm (reference :325-332)
+        lens, srs = lib.batch_load_rows(paths, views, peak_target=0.0, zero_tail=False)
+        for j in np.nonzero(lens <= 0)[0]:
+            # formats the C decoder skips: the Python reader, which raises for unreadable files
+            x, sr = read_wav(paths[int(j)])
+            m = min(len(x), T16)
+            views[int(j)][:m] = x[:m]
+            lens[j], srs[j] = m, sr
+        if not (srs == 16000).all():
+            raise ValueError(f"expected 16 kHz premixed eval wavs, got rates {sorted(set(srs.tolist()))}")
+        for k in range(nb):
+            n = int(lens[k * n_per])
+            out["sp_len"][k] = n
+            gl = int(lens[k * n_per + 1])
+            m = min(gl, n)  # gt trimmed to the mix's length
+            gt_len16[k] = m
+            if gl > m:  # the direct decode wrote past the trim point
+                out["gt"][k, m:gl] = 0.0
+            for c in range(n_noise):
+                m2 = min(int(lens[k * n_per + 2 + c]), n)
+                out["noises"][k, :m2, c] = nbuf[k * n_noise + c, :m2]
+        return list(self.pool.map(
+            lambda i: ds.assemble_context(self.mix_paths[i], self.corpus, self.mode,
+                                          context_length=cfg.context_length), rows))
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:

@@ -6,8 +6,9 @@ tokenized dialog history (``train_ContSep.py:379-380``,
 ``train_ContExt.py:362``). The encoder is an interchangeable callable
 ``(ids [B, T], mask [B, T]) -> [B, ctx_length, dim]``:
 
-* the real Llama encoder is not ported yet: :func:`build_context_encoder`
-  raises for a path that holds Llama weights (ROADMAP queue 1, item 6);
+* :class:`cse_tpu_torch.models.llama.LlamaContextEncoder`, the real one,
+  which :func:`build_context_encoder` returns for a directory that holds
+  Llama weights (``config.json`` + ``*.safetensors``);
 * :class:`HashProjectionEncoder` is the deterministic, parameter-free
   stand-in: fixed random-feature token embeddings, masked causal-mean
   readout. It exercises the identical conditioning plumbing (shapes, dtypes)
@@ -95,13 +96,12 @@ def build_context_encoder(
     quant: str | None = None,
     device=None,
 ):
-    """Return the encoder callable: the stub, unless ``llama_path`` holds
-    Llama weights, which this port cannot run yet."""
+    """Return the encoder: the Llama encoder when ``llama_path`` holds Llama
+    weights (bf16, ``quant`` None, "int8" or "w8a8", on ``device``: the card
+    unless ``device="cpu"``), else the stub."""
     if not force_stub and llama_weights_available(llama_path):
-        raise NotImplementedError(
-            f"cse_tpu_torch: {llama_path!r} holds Llama weights, but the Llama context encoder "
-            "(cse_tpu/models/llama.py) is not ported yet (ROADMAP queue 1, item 6); pass "
-            "force_stub=True or a path without config.json for the stand-in"
-        )
+        from cse_tpu_torch.models.llama import LlamaContextEncoder
+
+        return LlamaContextEncoder(llama_path, ctx_length=ctx_length, quant=quant, device=device)
     enc = HashProjectionEncoder(dim=dim, ctx_length=ctx_length)
     return enc if device is None else enc.to(device)

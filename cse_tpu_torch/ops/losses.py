@@ -89,6 +89,20 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve`` (LU with partial pivoting, as ``jnp.linalg.solve``).
+
+    On the CPU the systems are solved one at a time: a batched LU there (oneMKL)
+    can print "Parameter 6 was incorrect on entry to SLASWP" and never return
+    once the process has set more than one thread. The card keeps the batched
+    call."""
+    if a.device.type != "cpu":
+        return torch.linalg.solve(a, b)
+    lead = a.shape[:-2]
+    a2, b2 = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+    return torch.stack([torch.linalg.solve(a2[i], b2[i]) for i in range(a2.shape[0])]).reshape(*lead, *b.shape[-2:])
+
+
 def sdr(pred: torch.Tensor, target: torch.Tensor, filter_length: int = 512, zero_mean: bool = False,
         load_diag: float | None = None) -> torch.Tensor:
     """Filter-based SDR in dB along the last axis: ``[..., T] -> [...]``.
@@ -114,7 +128,7 @@ def sdr(pred: torch.Tensor, target: torch.Tensor, filter_length: int = 512, zero
     xcorr = torch.fft.irfft(t_fft.conj() * p_fft, n=n_fft, dim=-1)[..., :filter_length]
     if load_diag is not None:
         acf = torch.cat([acf[..., :1] + load_diag, acf[..., 1:]], dim=-1)
-    sol = torch.linalg.solve(_toeplitz(acf), xcorr[..., None])[..., 0]
+    sol = _solve(_toeplitz(acf), xcorr[..., None])[..., 0]
     coh = (xcorr * sol).sum(dim=-1)
     ratio = coh / (1.0 - coh).clamp(min=eps)
     return 10.0 * torch.log10(ratio.clamp(min=eps))

@@ -27,9 +27,11 @@ gradient norm (``train/optimizer.py``).
 ``--platform cpu`` runs on the CPU; with no ``--platform`` the device is the
 card, and the run raises without one. The fused train path is on by default
 on the card and off on the CPU; ``--fused_train`` / ``--no_fused_train``
-force it. Not ported yet, each raising ``NotImplementedError``:
-``variant="hcontext"`` (needs the speaker encoder), ``--mesh_data`` (data
-parallel) and a real ``--llama_path``.
+force it. A ``--llama_path`` holding Llama weights conditions on the frozen
+Llama (``models/llama.py``; ``--llama_int8``, ``--llama_w8a8``) inside the
+step; ``--synthetic_smoke`` forces the stub. Not ported yet, each raising
+``NotImplementedError``: ``variant="hcontext"`` (needs the speaker encoder)
+and ``--mesh_data`` (data parallel).
 """
 
 from __future__ import annotations

@@ -117,7 +117,16 @@ def _to_device(batch, device):
 
 
 def _llm_to(llm_params, device):
-    return None if llm_params is None else tuple(t.to(device) for t in llm_params)
+    """The encoder's weights on ``device``: a tuple (the stub's tables) or a
+    dict tree (the Llama encoder's). ``Tensor.to`` returns a tensor already
+    there as it is, so weights loaded on the device are never copied."""
+    if llm_params is None:
+        return None
+    if isinstance(llm_params, dict):
+        return {k: _llm_to(v, device) for k, v in llm_params.items()}
+    if isinstance(llm_params, torch.Tensor):
+        return llm_params.to(device)
+    return tuple(_llm_to(t, device) for t in llm_params)
 
 
 def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: bool = False,

@@ -1,13 +1,15 @@
 """The port's bench, ``python -m cse_tpu_torch.bench``, on the CPU: ``--smoke``
 prints one JSON line with the root bench's metric name (and its launch report
-on standard error); the flags that need
-unported modules raise, naming their ROADMAP item; without ``--smoke`` and
-without a card it raises and prints nothing."""
+on standard error), also with the frozen Llama in the step (``--with_llm``,
+``--ctx_sim``); the flags that need unported modules raise, naming their
+ROADMAP item; without ``--smoke`` and without a card it raises and prints
+nothing."""
 
 import argparse
 import importlib.util
 import json
 import math
+import re
 from pathlib import Path
 
 import pytest
@@ -47,18 +49,46 @@ def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
     assert (line["vs_baseline"] is None) == args.infer
 
 
-@pytest.mark.parametrize("extra,item", [(["--with_llm"], "item 6"), (["--ctx_sim"], "item 6"),
-                                        (["--mesh_data", "2"], "item 5"), (["--cascaded"], "item 8"),
-                                        (["--variant", "hcontext"], "item 7")])
+@pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "item 5", id="extra2-item 5"),
+                                        pytest.param(["--cascaded"], "item 8", id="extra3-item 8"),
+                                        pytest.param(["--variant", "hcontext"], "item 7", id="extra4-item 7")])
 def test_unported_flags_raise(extra, item, capsys):
     with pytest.raises(NotImplementedError, match=item):
         bench.main(["--smoke"] + extra)
     assert capsys.readouterr().out == ""
 
 
+@pytest.mark.parametrize("extra", [["--with_llm"], ["--with_llm", "--ctx_sim"]])
+def test_smoke_with_llm_prints_one_line(extra, capsys):
+    """The frozen Llama's prefill inside the step (the tiny 2-layer
+    configuration on the CPU): one JSON line with the root bench's
+    ``_with_llm`` metric name; on standard error the bare prefill's
+    decomposition line, then the launch report (none on the CPU) over the
+    steps run: with ``--ctx_sim`` one more for each context width hit first."""
+    got = bench.main(["--smoke", "--steps", "3", "--warmup", "1"] + extra)
+    captured = capsys.readouterr()
+    lines = captured.out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == got
+    root = argparse.Namespace(infer=False, variant="context", cascaded=False, with_llm=True)
+    assert got["metric"] == _root_bench()._metric_name(root) == "train_throughput_contextual_extraction_with_llm"
+    assert math.isfinite(got["value"]) and got["value"] > 0 and "CPU smoke" in got["unit"]
+    assert "tiny-smoke llm in-step" in got["unit"]
+    err = captured.err.splitlines()
+    assert err[-2].startswith("bench decomposition: bare int8 tiny-smoke prefill") and "@ 512 tokens" in err[-2]
+    report = json.loads(err[-1])
+    assert report["launches"] == {}
+    if "--ctx_sim" in extra:
+        buckets = re.search(r"ctx-sim buckets ([0-9x/]+)", got["unit"]).group(1).split("/")
+        assert sum(int(b.split("x")[1]) for b in buckets) == 3
+        assert report["calls"] == len(buckets) + 1 + 3
+    else:
+        assert report["calls"] == 1 + 3
+    assert bench.parse_args(extra).batch == 8 and bench.parse_args([]).batch == 16
+
+
 def test_without_smoke_and_card_it_raises(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for extra in ([], ["--infer"]):
+    for extra in ([], ["--infer"], ["--with_llm"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.main(extra)
     assert capsys.readouterr().out == ""

@@ -70,14 +70,36 @@ def test_default_tables_come_from_the_seed():
     assert float(a.p.min()) >= 0 and float(a.p.max()) <= 6.283
 
 
-def test_build_context_encoder(tmp_path):
+def test_build_context_encoder(tmp_path, monkeypatch):
+    """No weights: the stub. A directory with config.json: the Llama encoder,
+    against cse_tpu's build_context_encoder on the same files (both bf16 by
+    default, each on its own CPU products: rel L2 <= 2e-2, the bf16 bar), in
+    each quant form; on the card unless the caller asks for the CPU."""
+    from transformers import LlamaConfig as HFConfig, LlamaForCausalLM
+
+    from cse_tpu.models.context_encoder import build_context_encoder as jax_build
+    from cse_tpu_torch.models.llama import LlamaContextEncoder
+
     enc = build_context_encoder("__none__", ctx_length=2, dim=8, device="cpu")
     assert isinstance(enc, HashProjectionEncoder) and enc.ctx_length == 2 and enc.dim == 8
-    (tmp_path / "config.json").write_text("{}")
+    torch.manual_seed(0)
+    LlamaForCausalLM(HFConfig(vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2, attn_implementation="eager")
+                     ).save_pretrained(str(tmp_path), safe_serialization=True)
     assert llama_weights_available(str(tmp_path)) and not llama_weights_available("__none__")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_context_encoder(str(tmp_path))
+    ids, mask = _ids_mask(np.random.default_rng(0), T=12)
+    for quant in (None, "int8", "w8a8"):
+        enc = build_context_encoder(str(tmp_path), ctx_length=2, quant=quant, device="cpu")
+        assert isinstance(enc, LlamaContextEncoder) and not enc.is_stub
+        got = enc(torch.from_numpy(ids), torch.from_numpy(mask))
+        want = np.asarray(jax_build(str(tmp_path), ctx_length=2, quant=quant)(jnp.asarray(ids), jnp.asarray(mask)))
+        assert got.shape == (3, 2, 32) and got.dtype == torch.float32 and torch.isfinite(got).all()
+        rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+        assert rel <= 2e-2, (quant, rel)
     assert isinstance(build_context_encoder(str(tmp_path), force_stub=True), HashProjectionEncoder)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_context_encoder(str(tmp_path))
 
 
 TINY = dict(num_spks=2, enc_channels=32, enc_kernel=8, enc_stride=4, d_model=32, nhead=4, d_ffn=64,

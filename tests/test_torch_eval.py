@@ -12,6 +12,7 @@ model in fp32 on the same rows, each package with its own resampler -> the
 dB metrics within 1e-3 dB, PESQ within 1e-3, ``n`` and ``acc`` equal.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -101,6 +102,40 @@ def test_sdr_at_30_db_within_fp32_error_of_float64():
     assert DB_TOL < jax_gap <= 5e-3, f"jnp sdr against float64 at 30 dB: {jax_gap:.3e} dB"
     np.testing.assert_allclose(got, exact, rtol=0, atol=5e-3)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+SDR_IN_A_PROCESS = """
+import io, json, sys
+import numpy as np
+import torch
+from cse_tpu_torch.ops.losses import sdr
+if len(sys.argv) > 1:
+    torch.set_num_threads(int(sys.argv[1]))
+data = np.load(io.BytesIO(sys.stdin.buffer.read()))
+out = sdr(torch.from_numpy(data["p"]), torch.from_numpy(data["t"]), filter_length=512)
+print(json.dumps({"threads": torch.get_num_threads(), "sdr": out.tolist()}))
+"""
+
+
+@pytest.mark.parametrize("threads", [None, 2, 8])
+def test_sdr_returns_at_any_thread_count(threads):
+    """A batch's solve (B=16, T=16000, filter 512) in a fresh process at the
+    default thread count (no set_num_threads) and at 2 and 8 threads: the
+    batched CPU LU hung there once more than one thread was set; the port
+    solves row by row on the CPU. Held against jnp ``sdr`` at the 1e-3 dB bar."""
+    import io
+
+    p, t = _pairs(10, seed=2, B=16, T=16000)
+    buf = io.BytesIO()
+    np.savez(buf, p=p, t=t)
+    argv = [] if threads is None else [str(threads)]
+    out = subprocess.run([sys.executable, "-c", SDR_IN_A_PROCESS, *argv], input=buf.getvalue(), capture_output=True,
+                         timeout=120, cwd=str(Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr.decode()[-2000:]
+    line = json.loads(out.stdout.decode().strip().splitlines()[-1])
+    assert threads is None or line["threads"] == threads
+    want = np.asarray(jax_sdr(jnp.asarray(p), jnp.asarray(t)))
+    np.testing.assert_allclose(np.asarray(line["sdr"]), want, rtol=0, atol=DB_TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(zero_mean=True), dict(load_diag=1e-3), dict(filter_length=64)])

@@ -71,6 +71,7 @@ TRAINER_MODULES = [
     "core.banner", "utils.logging", "utils.profiling", "train_ContExt", "train_ContSep", "train_Sepformer",
     "scripts.bench_kernel_parts", "eval.evaluator", "eval.metrics", "eval.host_metrics", "eval.pesq",
     "compat.torch_import", "compat.torch_export", "test", "bench", "core.cli",
+    "models.llama", "compat.safetensors_io", "native.audio_native",
 ]
 
 
@@ -96,3 +97,22 @@ def test_chip_smoke_imports_nothing_forbidden():
     src = (PKG_DIR.parent / "chip_smoke.py").read_text()
     pat = re.compile(r"^\s*(?:import|from)\s+(?:" + "|".join(FORBIDDEN) + r"|cse_tpu)(?:\.|\s|$)", re.M)
     assert not pat.findall(src), pat.findall(src)
+
+
+@pytest.mark.parametrize("name", ["models.llama", "compat.safetensors_io", "native.audio_native"])
+def test_llama_and_native_modules_need_neither_safetensors_nor_transformers(name):
+    """The card's machine has neither package: the Llama loader reads
+    safetensors files with the port's own reader."""
+    src = (PKG_DIR / (name.replace(".", "/") + ".py")).read_text()
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:safetensors|transformers)(?:\.|\s|$)", re.M)
+    assert not pat.findall(src), pat.findall(src)
+    code = (f"import sys; sys.modules['safetensors'] = None; sys.modules['transformers'] = None\n"
+            f"import cse_tpu_torch.{name}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG_DIR.parent))
+    assert out.returncode == 0, out.stderr
+
+
+def test_native_source_is_the_ports_own_copy():
+    assert (PKG_DIR / "native" / "audio_io.cc").exists()
+    assert not list((PKG_DIR / "native").glob("*.so"))

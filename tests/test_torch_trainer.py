@@ -27,6 +27,7 @@ from cse_tpu.data import datasets as jds
 from cse_tpu.data.pipeline import TrainLoader as JaxTrainLoader
 from cse_tpu.data.tokenizer import load_tokenizer as jax_load_tokenizer
 from cse_tpu.models.context_encoder import HashProjectionEncoder as JaxEncoder
+from cse_tpu.models.llama import LlamaContextEncoder as JaxLlamaEncoder
 from cse_tpu_torch.compat.jax_params import hash_encoder_tables, jax_params_to_state_dict, load_jax_params
 from cse_tpu_torch.core.cli import corpus_paths, setup_synthetic
 from cse_tpu_torch.core.flags import parse_train_args
@@ -34,6 +35,7 @@ from cse_tpu_torch.data import datasets as tds
 from cse_tpu_torch.data.pipeline import TrainLoader
 from cse_tpu_torch.data.tokenizer import load_tokenizer
 from cse_tpu_torch.models.context_encoder import HashProjectionEncoder
+from cse_tpu_torch.models.llama import LlamaContextEncoder
 from cse_tpu_torch.train import checkpoint as ckpt_lib
 from cse_tpu_torch.train.loop import train_net
 from cse_tpu_torch.train.optimizer import build_optimizer
@@ -137,11 +139,35 @@ def _first_batches(args, jargs):
     return out
 
 
+@pytest.fixture(scope="module")
+def llama_4096(tmp_path_factory):
+    """A Llama directory at the context width the model reads (hidden 4096,
+    32 query and 8 key-value heads), 1 layer, intermediate 64, vocab 320 (the
+    ByteTokenizer's ids fit), saved by transformers."""
+    from transformers import LlamaConfig as HFConfig, LlamaForCausalLM
+
+    torch.manual_seed(0)
+    d = tmp_path_factory.mktemp("llama_4096")
+    LlamaForCausalLM(HFConfig(vocab_size=320, hidden_size=4096, intermediate_size=64, num_hidden_layers=1,
+                              num_attention_heads=32, num_key_value_heads=8, attn_implementation="eager")
+                     ).save_pretrained(str(d), safe_serialization=True)
+    return str(d)
+
+
+LLAMA = "<the llama_4096 directory>"
+
+
 @pytest.mark.parametrize("variant,extra", [("context", ["--augmentation", "--noise_add"]), ("contsep", []),
-                                           ("base", [])])
-def test_first_batch_loss_and_grads_match_jax(variant, extra):
+                                           ("base", []), ("context", ["--max_ctx_tokens", 32, "--llama_path", LLAMA])])
+def test_first_batch_loss_and_grads_match_jax(variant, extra, request):
+    """With ``--llama_path``: both packages' Llama encoders on the same files,
+    in fp32 (the trainers' bf16 default would compare two CPU bf16 product
+    orders, not the ports)."""
     args = setup_synthetic(_args(extra))
     jargs = _args(extra, jax_parse_train_args)
+    llama = request.getfixturevalue("llama_4096") if LLAMA in extra else None
+    if llama:
+        args.llama_path = llama  # setup_synthetic points it at the stub
     for k in ("dailytalk_data_path", "acoustic_noise_path", "lists_root", "llama_path"):
         setattr(jargs, k, getattr(args, k))  # both read the port's copy of the corpus
     jbatch, tbatch = _first_batches(args, jargs)
@@ -151,7 +177,7 @@ def test_first_batch_loss_and_grads_match_jax(variant, extra):
     jb = {k: jbatch[k] for k in keys}
     dummy = (jnp.zeros((2, 4000)),) + (() if variant == "base" else (jnp.zeros((2, 1, 4096)),))
     params = jmodel.init(jax.random.key(0), *dummy)
-    jenc = JaxEncoder(dim=4096, ctx_length=1)
+    jenc = JaxLlamaEncoder(llama, ctx_length=1, dtype=jnp.float32) if llama else JaxEncoder(dim=4096, ctx_length=1)
     jfn, jps = jenc.pure()
     loss_fn = jstep.make_loss_fn(jmodel, jtcfg, None if variant == "base" else jfn, fused=False)
     (jl, jmetrics), jg = jax.value_and_grad(lambda p: loss_fn(p, jb, jax.random.key(1), jps), has_aux=True)(params)
@@ -162,7 +188,10 @@ def test_first_batch_loss_and_grads_match_jax(variant, extra):
     key = jax.random.key(0)
     tables = hash_encoder_tables(np.asarray(jax.random.normal(key, (1, 1, 4096)) * 0.02),
                                  np.asarray(jax.random.uniform(jax.random.fold_in(key, 1), (1, 1, 4096)) * 6.283))
-    tfn, tps = HashProjectionEncoder(dim=4096, ctx_length=1, tables=tables).pure()
+    if llama:
+        tfn, tps = LlamaContextEncoder(llama, ctx_length=1, dtype=torch.float32, device="cpu").pure()
+    else:
+        tfn, tps = HashProjectionEncoder(dim=4096, ctx_length=1, tables=tables).pure()
     loss, metrics = tstep.make_loss_fn(model, tcfg, None if variant == "base" else tfn, llm_params=tps)(
         {k: tbatch[k] for k in keys})
     loss.backward()
