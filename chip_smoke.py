@@ -143,6 +143,23 @@ Phases (any failure exits non-zero and prints no result line):
      heads, intermediate 14336, 2 layers) with --llama_int8: the banner says
      llm=real, finite losses, launches per update as in [7c], the sustained
      mixtures/s beside [11]'s; the native WAV decoder is in use.
+ 16. H-ContExt (models/ecapa.py, models/speaker_encoder.py: no kernel of the
+     port; #1, #3 and #4 beside it): (a) the ECAPA-TDNN at full width (1024
+     channels, 80 mels, 192-d, random weights), card against CPU with TF32
+     off on B=4 rows of 1-5 s: the fbank and the embedding, the spectral
+     stand-in, and crop_enrollment on the same draws (the same bits); (b) the
+     ECAPA forward at the trainer's shape (B=16 x 80000, fp32), median of 5
+     beside its bound, one profiled forward split by kernel kind; (c) python
+     -m cse_tpu_torch.bench --variant hcontext in a subprocess beside [14]'s
+     context form, its launch report against the formula; (d) train_net(...,
+     'hcontext') at full width, B=16, with --ecapa_path on a speechbrain-layout
+     .ckpt of random weights written here: 6 updates and a validation by the
+     eval enrollment rules, finite losses, launches per update as in [7c], se
+     [16, 1, 192] on the card; (e) cse_tpu_torch.test_HContExt.main
+     --fused_eval for --cue joint, history and voice on DailyTalk, and on
+     TEDLIUM with and without --one_sec, 16 synthetic mixtures each: files,
+     n, 228 launches a batch, each batch within rel L2 5e-2 of the plain fp32
+     model, the three cues three outputs, --one_sec other embeddings.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -1996,8 +2013,6 @@ def phase13(card, failures):
 def phase14(card, references):
     """python -m cse_tpu_torch.bench in subprocesses, in four forms; each value
     beside the in-process number it should match (for reading, not a gate)."""
-    import os
-
     from cse_tpu_torch.models.sepformer import SepformerConfig
     from cse_tpu_torch.ops import fused_stack as fs
     from cse_tpu_torch.ops import fused_train as ft
@@ -2014,33 +2029,40 @@ def phase14(card, references):
              ("--infer --serving_quant w8a8", ["--infer", "--serving_quant", "w8a8"],
               "inference_rtf_contextual_extraction", "[9b] realtime factor", w8a8))
     log(f"[14] python -m cse_tpu_torch.bench, four forms  [{card}]")
-    out = {}
-    for name, extra, metric, ref, per_call in forms:
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m", "cse_tpu_torch.bench", *extra], capture_output=True, text=True,
-                              timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
-        took = time.time() - t0
-        lines = proc.stdout.strip().splitlines()
-        try:
-            line = json.loads(lines[-1]) if proc.returncode == 0 and len(lines) == 1 else None
-        except json.JSONDecodeError:
-            line = None
-        if line is None:
-            fail(f"bench {name}: rc {proc.returncode}, stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
-        # the launch report: the last line of standard error
-        report = json.loads(proc.stderr.strip().splitlines()[-1])
-        want = {k: v * report["calls"] for k, v in per_call.items()}
-        ok = line["metric"] == metric and math.isfinite(line["value"]) and line["value"] > 0
-        launched = report["launches"] == want
-        log(f"  {name:<30s} {line['metric']} = {line['value']:.3f} ({line['unit']}); {ref} in this run "
-            f"{references[ref]:.3f}; {took:.1f} s  {'ok' if ok else 'FAIL'}")
-        log(f"  {'':<30s} launches over {report['calls']} calls: {report['launches']} (want {want})  "
-            f"{'ok' if launched else 'FAIL'}")
-        if not (ok and launched):
-            fail(f"bench {name}: {line}, launches {report}")
-        out[name] = {**line, "seconds": took, "reference": {ref: references[ref]}, "launches": report["launches"],
-                     "calls": report["calls"]}
-    return out
+    return {name: bench_form(name, extra, metric, ref, references[ref], per_call)
+            for name, extra, metric, ref, per_call in forms}
+
+
+def bench_form(name, extra, metric, ref, ref_value, per_call) -> dict:
+    """python -m cse_tpu_torch.bench with ``extra`` in a subprocess: one JSON
+    line with ``metric`` and a value > 0, printed beside ``ref`` (this run's
+    in-process number), and its launch report (the last line of standard
+    error) equal to ``per_call`` times the calls it reports."""
+    import os
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "cse_tpu_torch.bench", *extra], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    took = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if proc.returncode == 0 and len(lines) == 1 else None
+    except json.JSONDecodeError:
+        line = None
+    if line is None:
+        fail(f"bench {name}: rc {proc.returncode}, stdout {proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]!r}")
+    report = json.loads(proc.stderr.strip().splitlines()[-1])
+    want = {k: v * report["calls"] for k, v in per_call.items()}
+    ok = line["metric"] == metric and math.isfinite(line["value"]) and line["value"] > 0
+    launched = report["launches"] == want
+    log(f"  {name:<30s} {line['metric']} = {line['value']:.3f} ({line['unit']}); {ref} in this run "
+        f"{ref_value:.3f}; {took:.1f} s  {'ok' if ok else 'FAIL'}")
+    log(f"  {'':<30s} launches over {report['calls']} calls: {report['launches']} (want {want})  "
+        f"{'ok' if launched else 'FAIL'}")
+    if not (ok and launched):
+        fail(f"bench {name}: {line}, launches {report}")
+    return {**line, "seconds": took, "reference": {ref: ref_value}, "launches": report["launches"],
+            "calls": report["calls"]}
 
 
 # [15]'s bars. The same Llama weights on the card and on the CPU: fp32 differs
@@ -2132,17 +2154,21 @@ def llama_bound(cfg, B, T, quant):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "dequant_copy_ms": copy_ms}
 
 
-def prefill_split(fn) -> dict:
+# cuBLAS 12.8's Hopper GEMMs are named nvjet_*; its int8 ones carry s8 / imma
+PREFILL_KINDS = (("int8 gemm", ("imma", "int8", "s8")),
+                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")), ("softmax", ("softmax",)),
+                 ("reduce", ("reduce",)), ("copy and cast", ("copy", "cat", "index")),
+                 ("elementwise", ("elementwise", "vectorized")))
+
+
+def prefill_split(fn, kinds=PREFILL_KINDS) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of its
-    kernels summed by kind (the library's GEMMs, the int8 GEMMs, softmax,
+    kernels summed by kind (``kinds``: (kind, name fragments), the first that
+    matches; by default the library's GEMMs, the int8 GEMMs, softmax,
     reductions, copies and casts, other elementwise), in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # cuBLAS 12.8's Hopper GEMMs are named nvjet_*; its int8 ones carry s8 / imma
-    kinds = (("int8 gemm", ("imma", "int8", "s8")), ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "cublas")),
-             ("softmax", ("softmax",)), ("reduce", ("reduce",)), ("copy and cast", ("copy", "cat", "index")),
-             ("elementwise", ("elementwise", "vectorized")))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -2343,6 +2369,286 @@ def phase15(card, failures, references):
                       "peak_bytes": torch.cuda.max_memory_allocated()}
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# [16]'s bars. ECAPA on the card against the CPU in fp32 with TF32 off: the
+# same arithmetic in another summation order -> relative L2 <= 1e-4 for the
+# fbank, the embedding and the spectral stand-in; the enrollment crop is a
+# gather and a mask -> the same bits.
+TOL_ECAPA = 1e-4
+# the ECAPA forward's kernels by kind: cuDNN's convolutions and the GEMMs of
+# its k=1 convolutions, the FFT of the fbank, the rest
+ECAPA_KINDS = (("fft", ("fft",)),
+               ("convolution", ("conv", "implicit", "winograd", "gemm", "nvjet", "xmma", "cutlass", "sm90_", "cudnn")),
+               ("reduce and softmax", ("reduce", "softmax")), ("copy and cat", ("copy", "cat", "index")),
+               ("elementwise", ("elementwise", "vectorized")))
+
+
+def ecapa_work(module, wav, lengths) -> dict:
+    """What one ECAPA forward on these inputs must do: the operations of its
+    products (2 · outputs · cin · k for each convolution, counted by hooks on
+    this forward, and the mel product; the FFT and the elementwise passes
+    left out, so the bound stays a lower one), the bytes it must move (the
+    waveform and lengths read, the weights read, the embedding written) and,
+    for reading, the bytes of the convolutions' outputs."""
+    B, T = wav.shape
+    ops = [2.0 * B * (1 + T // 160) * 201 * module.n_mels]
+    acts = [0]
+
+    def hook(m, inp, out):
+        ops.append(2.0 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0])
+        acts[0] += out.numel() * out.element_size()
+
+    convs = [m for m in module.modules() if isinstance(m, torch.nn.Conv1d)]
+    handles = [m.register_forward_hook(hook) for m in convs]
+    try:
+        with torch.no_grad():
+            emb = module(wav, lengths)
+    finally:
+        for h in handles:
+            h.remove()
+    weights = sum(t.numel() * t.element_size() for t in module.state_dict().values())
+    nbytes = wav.numel() * wav.element_size() + lengths.numel() * lengths.element_size() + weights \
+        + emb.numel() * emb.element_size()
+    return {"ops": sum(ops), "bytes": nbytes, "weight_bytes": weights, "activation_bytes": acts[0]}
+
+
+def phase16(card, failures, references):
+    """H-ContExt (cse_tpu_torch/models/ecapa.py, speaker_encoder.py: no kernel
+    of the port; #1, #3 and #4 beside it): (a) ECAPA at full width, the
+    stand-in and the enrollment crop, card against CPU; (b) the ECAPA forward
+    at the trainer's shape beside its bound, split by kernel kind; (c) the
+    bench's hcontext recipe in a subprocess; (d) train_net(..., 'hcontext') at
+    full width on a speechbrain-layout .ckpt written here; (e)
+    cse_tpu_torch.test_HContExt.main --fused_eval for each cue, and --one_sec."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+
+    from cse_tpu_torch import test_HContExt as hc_cli
+    from cse_tpu_torch.core.flags import parse_train_args
+    from cse_tpu_torch.data.pipeline import crop_enrollment, draw_enrollment
+    from cse_tpu_torch.models.context_encoder import build_context_encoder
+    from cse_tpu_torch.models.ecapa import EcapaEncoder, EcapaTDNN, log_mel_fbank
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.models.speaker_encoder import SpectralSpeakerEncoder
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.train import loop as loop_lib
+    from cse_tpu_torch.train import step as step_lib
+
+    out = {}
+    # ---- (a) card against CPU on one module (random weights, BatchNorm off its identity)
+    gen = torch.Generator().manual_seed(16)
+    module = EcapaTDNN(generator=gen)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                c = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + 0.5 * torch.rand(c, generator=gen))
+                m.weight.copy_(0.5 + torch.rand(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    B = 4
+    lens = torch.randint(16000, 80001, (B,), generator=gen)  # 1-5 s rows in 5 s buffers
+    wav = 0.3 * torch.randn(B, 80000, generator=gen) * (torch.arange(80000)[None, :] < lens[:, None])
+    log(f"[16a] ECAPA-TDNN at full width (1024 channels, 80 mels, 192-d; random weights), card against CPU, "
+        f"TF32 off, B={B} rows of {lens.tolist()} samples in 80000  [{card}]")
+    cpu_enc = EcapaEncoder(module=copy.deepcopy(module), device="cpu")
+    gpu_enc = EcapaEncoder(module=module, device="cuda")
+    stand = SpectralSpeakerEncoder()
+    rows = {"fbank": (log_mel_fbank(wav.cuda(), lengths=lens.cuda()).cpu(), log_mel_fbank(wav, lengths=lens)),
+            "embedding": (gpu_enc(wav, lens).cpu(), cpu_enc(wav, lens)),
+            "stand-in": (copy.deepcopy(stand).cuda()(wav, lens).cpu(), stand(wav, lens))}
+    parity = {}
+    for name, (got, ref) in rows.items():
+        mx, _, rl2 = errs(got, ref)
+        ok = rl2 <= TOL_ECAPA and bool(torch.isfinite(got).all())
+        log(f"  {name:<10s} {tuple(got.shape)} max_abs {mx:.3e} rel_l2 {rl2:.3e} (tol {TOL_ECAPA:.0e})  "
+            f"{'ok' if ok else 'FAIL'}")
+        parity[name] = rl2
+        if not ok:
+            failures.append(f"ecapa {name}")
+    gt16k = torch.randn(B, 256000, generator=gen)
+    glen = torch.tensor([256000, 100000, 12000, 0], dtype=torch.int32)
+    seconds, u = draw_enrollment(B, torch.Generator().manual_seed(17))
+    c_cpu = crop_enrollment(gt16k, glen, seconds, u)
+    c_gpu = crop_enrollment(gt16k.cuda(), glen.cuda(), seconds.cuda(), u.cuda())
+    s_gpu, u_gpu = draw_enrollment(64, torch.Generator(device="cuda").manual_seed(17))
+    same = torch.equal(c_gpu[0].cpu(), c_cpu[0]) and torch.equal(c_gpu[1].cpu(), c_cpu[1])
+    drawn = s_gpu.device.type == "cuda" and 1 <= int(s_gpu.min()) and int(s_gpu.max()) <= 5 and 0 <= float(u_gpu.min()) \
+        and float(u_gpu.max()) < 1
+    log(f"  crop_enrollment, the same draws (seconds {seconds.tolist()}), lengths {glen.tolist()}: card and CPU "
+        f"{'the same bits' if same else 'OTHER BITS'} (valid {c_cpu[1].tolist()}); 64 draws on the card in range: "
+        f"{drawn}  {'ok' if same and drawn else 'FAIL'}")
+    if not (same and drawn):
+        failures.append("crop_enrollment")
+    if failures:
+        fail(f"ECAPA checks failed: {failures}")
+    out["parity"] = parity
+    del cpu_enc
+
+    # ---- (b) the ECAPA forward at the trainer's shape: B=16 crops of 1-5 s in 5 s buffers
+    B = 16
+    g2 = torch.Generator(device="cuda").manual_seed(18)
+    src = torch.randn(B, 256000, device="cuda", generator=g2)
+    src_len = torch.full((B,), 256000, dtype=torch.int32, device="cuda")
+    draws = draw_enrollment(B, g2)
+    crop_ms = statistics.median(cuda_ms(lambda: crop_enrollment(src, src_len, *draws)))
+    wav, lens = crop_enrollment(src, src_len, *draws)
+    work = ecapa_work(gpu_enc.module, wav, lens)
+    ob, bb = 1e3 * work["ops"] / PEAK_FP32, 1e3 * work["bytes"] / HBM_BYTES_S
+    torch.cuda.reset_peak_memory_stats()
+    times = cuda_ms(lambda: gpu_enc(wav, lens), n=5, warmup=2)
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    split = prefill_split(lambda: gpu_enc(wav, lens), ECAPA_KINDS)
+    step_ms = references["[7c] step ms"]
+    log(f"[16b] ECAPA forward, B={B} x 80000 (501 frames), fp32, TF32 off, median of 5 after 2 warmups (CUDA "
+        f"events): {ms:.3f} ms ({[round(t, 3) for t in times]}); bound {max(ob, bb):.3f} ms "
+        f"({'operations' if ob >= bb else 'bytes'}: {work['ops'] / 1e12:.4f} TFLOP at 67 TFLOP/s = {ob:.3f} ms, "
+        f"{work['bytes'] / 1e6:.1f} MB = {bb:.4f} ms) -> {100 * max(ob, bb) / ms:.1f}% of the bound; "
+        f"{work['ops'] / ms / 1e9:.2f} TFLOP/s; convolution outputs {work['activation_bytes'] / 1e9:.3f} GB "
+        f"({1e3 * work['activation_bytes'] / HBM_BYTES_S:.3f} ms at 3.35 TB/s); peak {peak / 2**30:.3f} GiB; "
+        f"the crop {crop_ms:.4f} ms; ECAPA + crop = {100 * (ms + crop_ms) / step_ms:.2f}% of [7c]'s "
+        f"{step_ms:.3f} ms step  [{card}]")
+    log(f"  one profiled forward by kernel kind (ms): {({k: round(v, 3) for k, v in split.items()})}")
+    out["forward"] = {"ms": ms, "times": times, "bound_ms": max(ob, bb), "bound_by": "operations" if ob >= bb else "bytes",
+                      "crop_ms": crop_ms, "peak_bytes": peak, "split_ms": split, **work}
+    del src, wav, lens, module, gpu_enc
+    torch.cuda.empty_cache()
+
+    # ---- (c) the bench's hcontext recipe
+    cfg = SepformerConfig(variant="context")
+    n_stacks = 2 * cfg.num_dp_layers
+    per_step = {k: v * n_stacks for k, v in ft.launches_per_train_stack(cfg.num_tf_layers).items()}
+    log(f"[16c] python -m cse_tpu_torch.bench --variant hcontext  [{card}]")
+    out["bench"] = bench_form("--variant hcontext", ["--variant", "hcontext"], "train_throughput_hcontext",
+                              "[14] default (context)", references["[14] default (context)"], per_step)
+
+    # ---- (d) the trainer, on a speechbrain-layout .ckpt of random weights written here
+    ecapa_ckpt = os.path.join(tempfile.mkdtemp(prefix="cse_ecapa_"), "embedding_model.ckpt")
+    torch.save(EcapaTDNN(generator=torch.Generator().manual_seed(19)).state_dict(), ecapa_ckpt)
+    ck = tempfile.mkdtemp(prefix="cse_ckpt_hcontext_")
+    argv = ["--synthetic_smoke", "--bf16", "--batch_size", "16", "--max_sp_len", "16", "--flash_attention",
+            "--remat", "layer", "--augmentation", "--noise_add", "--synthetic_seconds", "8", "16",
+            "--synthetic_dialogs", "24", "--log_every", "2", "--eval_step", "6", "--tot_iters", "5", "--workers", "8",
+            "--ecapa_path", ecapa_ckpt, "--checkpoint_dir", ck]
+    log(f"[16d] trainer: train_net(parse_train_args({' '.join(a if not a.startswith('/') else '<path>' for a in argv)}), "
+        f"'hcontext'), full width  [{card}]")
+    seen = []
+    orig_encode = loop_lib.encode_speaker
+
+    def recording(encoder, wav, lengths=None):
+        se = orig_encode(encoder, wav, lengths)
+        seen.append((tuple(se.shape), se.device.type, type(encoder).__name__))
+        return se
+
+    ft.reset_launches()
+    at.reset_launches()
+    stats, text = {}, io.StringIO()
+    loop_lib.encode_speaker = recording
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(text), torch.enable_grad():
+            model = loop_lib.train_net(parse_train_args(argv), "hcontext", stats=stats)
+        torch.cuda.synchronize()
+    finally:
+        loop_lib.encode_speaker = orig_encode
+    took = time.time() - t0
+    counts, fcounts = ft.launch_counts(), at.launch_counts()
+    steps, n_val = stats["final_step"] - stats["start_step"], len(stats["val_ms"])
+    n_att = 2 * model.cfg.num_dp_layers * model.cfg.num_tf_layers
+    want = {k: v * steps for k, v in per_step.items()}
+    fwant = {k: v * n_val for k, v in at.launches_per_step(n_att, model.cfg.remat_layers, train=False).items()}
+    banner = [ln for ln in text.getvalue().splitlines() if "external nets:" in ln]
+    losses = stats["loss_reads"]
+    se_ok = bool(seen) and all(x == ((16, 1, 192), "cuda", "EcapaEncoder") for x in seen)
+    ok = (counts == want and fcounts == fwant and steps == 6 and bool(losses) and all(math.isfinite(v) for v in losses)
+          and se_ok and bool(banner) and "ecapa=real" in banner[0] and model.cfg.add_se)
+    log(f"  banner {banner}; {steps} updates, {n_val} validation batches in {took:.1f} s; losses read "
+        f"{[round(v, 4) for v in losses]}; se of {len(seen)} batches {sorted(set(seen))}; launches per update "
+        f"{per_step}; fused-stack kernels {counts} (want {want}); flash kernels {fcounts} (want {fwant}); sustained "
+        f"{stats.get('sustained_mixtures_per_s', float('nan')):.3f} mixtures/s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("hcontext trainer")
+        fail(f"H-ContExt trainer checks failed: {text.getvalue()[-3000:]}")
+    out["trainer"] = {"updates": steps, "seconds": took, "losses": losses, "launches": counts, "flash_launches": fcounts,
+                      "se": sorted(set(seen)), "sustained_mixtures_per_s": stats.get("sustained_mixtures_per_s")}
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- (e) the eval entry point for each cue on DailyTalk (no register wavs in the synthetic
+    # corpus: 1 s crops of the gt), then TEDLIUM (the speaker's first gt) with and without
+    # --one_sec; 16 synthetic mixtures of 4-8 s in 2 batches each
+    base = ["--synthetic_smoke", "--bf16", "--max_sp_len", "8", "--batch_size", "8", "--synthetic_seconds", "4", "8",
+            "--synthetic_eval", "16", "--fused_eval", "--metric_workers", "2", "--ecapa_path", ecapa_ckpt]
+    root = tempfile.mkdtemp(prefix="cse_eval_hcontext_")
+    log(f"[16e] cse_tpu_torch.test_HContExt.main({' '.join(a if not a.startswith('/') else '<path>' for a in base)} "
+        f"--cue ...)  [{card}]")
+    llm_fn, llm_ps = build_context_encoder("__none__", ctx_length=1, device="cuda").pure()
+    evals, firsts, enrolled = {}, {}, {}
+    for name, corpus, extra in (("joint", "dailytalk", []), ("history", "dailytalk", []), ("voice", "dailytalk", []),
+                                ("tedlium joint", "tedlium", []), ("tedlium joint --one_sec", "tedlium", ["--one_sec"])):
+        cue = "joint" if corpus == "tedlium" else name
+        save = os.path.join(root, name.replace(" --", "_").replace(" ", "_"))
+        recorded, models = [], []
+        orig, rec_make = _recording_eval_steps(step_lib, recorded)
+
+        def make(*a, **k):
+            models.append(a[0])
+            return rec_make(*a, **k)
+
+        step_lib.make_eval_step = make
+        fs.reset_launches()
+        t0 = time.time()
+        try:
+            res = hc_cli.main(base + extra + ["--train_data", corpus, "--cue", cue, "--save_dir", save])
+        finally:
+            step_lib.make_eval_step = orig
+        torch.cuda.synchronize()
+        took = time.time() - t0
+        counts, n_fwd = fs.launch_counts(), len(recorded)
+        want = {k: v * n_stacks * n_fwd for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
+        files = [os.path.join(save, "random_init", f"2_speaker_0_ctx_{cue}", f"{f}_{corpus}.txt")
+                 for f in ("test_results", "acc")]
+        finite = all(math.isfinite(res[k]) for k in ("si_snr", "sdr", "si_snr_i", "sdr_i", "pesq", "pesq_i"))
+        model = models[0]
+        plain_model = Sepformer(dataclasses.replace(model.cfg, compute_dtype=torch.float32))
+        plain_model.load_state_dict(model.state_dict())
+        plain = orig(plain_model, step_lib.TrainConfig(variant="hcontext"), cue=cue, device="cuda", llm_apply=llm_fn,
+                     llm_params=llm_ps)
+        rl2s = [errs(enhanced, plain(batch)[0])[2] for batch, enhanced, *_ in recorded]
+        se_shapes = sorted({tuple(batch["se"].shape) for batch, *_ in recorded})
+        ok = (finite and all(os.path.exists(f) for f in files) and res["n"] == 16 and counts == want
+              and max(rl2s) <= TOL_SERVE_BF16)
+        log(f"  --cue {name}: n {res['n']} in {n_fwd} batches, se {se_shapes}, {took:.1f} s; SI-SNR "
+            f"{res['si_snr']:.4f} SDR {res['sdr']:.4f} PESQ {res['pesq']:.4f}; stack launches {counts} (want {want}, "
+            f"228 a batch); fused vs plain fp32 rel_l2 {[f'{v:.3e}' for v in rl2s]} (tol {TOL_SERVE_BF16:.0e})  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"test_HContExt {name}")
+        firsts[name] = recorded[0][1].float()
+        enrolled[name] = recorded[0][0]["se"].float()
+        evals[name] = {"n": res["n"], "batches": n_fwd, "seconds": took, "launches": counts, "rel_l2_vs_fp32": rl2s,
+                       "metrics": {k: res[k] for k in res if k != "n"}}
+        del recorded, models, model, plain_model, plain
+        torch.cuda.empty_cache()
+    apart = {f"{a}/{b}": errs(firsts[a], firsts[b])[2] for a, b in (("joint", "history"), ("joint", "voice"),
+                                                                   ("history", "voice"))}
+    one_sec = errs(enrolled["tedlium joint --one_sec"], enrolled["tedlium joint"])[2]
+    ok = all(v > 1e-2 for v in apart.values()) and one_sec > 1e-2
+    log(f"  the first batch's outputs of the three cues apart by rel_l2 {({k: f'{v:.3e}' for k, v in apart.items()})}; "
+        f"TEDLIUM's embeddings with --one_sec apart from the register rule's by {one_sec:.3e} (want > 1e-2)  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("the three cues give the same output, or --one_sec the register's embedding")
+    if failures:
+        fail(f"H-ContExt checks failed: {failures}")
+    out["eval"] = {**evals, "cues_apart_rel_l2": apart, "one_sec_se_apart_rel_l2": one_sec}
     return out
 
 
@@ -2613,6 +2919,10 @@ def main() -> int:
     llama = phase15(card, failures, {"[7c] mixtures/s": bench["mixtures_per_s"],
                                      "[11] fused": trainer["fused"]["sustained_mixtures_per_s"]})
     log(f"  [15] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    hcontext = phase16(card, failures, {"[7c] step ms": bench["step_ms"],
+                                        "[14] default (context)": benches["default"]["value"]})
+    log(f"  [16] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -2752,7 +3062,7 @@ def main() -> int:
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
-                      "eval": evals, "bench": benches, "llama": llama}),
+                      "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

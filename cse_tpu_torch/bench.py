@@ -16,10 +16,14 @@ loss, the backward and the AdamW-amsgrad update) at the reference training
 shape: 16 s at 8 kHz (``aligned_bucket``: 125000 samples), one context vector
 per mixture, bf16, B=16, the ``cosine_warmup_schedule(1.5e-4, 500000,
 10000)`` schedule. ``--variant`` selects the recipe: ``context`` (-SI-SNR on
-stream 0) or ``contsep`` (PIT SI-SNR + the weighted BCE selector loss, 2
-decoded streams). ``--infer`` measures the realtime factor of the fused
-serving engine instead (``--variant hcontext`` there too, with a random
-speaker embedding and cue 0), ``--serving_quant w8a8`` its int8 stacks.
+stream 0), ``contsep`` (PIT SI-SNR + the weighted BCE selector loss, 2
+decoded streams) or ``hcontext`` (each timed step first crops a random 1-5
+s enrollment from a fixed 16 kHz source [B, 2·T] and runs the frozen
+ECAPA-TDNN on it: 1024 channels, random weights, 64 under ``--smoke``; then
+the step with that embedding and the step's own cue draw). ``--infer``
+measures the realtime factor of the fused serving engine instead
+(``--variant hcontext`` there too, with a random speaker embedding and cue
+0), ``--serving_quant w8a8`` its int8 stacks.
 
 ``--with_llm`` puts the frozen Llama-3-8B prefill inside the timed step
 (the trainers' path: ``llm_apply`` on ``context_ids`` / ``context_mask``),
@@ -34,8 +38,8 @@ configuration. Standard error gets the bare prefill's time on the same
 weights (a decomposition, not the result).
 
 It runs on the card, and raises without one; only ``--smoke`` selects the
-CPU. ``--mesh_data``, ``--cascaded`` and the H-ContExt training recipe raise
-``NotImplementedError``: they need modules not ported yet.
+CPU. ``--mesh_data`` and ``--cascaded`` raise ``NotImplementedError``: they
+need modules not ported yet.
 
 vs_baseline: the reference publishes no throughput (BASELINE.md), so the
 denominator is the root bench's documented estimate of the 8xA100 recipe's
@@ -98,7 +102,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true", help="tiny config on the CPU (plumbing only)")
     ap.add_argument("--variant", choices=("context", "contsep", "hcontext"), default="context",
                     help="the paper recipe measured: context (ContExt, the default), contsep (PIT + "
-                         "selector losses, 2 decoded streams), hcontext (--infer only)")
+                         "selector losses, 2 decoded streams), hcontext (ContExt + the frozen ECAPA "
+                         "enrollment cue)")
     ap.add_argument("--infer", action="store_true",
                     help="measure the realtime factor of the fused serving engine instead")
     ap.add_argument("--serving_quant", choices=("w8a8",), default=None,
@@ -128,9 +133,6 @@ def main(argv=None) -> dict:
     for flag, why in UNPORTED:
         if getattr(args, flag):
             raise NotImplementedError(f"cse_tpu_torch.bench: {why}")
-    if args.variant == "hcontext" and not args.infer:
-        raise NotImplementedError("cse_tpu_torch.bench: the H-ContExt train recipe needs the speaker "
-                                  "encoder (ECAPA), not ported yet (ROADMAP queue 1, item 7)")
     dev = resolve_device("cpu" if args.smoke else None)
 
     model_variant = "contsep" if args.variant == "contsep" else "context"
@@ -174,7 +176,11 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     llm = _llm_setup(args, cfg, B, dev) if args.with_llm else None
     if llm is None:
         batch["ctx_feat"] = rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)
+    if args.variant == "hcontext":
+        batch["gt16k"] = rng.standard_normal((B, 2 * T)).astype(np.float32)  # the 16 kHz source
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    gt16k = batch.pop("gt16k", None)
+    with_se = _enrollment(args, gt16k, dev) if gt16k is not None else (lambda b: b)
     batches = [batch]
     if llm is not None:
         batches = [dict(batch, context_ids=ids, context_mask=mask) for ids, mask in llm["contexts"]]
@@ -188,21 +194,23 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     llm_kw = dict(llm_apply=llm["apply"], llm_params=llm["params"]) if llm else {}
     step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)), tcfg,
                            fused=not args.smoke, device=dev, **llm_kw)
+    cue_gen = torch.Generator().manual_seed(0)  # hcontext: the step's cue draws
     _reset_launches()
     # with --ctx_sim: one step at each context width first, as the root bench compiles one program per width
     first = [next(b for b in batches if b["context_ids"].shape[1] == w) for w in llm["widths"]] if llm else []
     for b in first + [batches[0]] * args.warmup:
-        m = step.tensors(b)
+        m = step.tensors(with_se(b), cue_gen)
     float(m["loss"])  # one read: the device has finished the warmup
     t0 = time.perf_counter()
     for s in range(args.steps):
-        m = step.tensors(batches[s % len(batches)])
+        m = step.tensors(with_se(batches[s % len(batches)]), cue_gen)
     float(m["loss"])
     dt = time.perf_counter() - t0
     llm_note = _llm_decomposition(args, llm, dt) if llm else ""
     _report_launches(len(first) + args.warmup + args.steps)
 
-    var_note = {"context": "", "contsep": ", PIT+BCE-selector 2-stream"}[args.variant]
+    var_note = {"context": "", "contsep": ", PIT+BCE-selector 2-stream",
+                "hcontext": ", frozen ECAPA on a 1-5 s enrollment crop in-step"}[args.variant]
     mixtures_per_sec = B * args.steps / dt
     audio_s_per_s = mixtures_per_sec * T / args.sr
     ref_audio_s = REF_MIXTURES_PER_SEC_PER_GPU * 16.0  # per A100, 16 s clips
@@ -214,6 +222,25 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
                    audio_s_per_s, llm_note, _where(dev)),
         "vs_baseline": audio_s_per_s / ref_audio_s,
     }
+
+
+def _enrollment(args, gt16k, dev):
+    """The H-ContExt recipe's per-step enrollment: ``batch -> batch`` with
+    ``se`` from the frozen ECAPA (random weights, seed 0; 64 channels under
+    ``--smoke``) on a fresh random 1-5 s crop of ``gt16k``, as the trainer
+    prepares each batch (``train/loop.py``)."""
+    from cse_tpu_torch.data.pipeline import crop_enrollment, draw_enrollment
+    from cse_tpu_torch.models.ecapa import EcapaEncoder, EcapaTDNN
+
+    ecapa = EcapaEncoder(module=EcapaTDNN(channels=64 if args.smoke else 1024,
+                                          generator=torch.Generator().manual_seed(0)), device=dev)
+    lengths = torch.full((gt16k.shape[0],), gt16k.shape[1], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def with_se(batch):
+        return dict(batch, se=ecapa(*crop_enrollment(gt16k, lengths, *draw_enrollment(gt16k.shape[0], gen))))
+
+    return with_se
 
 
 def _llm_setup(args, cfg, B, dev) -> dict:

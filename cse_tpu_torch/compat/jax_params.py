@@ -107,3 +107,56 @@ def llama_params_from_jax(params: Mapping[str, Any], device="cpu") -> dict:
         return leaf(node, key)
 
     return tree(params)
+
+
+def _conv(w) -> torch.Tensor:
+    """A JAX conv kernel HIO ``[k, in, out]`` -> torch's ``[out, in, k]``."""
+    return torch.from_numpy(np.array(np.asarray(w, np.float32).transpose(2, 1, 0)))
+
+
+def _vec(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def _ecapa_bn(p: Mapping, prefix: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _vec(p["scale"]), f"{prefix}.bias": _vec(p["bias"]),
+            f"{prefix}.running_mean": _vec(p["mean"]), f"{prefix}.running_var": _vec(p["var"]),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def _ecapa_tdnn(p: Mapping, prefix: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.conv.conv.weight": _conv(p["w"]), f"{prefix}.conv.conv.bias": _vec(p["b"]),
+            **_ecapa_bn(p["bn"], f"{prefix}.norm.norm")}
+
+
+def ecapa_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``cse_tpu``'s ECAPA tree (``random_ecapa_params`` /
+    ``ecapa_from_state_dict``; numpy leaves) -> the speechbrain-layout
+    ``state_dict`` of ``models/ecapa.py::EcapaTDNN`` (fp32 CPU tensors):
+    ``ecapa_from_state_dict`` run backwards."""
+    sd = _ecapa_tdnn(params["layer1"], "blocks.0")
+    for li in range(3):
+        layer, bp = params[f"layer{li + 2}"], f"blocks.{li + 1}"
+        sd.update(_ecapa_tdnn(layer["tdnn1"], f"{bp}.tdnn1"))
+        sd.update(_ecapa_tdnn(layer["tdnn2"], f"{bp}.tdnn2"))
+        for i in range(len(layer["res2net"])):
+            sd.update(_ecapa_tdnn(layer["res2net"][f"block_{i}"], f"{bp}.res2net_block.blocks.{i}"))
+        se = layer["se"]
+        sd.update({f"{bp}.se_block.conv1.conv.weight": _conv(se["w1"]), f"{bp}.se_block.conv1.conv.bias": _vec(se["b1"]),
+                   f"{bp}.se_block.conv2.conv.weight": _conv(se["w2"]), f"{bp}.se_block.conv2.conv.bias": _vec(se["b2"])})
+    sd.update(_ecapa_tdnn(params["mfa"], "mfa"))
+    sd.update(_ecapa_tdnn(params["asp"]["tdnn"], "asp.tdnn"))
+    sd.update({"asp.conv.conv.weight": _conv(params["asp"]["w"]), "asp.conv.conv.bias": _vec(params["asp"]["b"])})
+    sd.update(_ecapa_bn(params["asp_bn"], "asp_bn.norm"))
+    # fc is a bare speechbrain Conv1d (fc.conv.*): dense [6144, 192] -> k=1 conv [192, 6144, 1]
+    sd.update({"fc.conv.weight": _vec(np.asarray(params["fc"]["w"]).T[:, :, None]), "fc.conv.bias": _vec(params["fc"]["b"])})
+    return sd
+
+
+def spectral_projection_from_jax(W) -> torch.Tensor:
+    """The JAX package's spectral stand-in draws ``jax.random.normal(key(seed),
+    (402, dim))`` (``models/speaker_encoder.py:45-46``) and divides it by
+    sqrt(402); given that draw as a numpy array, the same projection as the
+    buffer of ``SpectralSpeakerEncoder(projection=...)``."""
+    w = _vec(W)
+    return w / torch.sqrt(torch.tensor(float(w.shape[0])))

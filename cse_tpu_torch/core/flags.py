@@ -37,8 +37,8 @@ def add_data_flags(p: argparse.ArgumentParser):
     p.add_argument("--llama_path", default="meta-llama/Meta-Llama-3-8B")
     p.add_argument("--llama_auth_token", default="")
     p.add_argument("--ecapa_path", default="",
-                   help="released speechbrain ECAPA embedding_model.ckpt "
-                        "(the H-ContExt trainer; not ported yet)")
+                   help="released speechbrain ECAPA embedding_model.ckpt (H-ContExt's "
+                        "enrollment cue; empty: the spectral stand-in)")
     p.add_argument("--max_sp_len", type=int, default=16, help="max length in sec")
     p.add_argument("--sr", type=int, default=8000)
     p.add_argument("--context_length", type=int, default=0,

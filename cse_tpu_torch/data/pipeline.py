@@ -175,6 +175,31 @@ def synthesize_batch(cfg: PipelineConfig, host: dict) -> dict:
     }
 
 
+def draw_enrollment(B: int, generator: torch.Generator, min_s: int = 1, max_s: int = 5):
+    """The draws of :func:`crop_enrollment` on ``generator``'s device: crop
+    seconds [B] in [min_s, max_s] and start uniforms [B] in [0, 1)."""
+    seconds = torch.randint(min_s, max_s + 1, (B,), generator=generator, device=generator.device)
+    return seconds, torch.rand(B, generator=generator, device=generator.device)
+
+
+def crop_enrollment(gt16k: torch.Tensor, lengths: torch.Tensor, seconds: torch.Tensor, u: torch.Tensor,
+                    max_s: int = 5, sr: int = 16000):
+    """Random 1-5 s enrollment crop of the pre-mix source (H-ContExt train,
+    reference ``dataset_train_CSE.py:377-379``), given the draws
+    (:func:`draw_enrollment`; the JAX package draws them from its key, so
+    its ``min_s`` belongs to the draws here). Returns ([B, max_s*sr]
+    zero-padded crops, [B] valid sample counts): the counts feed the speaker
+    encoder's masking (the reference passes ``wav_lens``)."""
+    T = gt16k.shape[1]
+    emb_len = torch.minimum(seconds.to(lengths.dtype) * sr, lengths.clamp_min(1))
+    max_start = (lengths - emb_len).clamp_min(0)
+    start = (u * (max_start + 1)).to(torch.int32)  # truncated, as JAX's astype
+    pos = torch.arange(max_s * sr, device=gt16k.device)[None, :]
+    idx = torch.clamp(start[:, None] + pos, max=T - 1)
+    out = torch.gather(gt16k, 1, idx)
+    return out * (pos < emb_len[:, None]).to(gt16k.dtype), emb_len
+
+
 # waveform wire format: the loaders ship int16 PCM and the device converts
 # back, which halves the host-to-device bytes. Exact for raw PCM16-decoded
 # eval wavs; <= 3e-5 relative error for the peak-normalized train decodes,

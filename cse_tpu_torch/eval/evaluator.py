@@ -15,9 +15,10 @@ cached across evaluations keyed by the loader's exact row set.
 
 The eval step is the port's (:func:`cse_tpu_torch.train.step.make_eval_step`):
 ``eval_step(batch) -> (enhanced, aux)`` with the model bound, where the JAX
-package's takes ``(params, batch)``. The JAX evaluator's ``prepare_batch``
-(the H-ContExt enrollment hook) and ``limit_batches`` have no caller in the
-port yet and are left out.
+package's takes ``(params, batch)``. ``prepare_batch(batch) -> batch`` runs on
+each batch in the consumer thread, after the prefetch (H-ContExt attaches
+its enrollment embeddings there); ``limit_batches`` scores the first batches
+only.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ def evaluate(
     dir_name: str = "",
     test_dataset: str = "",
     generate_speech: bool = False,
+    prepare_batch=None,
+    limit_batches: int | None = None,
     verbose: bool = True,
     metric_workers: int | None = None,
     prev_cache_dir: str | None = None,
@@ -62,7 +65,7 @@ def evaluate(
 
     # mixture-side metrics depend only on the test set: reuse a cached
     # accumulation when the loader's exact row set was measured before
-    cache_key = prev_cache_key(loader, sr, None)
+    cache_key = prev_cache_key(loader, sr, limit_batches)
     prev_cached = load_prev_cache(prev_cache_dir, cache_key)
     need_prev = prev_cached is None
 
@@ -70,10 +73,12 @@ def evaluate(
     total = len(loader)
     seen = 0
     # host decode of batch N+1 overlaps the device step + float64 host
-    # metrics of batch N
-    batches = prefetch(loader.batches(), depth=2)
+    # metrics of batch N; prepare_batch stays in the consumer thread
+    batches = prefetch(loader.batches(limit_batches=limit_batches), depth=2)
     try:
         for bi, batch in enumerate(batches):
+            if prepare_batch is not None:
+                batch = prepare_batch(batch)
             enhanced, aux = eval_step({k: batch[k] for k in MODEL_KEYS if k in batch})
             enhanced = np.asarray(_host(enhanced), np.float64)
             gt = np.asarray(_host(batch["gt"]), np.float64)

@@ -29,9 +29,11 @@ card, and the run raises without one. The fused train path is on by default
 on the card and off on the CPU; ``--fused_train`` / ``--no_fused_train``
 force it. A ``--llama_path`` holding Llama weights conditions on the frozen
 Llama (``models/llama.py``; ``--llama_int8``, ``--llama_w8a8``) inside the
-step; ``--synthetic_smoke`` forces the stub. Not ported yet, each raising
-``NotImplementedError``: ``variant="hcontext"`` (needs the speaker encoder)
-and ``--mesh_data`` (data parallel).
+step; ``--synthetic_smoke`` forces the stub. ``variant="hcontext"`` embeds a
+random 1-5 s enrollment crop of each batch's 16 kHz source with the frozen
+speaker encoder (``--ecapa_path``, else the stand-in) on the device, when the
+batch is prepared; validation embeds by the eval enrollment rules. Not
+ported yet: ``--mesh_data`` (data parallel) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,10 +49,19 @@ from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
 from cse_tpu_torch.core.banner import announce_assets
 from cse_tpu_torch.core.cli import TAG, TINY_MODEL, corpus_paths, device_of, setup_synthetic
 from cse_tpu_torch.data import datasets as ds
-from cse_tpu_torch.data.pipeline import EvalLoader, PipelineConfig, TrainLoader, prefetch
+from cse_tpu_torch.data.pipeline import (
+    EvalLoader,
+    PipelineConfig,
+    TrainLoader,
+    crop_enrollment,
+    draw_enrollment,
+    prefetch,
+)
 from cse_tpu_torch.data.tokenizer import load_tokenizer
+from cse_tpu_torch.eval.enrollment import eval_enrollment_embeddings
 from cse_tpu_torch.models import Sepformer, SepformerConfig
 from cse_tpu_torch.models.context_encoder import build_context_encoder
+from cse_tpu_torch.models.speaker_encoder import build_speaker_encoder, encode_speaker
 from cse_tpu_torch.ops.losses import si_snr
 from cse_tpu_torch.train import checkpoint as ckpt_lib
 from cse_tpu_torch.train.optimizer import build_optimizer, set_plateau_scale
@@ -133,11 +144,6 @@ def train_net(args, variant: str, stats: dict | None = None):
     ``torch.profiler`` and finds ``utils.profiling.device_activity`` of that
     window in ``stats["profile"]``."""
     assert variant in ("base", "contsep", "context", "hcontext")
-    if variant == "hcontext":
-        raise NotImplementedError(
-            "cse_tpu_torch: the H-ContExt trainer needs the speaker encoder (ECAPA) and "
-            "crop_enrollment, which are not ported yet (ROADMAP queue 1, item 7)"
-        )
     if args.mesh_data:
         raise NotImplementedError(
             "cse_tpu_torch: --mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"
@@ -161,11 +167,15 @@ def train_net(args, variant: str, stats: dict | None = None):
         )
 
     model, tcfg = build_model(args, variant)
+    speaker = build_speaker_encoder(args.ecapa_path, dev) if variant == "hcontext" else None
 
     # loud real-vs-stub banner + train-on-stubs refusal (the base variant uses
     # no external nets: the context column is loaded but never conditioned on)
     if variant != "base":
-        announce_assets("train", args, tokenizer=tokenizer, llm=llm)
+        nets = dict(tokenizer=tokenizer, llm=llm)
+        if variant == "hcontext":
+            nets["ecapa_path"] = args.ecapa_path
+        announce_assets("train", args, **nets)
 
     files = ds.build_train_list(paths, args.train_data)
     print(f"{TAG} {len(files)} training utterances ({args.train_data})")
@@ -286,6 +296,13 @@ def train_net(args, variant: str, stats: dict | None = None):
         model.eval()
         for batch in loader.batches(limit_batches=t_cap if fast_validate else None):
             t0 = time.perf_counter()
+            if variant == "hcontext":
+                # the eval enrollment rules (register wavs / 1 s crops), not the
+                # train-time random 1-5 s crop (reference dataset :380-391)
+                batch["se"] = eval_enrollment_embeddings(
+                    batch, args.train_data, "val", paths, speaker,
+                    num_test_mix=args.num_test_mix, seed=args.seed,
+                )
             enhanced, aux = eval_step(_model_batch(batch))
             sisnrs.append(si_snr(enhanced, batch["gt"]).cpu().numpy())
             prevs.append(si_snr(batch["mixed"], batch["gt"]).cpu().numpy())
@@ -344,6 +361,12 @@ def train_net(args, variant: str, stats: dict | None = None):
     # reads the newest step's loss: marks are true completion times.
     sustained_marks: list[tuple[int, float]] = []
     last_metrics = None
+    # the enrollment crops' draws: batch i (from 1, over the whole run) draws
+    # from a generator seeded with (seed + 1, i), as JAX folds its dispatch index
+    # in; the step's cue draws come from one generator seeded with the seed
+    crop_gen = torch.Generator(device=dev) if variant == "hcontext" else None
+    cue_gen = torch.Generator().manual_seed(args.seed) if variant == "hcontext" else None
+    dispatch_idx = 0
     for epoch in range(start_epoch, args.epochs):
         if stop:
             break
@@ -354,8 +377,16 @@ def train_net(args, variant: str, stats: dict | None = None):
             # enqueues the pinned host->device copies and the synthesis on the
             # device; called one batch AHEAD of the metric read below so the
             # next batch's copies and synthesis queue up behind the step in flight
+            nonlocal dispatch_idx
+            dispatch_idx += 1
             b = train_loader.device_batch(host)
             stats["h2d_bytes"] = train_loader.h2d_bytes
+            if variant == "hcontext":
+                # the frozen speaker encoder on a random 1-5 s crop of the 16 kHz
+                # pre-mix source, enqueued behind the synthesis
+                crop_gen.manual_seed(int(np.random.SeedSequence([args.seed + 1, dispatch_idx]).generate_state(1)[0]))
+                draws = draw_enrollment(b["gt16k"].shape[0], crop_gen)
+                b["se"] = encode_speaker(speaker, *crop_enrollment(b["gt16k"], b["gt16k_len"], *draws))
             return {k: v for k, v in b.items() if k not in ("gt16k", "gt16k_len", "sp_len")}
 
         host_iter = iter(prefetch(train_loader.batches(epoch)))
@@ -375,7 +406,7 @@ def train_net(args, variant: str, stats: dict | None = None):
                     % (epoch, args.epochs, (i + 1) * B, len(files), iter_time)
                 )
             with trace_if(profile_dir, step_num, **trace_kw):
-                metrics = train_step.tensors(batch)
+                metrics = train_step.tensors(batch, cue_gen)
                 last_metrics = metrics
                 # prepare batch i+1 while step i runs on the device
                 nxt = next(host_iter, None)

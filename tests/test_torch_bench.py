@@ -1,7 +1,7 @@
 """The port's bench, ``python -m cse_tpu_torch.bench``, on the CPU: ``--smoke``
 prints one JSON line with the root bench's metric name (and its launch report
 on standard error), also with the frozen Llama in the step (``--with_llm``,
-``--ctx_sim``); the flags that need unported modules raise, naming their
+``--ctx_sim``) and for the H-ContExt recipe (``--variant hcontext``); the flags that need unported modules raise, naming their
 ROADMAP item; without ``--smoke`` and without a card it raises and prints
 nothing."""
 
@@ -29,8 +29,9 @@ def _root_bench():
     return mod
 
 
-@pytest.mark.parametrize("extra", [[], ["--variant", "contsep"], ["--infer"], ["--infer", "--variant", "contsep"],
-                                   ["--infer", "--variant", "hcontext"], ["--infer", "--serving_quant", "w8a8"]])
+@pytest.mark.parametrize("extra", [[], ["--variant", "contsep"], ["--variant", "hcontext"], ["--infer"],
+                                   ["--infer", "--variant", "contsep"], ["--infer", "--variant", "hcontext"],
+                                   ["--infer", "--serving_quant", "w8a8"]])
 def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
     got = bench.main(["--smoke", "--steps", "2", "--warmup", "1"] + extra)
     captured = capsys.readouterr()
@@ -50,8 +51,7 @@ def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "item 5", id="extra2-item 5"),
-                                        pytest.param(["--cascaded"], "item 8", id="extra3-item 8"),
-                                        pytest.param(["--variant", "hcontext"], "item 7", id="extra4-item 7")])
+                                        pytest.param(["--cascaded"], "item 8", id="extra3-item 8")])
 def test_unported_flags_raise(extra, item, capsys):
     with pytest.raises(NotImplementedError, match=item):
         bench.main(["--smoke"] + extra)

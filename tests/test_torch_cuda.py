@@ -778,3 +778,35 @@ def test_released_checkpoint_reloads_to_the_same_serving_bits(gen, tmp_path, mon
     assert torch.isfinite(a).all() and torch.equal(a, b)
     if quant is None:
         assert fs.launch_counts()["attention"] > 0  # the kernels ran, not their plain versions
+
+
+@pytest.mark.parametrize("channels", [64, 1024])
+def test_ecapa_and_enrollment_crop_card_match_cpu(gen, monkeypatch, channels):
+    """The ECAPA-TDNN (no kernel of the port: cuDNN and cuFFT) and the
+    stand-in on the card against the CPU on one module, TF32 off (fp32 bar:
+    only the summation order differs); the enrollment crop on the same draws
+    gives the same bits."""
+    import copy
+
+    from cse_tpu_torch.data.pipeline import crop_enrollment, draw_enrollment
+    from cse_tpu_torch.models.ecapa import EcapaEncoder, EcapaTDNN
+    from cse_tpu_torch.models.speaker_encoder import SpectralSpeakerEncoder
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu_gen = torch.Generator().manual_seed(6)
+    module = EcapaTDNN(channels=channels, generator=cpu_gen)
+    lens = torch.tensor([80000, 30000, 16000])
+    wav = 0.3 * torch.randn(3, 80000, generator=cpu_gen) * (torch.arange(80000)[None, :] < lens[:, None])
+    card = EcapaEncoder(module=copy.deepcopy(module), device="cuda")(wav, lens)
+    assert card.device.type == "cuda" and card.shape == (3, 1, 192)
+    _close(card, EcapaEncoder(module=module, device="cpu")(wav, lens), torch.float32)
+    stand = SpectralSpeakerEncoder()
+    _close(copy.deepcopy(stand).cuda()(wav, lens), stand(wav, lens), torch.float32)
+    gt16k = torch.randn(4, 100000, generator=cpu_gen)
+    glen = torch.tensor([100000, 40000, 9000, 0], dtype=torch.int32)
+    seconds, u = draw_enrollment(4, torch.Generator().manual_seed(7))
+    a, a_len = crop_enrollment(gt16k.cuda(), glen.cuda(), seconds.cuda(), u.cuda())
+    b, b_len = crop_enrollment(gt16k, glen, seconds, u)
+    assert torch.equal(a.cpu(), b) and torch.equal(a_len.cpu(), b_len)
+    s_card, u_card = draw_enrollment(256, gen)
+    assert s_card.device.type == "cuda" and 1 <= int(s_card.min()) and int(s_card.max()) <= 5

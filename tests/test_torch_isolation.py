@@ -72,14 +72,15 @@ TRAINER_MODULES = [
     "scripts.bench_kernel_parts", "eval.evaluator", "eval.metrics", "eval.host_metrics", "eval.pesq",
     "compat.torch_import", "compat.torch_export", "test", "bench", "core.cli",
     "models.llama", "compat.safetensors_io", "native.audio_native",
+    "models.ecapa", "models.speaker_encoder", "eval.enrollment", "train_HContExt", "test_HContExt",
 ]
 
 
 @pytest.mark.parametrize("name", TRAINER_MODULES)
 def test_trainer_and_tool_modules_are_walked(name):
-    """The trainer's and the eval's modules, the five entry points and the
-    kernel-parts tool are modules of the package, so the two tests above
-    cover them."""
+    """The trainer's and the eval's modules, the seven entry points, the
+    speaker encoders and the kernel-parts tool are modules of the package, so
+    the two tests above cover them."""
     assert f"cse_tpu_torch.{name}" in _modules()
     assert (PKG_DIR / (name.replace(".", "/") + ".py")).exists()
 

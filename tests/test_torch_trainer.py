@@ -6,7 +6,10 @@ cse_tpu's, resume, and the checkpoint files.
 First-step parity: the model's weights and the encoder's tables go across
 (compat.jax_params); each package draws the batch from its own loader and
 its own synthesize_batch. Loss and every gradient at rtol 5e-3, atol 1e-4
-(fp32), the bar of tests/test_torch_train_step.py.
+(fp32), the bar of tests/test_torch_train_step.py. H-ContExt: each package
+crops the enrollment from its own batch on the same draws (JAX's key) and
+embeds it with its spectral stand-in on the same projection; the cue draw is
+fixed on both sides.
 """
 
 import copy
@@ -25,17 +28,25 @@ import cse_tpu_torch.train.step as tstep
 from cse_tpu.core.flags import parse_train_args as jax_parse_train_args
 from cse_tpu.data import datasets as jds
 from cse_tpu.data.pipeline import TrainLoader as JaxTrainLoader
+from cse_tpu.data.pipeline import crop_enrollment as jax_crop_enrollment
 from cse_tpu.data.tokenizer import load_tokenizer as jax_load_tokenizer
 from cse_tpu.models.context_encoder import HashProjectionEncoder as JaxEncoder
 from cse_tpu.models.llama import LlamaContextEncoder as JaxLlamaEncoder
-from cse_tpu_torch.compat.jax_params import hash_encoder_tables, jax_params_to_state_dict, load_jax_params
+from cse_tpu.models.speaker_encoder import _spectral_embedding as jax_spectral_embedding
+from cse_tpu_torch.compat.jax_params import (
+    hash_encoder_tables,
+    jax_params_to_state_dict,
+    load_jax_params,
+    spectral_projection_from_jax,
+)
 from cse_tpu_torch.core.cli import corpus_paths, setup_synthetic
 from cse_tpu_torch.core.flags import parse_train_args
 from cse_tpu_torch.data import datasets as tds
-from cse_tpu_torch.data.pipeline import TrainLoader
+from cse_tpu_torch.data.pipeline import TrainLoader, crop_enrollment
 from cse_tpu_torch.data.tokenizer import load_tokenizer
 from cse_tpu_torch.models.context_encoder import HashProjectionEncoder
 from cse_tpu_torch.models.llama import LlamaContextEncoder
+from cse_tpu_torch.models.speaker_encoder import SpectralSpeakerEncoder
 from cse_tpu_torch.train import checkpoint as ckpt_lib
 from cse_tpu_torch.train.loop import train_net
 from cse_tpu_torch.train.optimizer import build_optimizer
@@ -61,7 +72,7 @@ def test_flags_match_the_jax_package():
     assert parse_train_args(["--ctx_buckets", "none"]).ctx_buckets == ()
 
 
-@pytest.mark.parametrize("variant", ["context", "contsep", "base"])
+@pytest.mark.parametrize("variant", ["context", "contsep", "base", "hcontext"])
 def test_train_net_variants(tmp_path, variant, capsys):
     stats = {}
     model = train_net(_args(["--checkpoint_dir", tmp_path / variant]), variant=variant, stats=stats)
@@ -78,8 +89,6 @@ def test_train_net_variants(tmp_path, variant, capsys):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_net(_args(["--checkpoint_dir", tmp_path]), variant="hcontext")
     with pytest.raises(NotImplementedError, match="item 5"):
         train_net(_args(["--checkpoint_dir", tmp_path, "--mesh_data", 2]), variant="context")
     # no --platform: the card, and without one it raises rather than run on the CPU
@@ -158,8 +167,9 @@ LLAMA = "<the llama_4096 directory>"
 
 
 @pytest.mark.parametrize("variant,extra", [("context", ["--augmentation", "--noise_add"]), ("contsep", []),
-                                           ("base", []), ("context", ["--max_ctx_tokens", 32, "--llama_path", LLAMA])])
-def test_first_batch_loss_and_grads_match_jax(variant, extra, request):
+                                           ("base", []), ("context", ["--max_ctx_tokens", 32, "--llama_path", LLAMA]),
+                                           ("hcontext", [])])
+def test_first_batch_loss_and_grads_match_jax(variant, extra, request, monkeypatch):
     """With ``--llama_path``: both packages' Llama encoders on the same files,
     in fp32 (the trainers' bf16 default would compare two CPU bf16 product
     orders, not the ports)."""
@@ -172,11 +182,26 @@ def test_first_batch_loss_and_grads_match_jax(variant, extra, request):
         setattr(jargs, k, getattr(args, k))  # both read the port's copy of the corpus
     jbatch, tbatch = _first_batches(args, jargs)
     keys = ("mixed", "gt", "noises", "context_ids", "context_mask")
+    init_kw = {}
+    if variant == "hcontext":
+        keys += ("se",)
+        key = jax.random.key(5)
+        k1, k2 = jax.random.split(key)  # crop_enrollment's draws from its key
+        draws = (torch.from_numpy(np.array(jax.random.randint(k1, (2,), 1, 6))),
+                 torch.from_numpy(np.array(jax.random.uniform(k2, (2,)))))
+        jbatch["se"] = jax_spectral_embedding(*jax_crop_enrollment(jbatch["gt16k"], jbatch["gt16k_len"], key))
+        stand = SpectralSpeakerEncoder(projection=spectral_projection_from_jax(
+            np.asarray(jax.random.normal(jax.random.key(0), (402, 192)))))
+        tbatch["se"] = stand(*crop_enrollment(tbatch["gt16k"], tbatch["gt16k_len"], *draws))
+        np.testing.assert_allclose(tbatch["se"].numpy(), np.asarray(jbatch["se"]), rtol=1e-4, atol=1e-5)
+        monkeypatch.setattr(jstep, "_sample_cue", lambda rng: jnp.asarray(0))  # the joint cue on both sides
+        monkeypatch.setattr(tstep, "_sample_cue", lambda generator=None: 0)
+        init_kw = dict(se=jnp.zeros((2, 1, 192)), cue_index=jnp.asarray(0))
 
     jmodel, jtcfg = jloop.build_model(jargs, variant)
     jb = {k: jbatch[k] for k in keys}
     dummy = (jnp.zeros((2, 4000)),) + (() if variant == "base" else (jnp.zeros((2, 1, 4096)),))
-    params = jmodel.init(jax.random.key(0), *dummy)
+    params = jmodel.init(jax.random.key(0), *dummy, **init_kw)
     jenc = JaxLlamaEncoder(llama, ctx_length=1, dtype=jnp.float32) if llama else JaxEncoder(dim=4096, ctx_length=1)
     jfn, jps = jenc.pure()
     loss_fn = jstep.make_loss_fn(jmodel, jtcfg, None if variant == "base" else jfn, fused=False)
