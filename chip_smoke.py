@@ -160,6 +160,25 @@ Phases (any failure exits non-zero and prints no result line):
      TEDLIUM with and without --one_sec, 16 synthetic mixtures each: files,
      n, 228 launches a batch, each batch within rel L2 5e-2 of the plain fp32
      model, the three cues three outputs, --one_sec other embeddings.
+ 17. the cascaded path (models/whisper.py, eval/cascaded.py, test_cascaded.py:
+     no kernel of the port; #1 in the bench's separator): (a) Whisper card
+     against CPU with TF32 off, on random weights at the stub widths (64, 4
+     heads, 2 + 2 layers, B=2) and at base width (one 30 s window): the
+     log-mel (rel L2 1e-5), the encoder and 15 teacher-forced decoder steps
+     (1e-4), greedy 64-token decodes timestamped and not (the same tokens and
+     lengths, sum_logprob 1e-3, no_speech_prob 1e-5), the detected language;
+     (b) Whisper-base, B=2 x one 30 s window, fp32: the log-mel, the encoder
+     beside its operations bound, the cross K/V, a timestamped 224-token
+     decode (steps taken, ms a window and a step beside the step's bytes
+     bound, launches a step from a profiled 32-token decode, the device's busy
+     time), peak memory; (c) the bench's separator (ServingEngine base, bf16,
+     B=1 x 128000: #1's launches by formula, rel L2 5e-2 against plain fp32),
+     then python -m cse_tpu_torch.bench --cascaded and --cascaded
+     --cascaded_llm in subprocesses (5 timed mixtures; one JSON line each,
+     the launch report by formula); (d) cse_tpu_torch.test_cascaded.main on 4 mixtures of 4-8
+     s: --synthetic_smoke (stub Whisper, stand-in scorer), and a released
+     base .ckpt written here with a tiny Llama checkout's scorer: the
+     results file, n, finite metrics, the stages the banner names.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -2652,6 +2671,264 @@ def phase16(card, failures, references):
     return out
 
 
+# [17]'s bars. Whisper on the card against the CPU in fp32 with TF32 off: the
+# log-mel (an FFT and one product) -> relative L2 <= 1e-5; the encoder and the
+# decoder's logits differ only in summation order -> max|err| / max|ref| <=
+# 1e-4 (the fp32 bar of [3]); greedy decodes give the same tokens and lengths,
+# sum_logprob within 1e-3 (a sum of up to 64 log-probabilities) and
+# no_speech_prob within 1e-5; the detected language is the same.
+TOL_MEL = 1e-5
+TOL_WHISPER = 1e-4
+TOL_SUM_LOGPROB = 1e-3
+TOL_NO_SPEECH = 1e-5
+# the cascade's stub Whisper (eval/cascaded.py::build_cascaded): the real vocabulary and window
+WHISPER_STUB = dict(n_audio_state=64, n_audio_head=4, n_audio_layer=2, n_text_state=64, n_text_head=4,
+                    n_text_layer=2)
+
+
+def whisper_work(cfg, B) -> dict:
+    """Whisper's least work at B windows, reckoned from models/whisper.py: the
+    encoder's operations (the two convolutions; per layer the four
+    projections, the MLP and the attention's two products) and bytes (the
+    mel in, the weights, the features out); and the bytes one decode step
+    must move: the decoder layers' per-step weights (self-attention 4 D²,
+    the cross query and out 2 D², the MLP 8 D²), the tied embedding read for
+    the logits, the cross K/V, the whole self-attention cache (every step
+    attends over all n_text_ctx slots), the logits written."""
+    D, Ta, Fr = cfg.n_audio_state, cfg.n_audio_ctx, 2 * cfg.n_audio_ctx
+    conv = 2 * Fr * D * cfg.n_mels * 3 + 2 * Ta * D * D * 3
+    layer = 2 * Ta * D * D * 4 + 2 * 2 * Ta * D * 4 * D + 2 * 2 * Ta * Ta * D
+    enc_weights = D * cfg.n_mels * 3 + D * D * 3 + cfg.n_audio_layer * 12 * D * D
+    enc_bytes = 4 * (B * Fr * cfg.n_mels + enc_weights + B * Ta * D)
+    Dt = cfg.n_text_state
+    step_weights = cfg.n_text_layer * 14 * Dt * Dt + cfg.n_vocab * Dt
+    step_bytes = 4 * (step_weights + cfg.n_text_layer * 2 * B * (Ta + cfg.n_text_ctx) * Dt + B * cfg.n_vocab)
+    return {"encoder_ops": B * (conv + cfg.n_audio_layer * layer), "encoder_bytes": enc_bytes,
+            "step_weights": step_weights, "step_bytes": step_bytes}
+
+
+def phase17(card, failures):
+    """The cascaded path (models/whisper.py, eval/cascaded.py,
+    test_cascaded.py: no kernel of the port; #1 in the bench's separator):
+    (a) Whisper card against CPU at the stub widths and at base width, TF32
+    off; (b) Whisper-base on the card, B=2 x one 30 s window: the log-mel,
+    the encoder, the cross K/V and the decode, each beside its bound, the
+    launches of a decode step; (c) the bench's base separator (#1) against
+    the plain fp32 port, then python -m cse_tpu_torch.bench --cascaded and
+    --cascaded --cascaded_llm; (d) cse_tpu_torch.test_cascaded.main on the
+    card: --synthetic_smoke, and a released base .ckpt with a tiny Llama
+    checkout's scorer."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from cse_tpu_torch import test_cascaded as casc_cli
+    from cse_tpu_torch.compat.torch_export import save_torch_checkpoint
+    from cse_tpu_torch.data.synthetic import make_synthetic_corpus
+    from cse_tpu_torch.models import whisper as tw
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.serving import ServingEngine
+
+    out = {}
+    # ---- (a) card against CPU: the same random checkout on both, TF32 off (set in main)
+    wav = 0.2 * torch.randn(2, 480000, generator=torch.Generator().manual_seed(17))
+    log(f"[17a] Whisper card against CPU, TF32 off, random weights (seed 17): stub widths (64, 4 heads, 2 + 2 "
+        f"layers) on B=2 and base (512, 8 heads, 6 + 6 layers) on one 30 s window; vocabulary 51865  [{card}]")
+    parity, models = {}, {}
+    for name, cfg in (("stub", tw.WhisperConfig(**WHISPER_STUB)), ("base", tw.WhisperConfig())):
+        t0 = time.time()
+        sd = tw.random_whisper_params(cfg, seed=17)
+        cpu = tw.whisper_from_state_dict(sd, cfg, device="cpu")
+        gpu = tw.whisper_from_state_dict(sd, cfg, device="cuda")
+        x = wav if name == "stub" else wav[:1]
+        B = x.shape[0]
+        mel = tw.whisper_log_mel(x)
+        mel_rl2 = errs(tw.whisper_log_mel(x.cuda()).cpu(), mel)[2]
+        audio = tw.whisper_encode(cpu, mel)
+        audio_g = tw.whisper_encode(gpu, mel.cuda())
+        enc_rel = errs(audio_g.cpu(), audio)[1]
+        # teacher-forced: the prompt, then 12 fixed tokens (text and timestamps), position by position
+        toks = [cfg.sot, cfg.token_lang_en, cfg.token_transcribe, 50364, 11, 2113, 15919, 50389, 50390, 220, 33623,
+                51000, 17, 4242, cfg.eot]
+        kv_c, kv_g = tw.new_kv_cache(cpu, B, "cpu"), tw.new_kv_cache(gpu, B, "cuda")
+        akv_c, akv_g = tw._cross_kv(cpu, audio), tw._cross_kv(gpu, audio.cuda())
+        step_rel = 0.0
+        for pos, t in enumerate(toks):
+            tt = torch.full((B,), t)
+            step_rel = max(step_rel, errs(tw._decoder_step(gpu, tt.cuda(), pos, kv_g, akv_g).cpu(),
+                                          tw._decoder_step(cpu, tt, pos, kv_c, akv_c))[1])
+        lang = torch.full((B,), cfg.token_lang_en)
+        decodes = {}
+        for ts in (False, True):
+            g = [v.cpu() for v in tw.whisper_decode_audio(gpu, audio.cuda(), lang, max_tokens=64, timestamps=ts)]
+            c = tw.whisper_decode_audio(cpu, audio, lang, max_tokens=64, timestamps=ts)
+            decodes["timestamps" if ts else "notimestamps"] = {
+                "tokens_equal": torch.equal(g[0], c[0]), "lengths": g[1].tolist(), "lengths_equal": torch.equal(g[1], c[1]),
+                "sum_logprob_err": float((g[2] - c[2]).abs().max()), "no_speech_err": float((g[3] - c[3]).abs().max())}
+        lang_same = torch.equal(tw.whisper_detect_language_audio(gpu, audio.cuda())[0].cpu(),
+                                tw.whisper_detect_language_audio(cpu, audio)[0])
+        ok = (mel_rl2 <= TOL_MEL and enc_rel <= TOL_WHISPER and step_rel <= TOL_WHISPER and lang_same
+              and all(d["tokens_equal"] and d["lengths_equal"] and d["sum_logprob_err"] <= TOL_SUM_LOGPROB
+                      and d["no_speech_err"] <= TOL_NO_SPEECH for d in decodes.values()))
+        log(f"  {name}: log-mel rel_l2 {mel_rl2:.3e} (tol {TOL_MEL:.0e}); encoder max_rel {enc_rel:.3e}, "
+            f"{len(toks)} teacher-forced steps max_rel {step_rel:.3e} (tol {TOL_WHISPER:.0e}); greedy 64-token "
+            f"decodes {decodes} (sum_logprob tol {TOL_SUM_LOGPROB:.0e}, no_speech tol {TOL_NO_SPEECH:.0e}); "
+            f"language the same: {lang_same}; {time.time() - t0:.1f} s  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"whisper {name} card vs CPU")
+        parity[name] = {"log_mel_rel_l2": mel_rl2, "encoder_max_rel": enc_rel, "step_max_rel": step_rel,
+                        "decodes": decodes, "language_same": lang_same}
+        models[name] = gpu
+        del cpu, sd, audio, audio_g, kv_c, kv_g, akv_c, akv_g
+    if failures:
+        fail(f"Whisper checks failed: {failures}")
+    out["parity"] = parity
+
+    # ---- (b) Whisper-base on the card: B=2 streams x one 30 s window, fp32
+    t0 = time.time()
+    model, cfg, B = models["base"], tw.WhisperConfig(), 2
+    work = whisper_work(cfg, B)
+    x = 0.2 * torch.randn(B, 480000, device="cuda", generator=torch.Generator(device="cuda").manual_seed(18))
+    lang = torch.full((B,), cfg.token_lang_en, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mel_ms = statistics.median(cuda_ms(lambda: tw.whisper_log_mel(x)))
+    mel = tw.whisper_log_mel(x)
+    enc_times = cuda_ms(lambda: tw.whisper_encode(model, mel))
+    audio = tw.whisper_encode(model, mel)
+    kv_ms = statistics.median(cuda_ms(lambda: tw._cross_kv(model, audio)))
+    def decode(max_tokens):
+        """One timestamped decode; returns (its outputs, the decoder steps it took)."""
+        steps = [0]
+        orig_step = tw._decoder_step
+
+        def counting(*a, **k):
+            steps[0] += 1
+            return orig_step(*a, **k)
+
+        tw._decoder_step = counting
+        try:
+            res = tw.whisper_decode_audio(model, audio, lang, max_tokens=max_tokens, timestamps=True)
+        finally:
+            tw._decoder_step = orig_step
+        return res, steps[0]
+
+    res, n_steps = decode(224)
+    dec_times = cuda_ms(lambda: tw.whisper_decode_audio(model, audio, lang, max_tokens=224, timestamps=True))
+    peak = torch.cuda.max_memory_allocated()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # launches a step from a shorter decode under the profiler (every step launches the same kernels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_steps = decode(32)[1]
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total for e in dev_events)
+    enc_ms, dec_ms = statistics.median(enc_times), statistics.median(dec_times)
+    eo, eb = 1e3 * work["encoder_ops"] / PEAK_FP32, 1e3 * work["encoder_bytes"] / HBM_BYTES_S
+    step_bound = 1e3 * work["step_bytes"] / HBM_BYTES_S
+    per_step = dec_ms / n_steps
+    log(f"[17b] Whisper-base on the card, B={B} x one 30 s window, fp32, TF32 off, median of 5 after 2 warmups (CUDA "
+        f"events)  [{card}]")
+    log(f"  log-mel {mel_ms:.3f} ms; encoder {enc_ms:.3f} ms ({[round(t, 3) for t in enc_times]}), bound "
+        f"{max(eo, eb):.3f} ms ({'operations' if eo >= eb else 'bytes'}: {work['encoder_ops'] / 1e9:.1f} GFLOP at 67 "
+        f"TFLOP/s = {eo:.3f} ms, {work['encoder_bytes'] / 1e6:.1f} MB = {eb:.4f} ms) -> {100 * max(eo, eb) / enc_ms:.1f}% "
+        f"of it, {work['encoder_ops'] / enc_ms / 1e9:.2f} TFLOP/s; cross K/V {kv_ms:.3f} ms")
+    log(f"  decode (timestamped, 224-token budget): {n_steps} steps, lengths {res[1].tolist()}: {dec_ms:.2f} ms a window "
+        f"({[round(t, 1) for t in dec_times]}), {per_step:.4f} ms a step; bound a step {step_bound:.4f} ms "
+        f"({work['step_bytes'] / 1e6:.1f} MB: {work['step_weights'] / 1e6:.1f} M weights, the cross and self K/V) = "
+        f"{step_bound * n_steps:.2f} ms a window -> {100 * step_bound / per_step:.2f}% of it; a profiled {prof_steps}-step "
+        f"decode (32 tokens): {len(dev_events)} device events = {len(dev_events) / prof_steps:.1f} launches a step, "
+        f"device busy {dev_us / 1e3:.2f} ms ({dev_us / 1e3 / prof_steps:.4f} ms a step); peak {peak / 2**30:.3f} GiB; {time.time() - t0:.1f} s")
+    out["base"] = {"B": B, "log_mel_ms": mel_ms, "encoder_ms": enc_ms, "encoder_times": enc_times,
+                   "encoder_bound_ms": max(eo, eb), "encoder_bound_by": "operations" if eo >= eb else "bytes",
+                   "cross_kv_ms": kv_ms, "decode_ms": dec_ms, "decode_times": dec_times, "decode_steps": n_steps,
+                   "decode_step_ms": per_step, "decode_step_bound_ms": step_bound,
+                   "launches_per_step": len(dev_events) / prof_steps, "device_ms_per_step": dev_us / 1e3 / prof_steps,
+                   "peak_bytes": peak, **work}
+    del models, model, audio, mel, x
+    torch.cuda.empty_cache()
+
+    # ---- (c) the bench's separator (#1), then the bench itself
+    scfg = SepformerConfig(variant="base", num_spks=2, compute_dtype=torch.bfloat16)
+    sep = Sepformer(scfg, generator=torch.Generator().manual_seed(17)).to("cuda").eval()
+    plain = Sepformer(dataclasses.replace(scfg, compute_dtype=torch.float32)).to("cuda").eval()
+    plain.load_state_dict(sep.state_dict())
+    mix = torch.randn(1, 128000, device="cuda", generator=torch.Generator(device="cuda").manual_seed(19))
+    engine = ServingEngine(scfg, sep)
+    fs.reset_launches()
+    est = engine(mix)
+    torch.cuda.synchronize()
+    counts = fs.launch_counts()
+    n_stacks = 2 * scfg.num_dp_layers
+    per_fwd = {k: v * n_stacks for k, v in fs.launches_per_stack(scfg.num_tf_layers).items()}
+    rl2 = errs(est, plain(mix))[2]
+    sep_ms = statistics.median(cuda_ms(lambda: engine(mix)))
+    ok = counts == per_fwd and rl2 <= TOL_SERVE_BF16 and tuple(est.shape) == (1, 128000, 2)
+    log(f"[17c] the bench's separator: ServingEngine base, 2 streams, bf16, B=1 x 128000: {tuple(est.shape)}, launches "
+        f"{counts} (want {per_fwd}), vs plain fp32 rel_l2 {rl2:.3e} (tol {TOL_SERVE_BF16:.0e}), {sep_ms:.3f} ms  "
+        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        fail(f"the cascaded bench's separator: launches {counts} (want {per_fwd}), rel_l2 {rl2}")
+    del sep, plain, engine, est
+    torch.cuda.empty_cache()
+    ref = "[17b] encode + decode ms (B=2 window)"
+    out["separator"] = {"launches": counts, "rel_l2_vs_fp32": rl2, "ms": sep_ms}
+    # 5 timed mixtures after the warm one (the bench's default is 10): each takes about a second
+    out["bench"] = {name: bench_form(name, extra + ["--steps", "5"], "cascaded_pipeline_rtf", ref, enc_ms + dec_ms,
+                                     per_fwd)
+                    for name, extra in (("--cascaded", ["--cascaded"]),
+                                        ("--cascaded --cascaded_llm", ["--cascaded", "--cascaded_llm"]))}
+
+    # ---- (d) the entry point on the card: the synthetic corpus with the stand-ins, then a
+    # released base checkpoint with a tiny Llama checkout's scorer
+    root = tempfile.mkdtemp(prefix="cse_cascaded_")
+    ckpt = os.path.join(root, "ckpts", "base_released.ckpt")
+    os.makedirs(os.path.dirname(ckpt))
+    gen = torch.Generator().manual_seed(20)
+    base_model = Sepformer(SepformerConfig(variant="base", num_spks=2), generator=gen)
+    with torch.no_grad():
+        for p in base_model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    save_torch_checkpoint(ckpt, base_model)
+    ldir = os.path.join(root, "llama")
+    write_llama_dir(ldir, vocab=320, hidden=64, inter=128, layers=2, heads=4, kv_heads=2, dtype=torch.float32,
+                    gen=torch.Generator(device="cuda").manual_seed(21))
+    info = make_synthetic_corpus(os.path.join(root, "corpus"), n_eval=4, seconds=(4.0, 8.0))
+    common = ["--batch_size", "1", "--max_sp_len", "8", "--workers", "4"]
+    runs = (("--synthetic_smoke", ["--synthetic_smoke", "--synthetic_seconds", "4", "8", "--synthetic_eval", "4"],
+             "random_init", "spokenwoz", "llm=stub"),
+            ("released base .ckpt + tiny Llama scorer",
+             ["--checkpoint", ckpt, "--llama_path", ldir, "--test_dataset", "dailytalk",
+              "--dailytalk_data_path", info["dailytalk_data_path"], "--acoustic_noise_path", info["acoustic_noise_path"],
+              "--lists_root", info["lists_root"]], os.path.join("ckpts", "base_released"), "dailytalk", "llm=real"))
+    evals = {}
+    for name, extra, tag, ds, llm in runs:
+        save = os.path.join(root, f"out_{len(evals)}")
+        text = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            res = casc_cli.main(common + extra + ["--save_dir", save])
+        took = time.time() - t0
+        stages = [ln for ln in text.getvalue().splitlines() if "cascaded stages:" in ln]
+        path = os.path.join(save, tag, f"Cascaded_2_speaker_0_ctx_{ds}", f"test_results_{ds}.txt")
+        finite = all(math.isfinite(res[k]) for k in ("si_snr", "sdr", "si_snr_i", "sdr_i", "pesq"))
+        ok = os.path.exists(path) and res["n"] == 4 and finite and bool(stages) and "whisper=stub" in stages[0] \
+            and llm in stages[0]
+        log(f"[17d] cse_tpu_torch.test_cascaded.main, {name}: {stages}; n {res['n']} in {took:.1f} s; SI-SNR "
+            f"{res['si_snr']:.4f} SDR {res['sdr']:.4f} SI-SNR-i {res['si_snr_i']:.4f} PESQ {res['pesq']:.4f}; results "
+            f"file {os.path.exists(path)}  {'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            failures.append(f"test_cascaded {name}")
+        evals[name] = {"n": res["n"], "seconds": took, "metrics": {k: res[k] for k in res if k != "n"}}
+    if failures:
+        fail(f"cascaded checks failed: {failures}")
+    out["eval"] = evals
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -2923,6 +3200,9 @@ def main() -> int:
     hcontext = phase16(card, failures, {"[7c] step ms": bench["step_ms"],
                                         "[14] default (context)": benches["default"]["value"]})
     log(f"  [16] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cascaded = phase17(card, failures)
+    log(f"  [17] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -3062,7 +3342,8 @@ def main() -> int:
                       "train_step": bench, "train_times": ttimes, "flash_parity": flash_parity,
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
-                      "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext}),
+                      "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext,
+                      "cascaded": cascaded}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

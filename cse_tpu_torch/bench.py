@@ -4,6 +4,7 @@
     python -m cse_tpu_torch.bench --variant contsep
     python -m cse_tpu_torch.bench --infer [--serving_quant w8a8]
     python -m cse_tpu_torch.bench --with_llm [--llama_quant w8a8] [--ctx_sim]
+    python -m cse_tpu_torch.bench --cascaded [--cascaded_llm]
     python -m cse_tpu_torch.bench --smoke [--infer]    # tiny config on the CPU
 
 The port's counterpart of the root ``bench.py``, for the flags the port can
@@ -37,9 +38,22 @@ dialog-history lengths from a DailyTalk-like distribution (1-15 turns of
 configuration. Standard error gets the bare prefill's time on the same
 weights (a decomposition, not the result).
 
+``--cascaded`` measures the realtime factor of the cascaded pipeline on one
+mixture at a time (the reference's batch 1): the base separator through the
+fused serving engine (bf16, 2 streams, ``--seconds`` of audio), 8k->16k and
+the peak norm, Whisper-base (random weights, fp32, the greedy rung, language
+pinned to English, a 224-token budget) under the transcribe policy, then the
+selection, scored by the crc32 stand-in or, with ``--cascaded_llm``, by the
+8B shape in int8 on random weights drawn on the card (its logits). Random
+weights make it a worst case: noise transcripts tend to spend the whole
+budget. It keeps PyTorch's default precision settings (cuDNN may run the
+convolutions in TF32). With ``--smoke``: the tiny separator, Whisper at
+width 64 (2 + 2 layers, the real vocabulary and window), 16 tokens, a
+2-layer Llama.
+
 It runs on the card, and raises without one; only ``--smoke`` selects the
-CPU. ``--mesh_data`` and ``--cascaded`` raise ``NotImplementedError``: they
-need modules not ported yet.
+CPU. ``--mesh_data`` raises ``NotImplementedError``: data parallel is not
+ported yet.
 
 vs_baseline: the reference publishes no throughput (BASELINE.md), so the
 denominator is the root bench's documented estimate of the 8xA100 recipe's
@@ -70,7 +84,6 @@ REF_MIXTURES_PER_SEC_PER_GPU = 4.0  # documented estimate, see module docstring
 
 UNPORTED = (
     ("mesh_data", "--mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"),
-    ("cascaded", "--cascaded needs Whisper and the cascaded selector (ROADMAP queue 1, item 8)"),
 )
 
 
@@ -121,7 +134,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the --with_llm prefill's weights: int8 weight-only (bf16 products) or w8a8 (int8 "
                          "activations too, torch._int_mm)")
     ap.add_argument("--mesh_data", type=int, default=None, help="not ported yet: raises")
-    ap.add_argument("--cascaded", action="store_true", help="not ported yet: raises")
+    ap.add_argument("--cascaded", action="store_true",
+                    help="measure the cascaded pipeline's realtime factor (separate, Whisper, select) instead")
+    ap.add_argument("--cascaded_llm", action="store_true",
+                    help="with --cascaded: score with the 8B-shape Llama in int8 (random weights), not the stand-in")
     args = ap.parse_args(argv)
     if args.batch is None:
         args.batch = 8 if args.with_llm else 16
@@ -134,6 +150,10 @@ def main(argv=None) -> dict:
         if getattr(args, flag):
             raise NotImplementedError(f"cse_tpu_torch.bench: {why}")
     dev = resolve_device("cpu" if args.smoke else None)
+    if args.cascaded:
+        line = _bench_cascaded(args, dev)
+        print(json.dumps(line), flush=True)
+        return line
 
     model_variant = "contsep" if args.variant == "contsep" else "context"
     vkw = dict(add_se=True) if args.variant == "hcontext" else {}
@@ -349,6 +369,65 @@ def _bench_infer(args, cfg, model, B, T, dev) -> dict:
         "value": rtf,
         "unit": "x realtime (fused serving, batch %d, %.3fs@8kHz, %s%s; %s)"
                 % (B, T / args.sr, _dtype_name(cfg), qnote, _where(dev)),
+        "vs_baseline": None,
+    }
+
+
+def _bench_cascaded(args, dev) -> dict:
+    """The cascaded pipeline's realtime factor (the root bench's
+    ``_bench_cascaded``): one warm mixture, then ``--steps`` timed ones on
+    the host clock, each ending in the selection's host reads."""
+    from cse_tpu_torch.data.tokenizer import ByteTokenizer
+    from cse_tpu_torch.eval.cascaded import CascadedSelector
+    from cse_tpu_torch.models.llama import LlamaConfig, llama_forward, random_llama_params
+    from cse_tpu_torch.models.whisper import WhisperASR, WhisperConfig
+    from cse_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(0)
+    if args.smoke:
+        scfg = SepformerConfig(variant="base", num_spks=2, enc_channels=16, enc_kernel=8, enc_stride=4, d_model=16,
+                               nhead=4, d_ffn=32, num_tf_layers=1, num_dp_layers=1, chunk_size=10, pe_max_len=256)
+        wcfg = WhisperConfig(n_audio_state=64, n_audio_head=4, n_audio_layer=2, n_text_state=64, n_text_head=4,
+                             n_text_layer=2)
+        lcfg = LlamaConfig(vocab_size=320, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                           num_attention_heads=4, num_key_value_heads=2)
+        T, max_tokens = 2000, 16  # 0.25 s: the inter sequence stays inside pe_max_len
+    else:
+        scfg = SepformerConfig(variant="base", num_spks=2, compute_dtype=torch.bfloat16)
+        wcfg, lcfg = WhisperConfig(), LlamaConfig()  # Whisper-base, the 8B shape
+        T, max_tokens = int(args.seconds * args.sr), 224
+    engine = ServingEngine(scfg, Sepformer(scfg, generator=torch.Generator().manual_seed(0)), device=dev)
+    mix = torch.from_numpy(rng.standard_normal((1, T)).astype(np.float32)).to(dev)
+    asr = WhisperASR(cfg=wcfg, temperatures=(0.0,), language="en", device=dev)
+    scorer = None
+    if args.cascaded_llm:
+        lparams = random_llama_params(lcfg, dtype=torch.bfloat16, seed=0, quant="int8", device=dev)
+
+        def scorer(ids, mask):
+            return llama_forward(lparams, ids, mask, lcfg, return_logits=True)
+
+    sel = CascadedSelector(asr, scorer, ByteTokenizer(), sr=args.sr, asr_max_tokens=max_tokens)
+    context = "Speaker 0: could you pass the salt please/nSpeaker 1: "
+
+    def one_mixture():
+        streams = engine(mix).float()[0].t()  # [spk, T]
+        return sel.select(streams, context)
+
+    _reset_launches()
+    one_mixture()  # first use of every stage
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        one_mixture()
+    dt = (time.perf_counter() - t0) / args.steps
+    _report_launches(1 + args.steps)
+    lm = ("tiny-smoke-int8" if args.smoke else "8B-int8") if args.cascaded_llm else "host-stub"
+    prec = "" if dev.type != "cuda" else ", PyTorch's default precision settings"
+    return {
+        "metric": _metric_name(args),
+        "value": (T / args.sr) / dt,
+        "unit": "x realtime (cascaded separate+ASR+select, batch 1, %.2fs@8kHz, %d-token ASR budget, LM=%s; "
+                "worst-case: random weights decode the full budget%s; %s)"
+                % (T / args.sr, max_tokens, lm, prec, _where(dev)),
         "vs_baseline": None,
     }
 

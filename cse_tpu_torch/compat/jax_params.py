@@ -160,3 +160,63 @@ def spectral_projection_from_jax(W) -> torch.Tensor:
     buffer of ``SpectralSpeakerEncoder(projection=...)``."""
     w = _vec(W)
     return w / torch.sqrt(torch.tensor(float(w.shape[0])))
+
+
+def whisper_state_dict_from_jax(params: Mapping[str, Any], n_audio_ctx: int = 1500) -> dict[str, torch.Tensor]:
+    """``cse_tpu``'s Whisper tree (``random_whisper_params`` /
+    ``whisper_from_state_dict``; numpy leaves, layers stacked on a leading
+    axis) -> the OpenAI-layout ``state_dict`` of ``models/whisper.py::Whisper``
+    (fp32 CPU tensors), for a strict load: ``[din, dout]`` matrices
+    transposed, the HIO convolution kernels to ``[out, in, k]``, ``key`` with
+    no bias, and ``encoder.positional_embedding`` (which the JAX tree does
+    not hold) filled with the sinusoid table both packages compute, for
+    ``n_audio_ctx`` positions."""
+    from cse_tpu_torch.models.whisper import _sinusoids
+
+    sd = {"encoder.conv1.weight": _conv(params["conv1_w"]), "encoder.conv1.bias": _vec(params["conv1_b"]),
+          "encoder.conv2.weight": _conv(params["conv2_w"]), "encoder.conv2.bias": _vec(params["conv2_b"])}
+
+    def ln(p, name):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _vec(p["scale"]), _vec(p["bias"])
+
+    def lin(w, b, name):
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(np.asarray(w, np.float32).T))
+        if b is not None:
+            sd[f"{name}.bias"] = _vec(b)
+
+    def attn(p, name):
+        lin(p["q_w"], p["q_b"], f"{name}.query")
+        lin(p["k_w"], None, f"{name}.key")
+        lin(p["v_w"], p["v_b"], f"{name}.value")
+        lin(p["o_w"], p["o_b"], f"{name}.out")
+
+    def layers(stacked):
+        n = np.asarray(stacked["ln1"]["scale"]).shape[0]
+
+        def pick(node, i):
+            return {k: pick(v, i) for k, v in node.items()} if isinstance(node, Mapping) else np.asarray(node)[i]
+
+        return [pick(stacked, i) for i in range(n)]
+
+    for i, lp in enumerate(layers(params["enc_layers"])):
+        p = f"encoder.blocks.{i}"
+        ln(lp["ln1"], f"{p}.attn_ln")
+        attn(lp["attn"], f"{p}.attn")
+        ln(lp["ln2"], f"{p}.mlp_ln")
+        lin(lp["mlp"]["w1"], lp["mlp"]["b1"], f"{p}.mlp.0")
+        lin(lp["mlp"]["w2"], lp["mlp"]["b2"], f"{p}.mlp.2")
+    ln(params["enc_ln_post"], "encoder.ln_post")
+    for i, lp in enumerate(layers(params["dec_layers"])):
+        p = f"decoder.blocks.{i}"
+        ln(lp["ln1"], f"{p}.attn_ln")
+        attn(lp["attn"], f"{p}.attn")
+        ln(lp["ln2"], f"{p}.cross_attn_ln")
+        attn(lp["cross"], f"{p}.cross_attn")
+        ln(lp["ln3"], f"{p}.mlp_ln")
+        lin(lp["mlp"]["w1"], lp["mlp"]["b1"], f"{p}.mlp.0")
+        lin(lp["mlp"]["w2"], lp["mlp"]["b2"], f"{p}.mlp.2")
+    ln(params["dec_ln"], "decoder.ln")
+    sd["decoder.token_embedding.weight"] = _vec(params["tok_emb"])
+    sd["decoder.positional_embedding"] = _vec(params["pos_emb"])
+    sd["encoder.positional_embedding"] = torch.from_numpy(_sinusoids(n_audio_ctx, np.asarray(params["conv1_w"]).shape[2]))
+    return sd

@@ -1,9 +1,11 @@
 """The port's bench, ``python -m cse_tpu_torch.bench``, on the CPU: ``--smoke``
 prints one JSON line with the root bench's metric name (and its launch report
 on standard error), also with the frozen Llama in the step (``--with_llm``,
-``--ctx_sim``) and for the H-ContExt recipe (``--variant hcontext``); the flags that need unported modules raise, naming their
-ROADMAP item; without ``--smoke`` and without a card it raises and prints
-nothing."""
+``--ctx_sim``) and for the H-ContExt recipe (``--variant hcontext``), and
+the cascaded pipeline's realtime factor (``--cascaded``, also with
+``--cascaded_llm``); ``--mesh_data``, which needs data parallel, raises,
+naming its ROADMAP item; without ``--smoke`` and without a card it raises
+and prints nothing."""
 
 import argparse
 import importlib.util
@@ -50,8 +52,7 @@ def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
     assert (line["vs_baseline"] is None) == args.infer
 
 
-@pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "item 5", id="extra2-item 5"),
-                                        pytest.param(["--cascaded"], "item 8", id="extra3-item 8")])
+@pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "item 5", id="extra2-item 5")])
 def test_unported_flags_raise(extra, item, capsys):
     with pytest.raises(NotImplementedError, match=item):
         bench.main(["--smoke"] + extra)
@@ -86,9 +87,26 @@ def test_smoke_with_llm_prints_one_line(extra, capsys):
     assert bench.parse_args(extra).batch == 8 and bench.parse_args([]).batch == 16
 
 
+@pytest.mark.parametrize("extra", [[], ["--cascaded_llm"]])
+def test_smoke_cascaded_prints_one_line(extra, capsys):
+    """The cascaded pipeline on the CPU (the tiny separator, the stub-width
+    Whisper, the stand-in or a 2-layer Llama scorer): one JSON line with the
+    root bench's metric name; the launch report over the warm mixture and
+    the timed ones (no launch on the CPU)."""
+    got = bench.main(["--smoke", "--cascaded", "--steps", "2"] + extra)
+    captured = capsys.readouterr()
+    lines = captured.out.splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == got
+    root = argparse.Namespace(infer=False, variant="context", cascaded=True, with_llm=False)
+    assert got["metric"] == _root_bench()._metric_name(root) == "cascaded_pipeline_rtf"
+    assert math.isfinite(got["value"]) and got["value"] > 0 and "CPU smoke" in got["unit"]
+    assert ("LM=tiny-smoke-int8" if extra else "LM=host-stub") in got["unit"] and got["vs_baseline"] is None
+    assert json.loads(captured.err.splitlines()[-1]) == {"launches": {}, "calls": 3}
+
+
 def test_without_smoke_and_card_it_raises(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for extra in ([], ["--infer"], ["--with_llm"]):
+    for extra in ([], ["--infer"], ["--with_llm"], ["--cascaded"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.main(extra)
     assert capsys.readouterr().out == ""

@@ -810,3 +810,33 @@ def test_ecapa_and_enrollment_crop_card_match_cpu(gen, monkeypatch, channels):
     assert torch.equal(a.cpu(), b) and torch.equal(a_len.cpu(), b_len)
     s_card, u_card = draw_enrollment(256, gen)
     assert s_card.device.type == "cuda" and 1 <= int(s_card.min()) and int(s_card.max()) <= 5
+
+
+@pytest.mark.parametrize("timestamps", [False, True])
+def test_whisper_card_matches_cpu(gen, monkeypatch, timestamps):
+    """Whisper at the cascade's stub widths (no kernel of the port: cuBLAS,
+    cuDNN and cuFFT) on the card against the CPU on one random checkout, TF32
+    off: the log-mel, the encoder and a decoder step at the fp32 bar; the
+    greedy decode the same tokens and lengths, sum_logprob within 1e-3,
+    no_speech_prob within 1e-5; the detected language the same."""
+    from cse_tpu_torch.models import whisper as tw
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = tw.WhisperConfig(n_audio_state=64, n_audio_head=4, n_audio_layer=2, n_text_state=64, n_text_head=4,
+                           n_text_layer=2)
+    cpu = tw.random_whisper(cfg, seed=3, device="cpu")
+    card = tw.random_whisper(cfg, seed=3, device="cuda")
+    wav = 0.2 * torch.randn(2, 16000 * 20, generator=torch.Generator().manual_seed(8))
+    mel = tw.whisper_log_mel(wav)
+    _close(tw.whisper_log_mel(wav.cuda()), mel, torch.float32)
+    audio = tw.whisper_encode(cpu, mel)
+    _close(tw.whisper_encode(card, mel.cuda()), audio, torch.float32)
+    lang = torch.full((2,), cfg.token_lang_en)
+    got = tw.whisper_decode_audio(card, audio.cuda(), lang, max_tokens=48, timestamps=timestamps)
+    want = tw.whisper_decode_audio(cpu, audio, lang, max_tokens=48, timestamps=timestamps)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].numpy(), atol=1e-5)
+    assert torch.equal(tw.whisper_detect_language_audio(card, audio.cuda())[0].cpu(),
+                       tw.whisper_detect_language_audio(cpu, audio)[0])
