@@ -179,6 +179,29 @@ Phases (any failure exits non-zero and prints no result line):
      s: --synthetic_smoke (stub Whisper, stand-in scorer), and a released
      base .ckpt written here with a tiny Llama checkout's scorer: the
      results file, n, finite metrics, the stages the banner names.
+ 18. data parallel and the Llama's tensor parallelism (core/mesh.py, the
+     sharded train step, --mesh_data, llama_shardings; no kernel of the
+     port, #3 and #4 in the step), each leg in processes of its own
+     (python3 chip_smoke.py --leg NAME DIR) with its own rendezvous on a free
+     localhost port and time limit: (a) one NCCL rank, ContExt bf16 at full
+     width, B=16: three fused steps with make_mesh(1) against three
+     unsharded steps on the same weights and batch under cuDNN's
+     deterministic algorithms (losses and parameters the same bits), #3 /
+     #4 launches a step by formula, the step timed in turns with the
+     unsharded one (four each) beside [7c], the all-reduce alone (CUDA
+     events) and its bytes a step; (b) two gloo ranks
+     sharing the card (NCCL takes one rank a card), fp32 with TF32 off on
+     [7a]'s setup, 8 rows each of one batch of 16, rank 1 built from other
+     weights: three fused steps with the same losses and parameters on both
+     ranks, step 1's reduced gradients against one process's B=16
+     gradients (rel L2 5e-3); (c) python -m torch.distributed.run
+     --nproc_per_node 1 of train_ContExt --mesh_data 1 with [11]'s flags (9
+     updates at full width: validations, checkpoints, no skipped update, the
+     sustained rate beside [11]'s fused run) and of bench --mesh_data 1 (its
+     line beside [14]'s
+     default, the launch report by formula); (d) the tiny Llama on a model
+     axis of 2 (two gloo ranks) in fp32, int8 and w8a8 against the
+     single-rank forward on the card (rtol = atol = 1e-4).
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -1572,6 +1595,13 @@ def phase10_tool(gen, card):
 # ---------------------------------------------------------------- 11. the trainer
 
 
+# [11]'s trainer flags ([18c] runs the same under torch.distributed.run)
+TRAINER_ARGS = ["--synthetic_smoke", "--bf16", "--batch_size", "16", "--max_sp_len", "16", "--flash_attention",
+                "--remat", "layer", "--augmentation", "--noise_add", "--synthetic_seconds", "8", "16",
+                "--synthetic_dialogs", "24", "--log_every", "2", "--eval_step", "4", "--tot_iters", "8",
+                "--workers", "8"]
+
+
 def phase11(card, failures):
     """The trainer entry point at full width, fused and layer by layer."""
     import glob
@@ -1584,9 +1614,7 @@ def phase11(card, failures):
     from cse_tpu_torch.train import checkpoint as ckpt_lib
     from cse_tpu_torch.train.loop import train_net
 
-    base = ["--synthetic_smoke", "--bf16", "--batch_size", "16", "--max_sp_len", "16", "--flash_attention",
-            "--remat", "layer", "--augmentation", "--noise_add", "--synthetic_seconds", "8", "16",
-            "--synthetic_dialogs", "24", "--log_every", "2", "--eval_step", "4", "--tot_iters", "8", "--workers", "8"]
+    base = TRAINER_ARGS
     log(f"[11] trainer: train_net(parse_train_args({' '.join(base)}), 'context'), full width  [{card}]")
     out = {}
     for name, extra in (("fused", []), ("layer_by_layer", ["--no_fused_train"])):
@@ -2929,6 +2957,393 @@ def phase17(card, failures):
     return out
 
 
+# [18]'s bars. (a) one NCCL rank against the unsharded step on the same
+# weights and batch, under cuDNN's deterministic algorithms: a one-rank
+# all-reduce and the division by 1 change no bit, and each gradient's slot in
+# the buffer is aligned as its own tensor would be -> losses and parameters
+# bit-equal. (b) two ranks take the same update from the same reduced
+# gradients -> bit-equal losses and parameters; their reduced fp32 gradients
+# (TF32 off, [7a]'s setup) against one process's B=16 gradients: the mean of
+# two B=8 means against the mean of 16 rows, the same kernels in another
+# summation order -> relative L2 <= TOL_TRAIN_FP32 (5e-3). (d) the TP Llama
+# against the single-rank forward on the card, fp32 (TF32 off):
+# tests/test_llama.py's TP bar, rtol 1e-4 / atol 1e-4 on the unmasked rows.
+TOL_TP = 1e-4
+DP_B = 16  # [18a]'s batch and [18b]'s global batch (8 rows a rank)
+LEG_TIMEOUT = 300  # s, each leg of [18]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(name, argv, n, env=None, timeout=LEG_TIMEOUT) -> list[str]:
+    """``argv`` in ``n`` processes that rendezvous on JAX's variables on a
+    free localhost port; fails the run if one exits non-zero or outlives
+    ``timeout`` (every process is killed then). Returns their outputs."""
+    import os
+
+    base = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{free_port()}", JAX_NUM_PROCESSES=str(n), **(env or {}))
+    procs = [subprocess.Popen(argv, env=dict(base, JAX_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(n)]
+    outs, t0 = [], time.time()
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, timeout - (time.time() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"[{name}] a rank outlived {timeout} s")
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"[{name}] rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def leg_results(name, outs) -> list[dict]:
+    """Each rank's ``LEG {...}`` line."""
+    res = [[json.loads(line[4:]) for line in out.splitlines() if line.startswith("LEG {")] for out in outs]
+    if any(len(r) != 1 for r in res):
+        fail(f"[{name}] a rank printed no result:\n" + "\n---\n".join(o[-3000:] for o in outs))
+    return [r[0] for r in res]
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def leg_18a(work):
+    """One NCCL rank: three fused bf16 steps at full width with a one-rank
+    mesh against three unsharded steps on the same weights and batch; the
+    launches, both steps timed in turns, and the all-reduce alone."""
+    import torch.distributed as dist
+
+    from cse_tpu_torch.core.mesh import distributed_init_if_needed, make_mesh
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+    from cse_tpu_torch.train.step import TrainConfig, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    distributed_init_if_needed()
+    mesh = make_mesh(1)
+    B, T = DP_B, aligned_bucket(128000)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batch = {"mixed": torch.randn(B, T, device="cuda", generator=gen),
+             "gt": torch.randn(B, T, device="cuda", generator=gen),
+             "ctx_feat": torch.randn(B, 1, 4096, device="cuda", generator=gen)}
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+
+    def run(m):
+        model = Sepformer(cfg, generator=torch.Generator().manual_seed(0))
+        step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)),
+                               TrainConfig(variant="context"), fused=True, mesh=m)
+        losses, counts = [], []
+        for _ in range(3):
+            ft.reset_launches()
+            losses.append(step(batch))
+            counts.append(ft.launch_counts())
+        return model, step, losses, counts
+
+    ref_model, ref_step, ref_losses, _ = run(None)
+    model, step, losses, counts = run(mesh)
+    same = losses == ref_losses and all(torch.equal(p, q) for p, q in zip(model.parameters(), ref_model.parameters()))
+    repeats = None
+    if not same:  # does the unsharded step repeat its own bits?
+        again, _, again_losses, _ = run(None)
+        repeats = again_losses == ref_losses and all(
+            torch.equal(p, q) for p, q in zip(again.parameters(), ref_model.parameters()))
+        del again
+    # timed under the default algorithms, as [7c] is, the two steps in turns (U S S U, twice)
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    times = {"sharded": [], "unsharded": []}
+    for name in ["unsharded", "sharded", "sharded", "unsharded"] * 2:
+        fn = step if name == "sharded" else ref_step
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times[name].append(e0.elapsed_time(e1))
+    buf = torch.zeros(step.reduced_bytes // 4, device="cuda")
+    for _ in range(3):
+        dist.all_reduce(buf, group=mesh.data_group)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        dist.all_reduce(buf, group=mesh.data_group)
+    e1.record()
+    torch.cuda.synchronize()
+    print("LEG " + json.dumps({
+        "backend": dist.get_backend(), "world": dist.get_world_size(), "losses": [m["loss"] for m in losses],
+        "ref_losses": [m["loss"] for m in ref_losses], "bit_equal": same, "ref_repeats": repeats,
+        "launches": counts, "step_ms": statistics.median(times["sharded"]),
+        "unsharded_step_ms": statistics.median(times["unsharded"]), "step_times_ms": times,
+        "reduced_bytes": step.reduced_bytes, "all_reduce_ms": e0.elapsed_time(e1) / 20,
+        "peak_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+
+
+def leg_18b(work):
+    """Two gloo ranks sharing the card: three fused fp32 steps, each rank on
+    its half of the batch (rank 1 built from other weights: the broadcast);
+    the losses, a digest of the parameters, and rank 0's reduced gradients of
+    step 1."""
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    import cse_tpu_torch.train.step as step_lib
+    from cse_tpu_torch.core.mesh import distributed_init_if_needed, make_mesh
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.train.optimizer import build_optimizer
+    from cse_tpu_torch.train.schedules import cosine_warmup_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed_init_if_needed(backend="gloo")
+    mesh = make_mesh(2)
+    r = mesh.data_index
+    data = torch.load(os.path.join(work, "batch18b.pt"))
+    B = data["mixed"].shape[0] // 2
+    local = {k: v[r * B:(r + 1) * B].cuda() for k, v in data.items()}
+    model = Sepformer(SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.float32),
+                      generator=torch.Generator().manual_seed(1 + r))
+    names = [k for k, _ in model.named_parameters()]
+    first = []
+    reduce = step_lib.all_reduce_mean
+
+    def recording(*a, **k):
+        out = reduce(*a, **k)
+        if not first:
+            first.append({n: g.detach().cpu() for n, g in zip(names, out[0]) if g is not None})
+        return out
+
+    step_lib.all_reduce_mean = recording
+    step = step_lib.make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 1000, 5)),
+                                    step_lib.TrainConfig(variant="context"), fused=True, mesh=mesh)
+    t0 = time.time()
+    losses = [step(local)["loss"] for _ in range(3)]
+    took = time.time() - t0
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    if r == 0:
+        torch.save(first[0], os.path.join(work, "grads18b.pt"))
+    print("LEG " + json.dumps({"backend": dist.get_backend(), "rank": r, "rows": B, "losses": [v.hex() for v in losses],
+                               "params_sha256": digest.hexdigest(), "seconds": took,
+                               "peak_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+
+
+def leg_18d(work):
+    """Two gloo ranks sharing the card, a model axis of 2: the tiny Llama
+    checkout in fp32, int8 and w8a8, sharded against the single-rank forward
+    on the card (hidden states and logits)."""
+    import os
+
+    import torch.distributed as dist
+
+    from cse_tpu_torch.core.mesh import distributed_init_if_needed, make_mesh
+    from cse_tpu_torch.models import llama as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed_init_if_needed(backend="gloo")
+    mesh = make_mesh(n_data=1, n_model=2)
+    root = os.path.join(work, "llama")
+    ids, mask = torch.load(os.path.join(work, "llama_inputs.pt"))
+    keep = mask.bool()
+    out = {"backend": dist.get_backend(), "rank": mesh.model_index}
+    for form, quant in (("fp32", None), ("int8", "int8"), ("w8a8", "w8a8")):
+        full, cfg = tl.load_llama_params(root, dtype=torch.float32, quant=quant, device="cuda")
+        shard, _ = tl.load_llama_params(root, dtype=torch.float32, quant=quant, device="cuda", mesh=mesh)
+        for kind, logits in (("hidden", False), ("logits", True)):
+            want = tl.llama_forward(full, ids, mask, cfg, return_logits=logits).cpu()[keep]
+            got = tl.llama_forward(shard, ids, mask, cfg, return_logits=logits, mesh=mesh).cpu()[keep]
+            worst = float(((got - want).abs() / (TOL_TP + TOL_TP * want.abs())).max())  # <= 1: within the bar
+            out[f"{form} {kind}"] = {"max_abs_err": float((got - want).abs().max()), "bar_ratio": worst,
+                                     "same_bits": bool(torch.equal(got, want))}
+        if quant == "int8":
+            out["layout"] = {k: {kk: list(v.shape) for kk, v in shard["layers"][k].items()} for k in ("q", "k", "o")}
+    print("LEG " + json.dumps(out), flush=True)
+
+
+LEGS = {"18a": leg_18a, "18b": leg_18b, "18d": leg_18d}
+
+
+def phase18(card, failures, references):
+    """Data parallel and the Llama's tensor parallelism (core/mesh.py, the
+    sharded train step, --mesh_data, llama_shardings): (a) one NCCL rank;
+    (b) two gloo ranks sharing the card; (c) the trainer and the bench under
+    torch.distributed.run; (d) the TP Llama on two gloo ranks. Each leg runs
+    in processes of its own, with its own rendezvous and time limit."""
+    import glob
+    import os
+    import tempfile
+
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.train import checkpoint as ckpt_lib
+    from cse_tpu_torch.train.step import TrainConfig, make_loss_fn
+
+    work = tempfile.mkdtemp(prefix="cse_dp_")
+    leg = [sys.executable, os.path.abspath(__file__), "--leg"]
+    cfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.bfloat16)
+    per_stack = ft.launches_per_train_stack(cfg.num_tf_layers)
+    want = {k: v * 2 * cfg.num_dp_layers for k, v in per_stack.items()}
+    fwd = (per_stack["layer_norm"] // 2 + per_stack["attention"] // 2 + 4 * cfg.num_tf_layers) * 2 * cfg.num_dp_layers
+    out = {}
+
+    # ---- (a) NCCL, one rank, full width
+    T = aligned_bucket(128000)
+    log(f"[18a] make_train_step(fused=True, mesh=make_mesh(1)) on one NCCL rank, ContExt full width, bf16, "
+        f"B={DP_B}, T={T}, 3 steps against the unsharded step (cudnn.deterministic)  [{card}]")
+    t0 = time.time()
+    a = leg_results("18a", run_ranks("18a", leg + ["18a", work], 1,
+                                     env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))[0]
+    ok = (a["backend"] == "nccl" and a["world"] == 1 and a["bit_equal"] and all(c == want for c in a["launches"])
+          and all(math.isfinite(v) for v in a["losses"]))
+    log(f"  backend {a['backend']}, world {a['world']}; losses {a['losses']} (unsharded {a['ref_losses']}); "
+        f"losses and parameters bit-equal: {a['bit_equal']}"
+        + ("" if a["ref_repeats"] is None else f" (the unsharded step repeats its own bits: {a['ref_repeats']})")
+        + f"; launches a step {a['launches'][0]} (want {want}: #3 {fwd}, #4 {sum(want.values()) - fwd})  "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"  step, in turns with the unsharded step (U S S U, twice): median {a['step_ms']:.3f} ms "
+        f"({[round(t, 3) for t in a['step_times_ms']['sharded']]}), {DP_B / (a['step_ms'] / 1e3):.3f} mixtures/s; "
+        f"unsharded {a['unsharded_step_ms']:.3f} ms ({[round(t, 3) for t in a['step_times_ms']['unsharded']]}); "
+        f"[7c] in this run {references['[7c] step ms']:.3f} ms; "
+        f"the all-reduce alone {a['all_reduce_ms']:.4f} ms for {a['reduced_bytes'] / 1e6:.3f} MB a step "
+        f"(one rank: a copy); peak {a['peak_bytes'] / 2**30:.3f} GiB; {time.time() - t0:.1f} s  [{card}]")
+    if not ok:
+        failures.append("[18a]")
+        fail(f"data-parallel checks failed: {failures}")
+    out["nccl_one_rank"] = dict(a, seconds=time.time() - t0, launches_fwd=fwd,
+                                launches_bwd=sum(want.values()) - fwd)
+
+    # ---- (b) gloo, two ranks sharing the card, fp32 ([7a]'s setup)
+    half = DP_B // 2
+    log(f"[18b] two gloo ranks on cuda:0, {half} rows each of the same {DP_B}, fp32 (TF32 off), 3 fused steps; "
+        f"step 1's reduced gradients against one process's B={DP_B} gradients (rel_l2 <= {TOL_TRAIN_FP32:.0e})")
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    fcfg = SepformerConfig(variant="context", num_spks=2, compute_dtype=torch.float32)  # TF32 is off (main)
+    mix = torch.randn(DP_B, T, device="cuda", generator=gen)
+    ctx = torch.randn(DP_B, 1, 4096, device="cuda", generator=gen)
+    model = Sepformer(fcfg, generator=torch.Generator().manual_seed(1)).cuda()
+    est0 = model(mix, ctx)[:, :, 0]
+    gt = est0 + 0.5 * est0.std() * torch.randn(DP_B, T, device="cuda", generator=gen)
+    batch = {"mixed": mix, "gt": gt, "ctx_feat": ctx}
+    torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(work, "batch18b.pt"))
+    with torch.enable_grad():
+        loss, _ = make_loss_fn(model, TrainConfig(variant="context"), fused=True)(batch)
+        loss.backward()
+    ref = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    del model, est0, gt, batch, loss, mix, ctx
+    torch.cuda.empty_cache()
+    b = leg_results("18b", run_ranks("18b", leg + ["18b", work], 2))
+    grads = torch.load(os.path.join(work, "grads18b.pt"))
+    worst = sorted(((rel_l2(ft.qv_part(grads[k]) if k.endswith("in_proj.bias") else grads[k],
+                            ft.qv_part(ref[k]) if k.endswith("in_proj.bias") else ref[k]), k) for k in ref),
+                   reverse=True)
+    ok = (all(x["backend"] == "gloo" for x in b) and b[0]["losses"] == b[1]["losses"]
+          and b[0]["params_sha256"] == b[1]["params_sha256"] and set(grads) == set(ref)
+          and worst[0][0] <= TOL_TRAIN_FP32)
+    log(f"  losses rank 0 {[float.fromhex(v) for v in b[0]['losses']]}, rank 1 "
+        f"{[float.fromhex(v) for v in b[1]['losses']]}: bit-equal {b[0]['losses'] == b[1]['losses']}; parameters "
+        f"after 3 steps bit-equal {b[0]['params_sha256'] == b[1]['params_sha256']}")
+    log(f"  reduced gradients of step 1 against one process's: {len(ref)} tensors, worst rel_l2 "
+        f"{worst[0][0]:.3e} ({worst[0][1]}); 3 steps {b[0]['seconds']:.1f} s; peak a rank "
+        f"{max(x['peak_bytes'] for x in b) / 2**30:.3f} GiB; {time.time() - t0:.1f} s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[18b]")
+        fail(f"data-parallel checks failed: {failures}")
+    out["gloo_two_ranks"] = {"ranks": b, "grad_rel_l2_worst": worst[0][0], "grad_rel_l2_worst_name": worst[0][1],
+                             "seconds": time.time() - t0}
+
+    # ---- (c) the entry points under torch.distributed.run (NCCL)
+    run = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1"]
+    ck = tempfile.mkdtemp(prefix="cse_dp_ckpt_")
+    flags = TRAINER_ARGS + ["--mesh_data", "1", "--checkpoint_dir", ck]
+    log(f"[18c] python -m torch.distributed.run --nproc_per_node 1 -m cse_tpu_torch.train_ContExt {' '.join(flags)}")
+    t0 = time.time()
+    proc = subprocess.run(run + ["--master_port", str(free_port()), "-m", "cse_tpu_torch.train_ContExt"] + flags,
+                          capture_output=True, text=True, timeout=LEG_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    took = time.time() - t0
+    text = proc.stdout + proc.stderr
+    vals = [float(x) for x in re.findall(r"## VALIDATION SI-SNR \(\w+\): (\S+)", text)]
+    rate = re.search(r"sustained end-to-end throughput: (\S+) mixtures/s", text)
+    files = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ck, "Epoch_*.ckpt")))
+    saved = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(ck)) if files else None
+    ok = (proc.returncode == 0 and "Total Iteration Reached" in text and len(vals) == 3
+          and all(math.isfinite(v) for v in vals) and [f[:16] for f in files] == ["Epoch_0000_00004", "Epoch_0000_00008"]
+          and saved is not None and saved["opt_state"]["total_notfinite"] == 0
+          and all(torch.isfinite(v).all() for v in saved["model"].values()) and rate is not None)
+    rate = float(rate.group(1)) if rate else float("nan")
+    log(f"  rc {proc.returncode} in {took:.1f} s; validation SI-SNR {vals}; checkpoints {files}; non-finite updates "
+        f"skipped {None if saved is None else saved['opt_state']['total_notfinite']}; sustained {rate:.3f} mixtures/s "
+        f"([11] fused in this run {references['[11] fused']:.3f})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[18c] trainer")
+        fail(f"data-parallel checks failed: {failures}\n{text[-6000:]}")
+    out["trainer"] = {"seconds": took, "val_sisnr": vals, "checkpoints": files, "sustained_mixtures_per_s": rate}
+    log(f"[18c] python -m torch.distributed.run --nproc_per_node 1 -m cse_tpu_torch.bench --mesh_data 1")
+    t0 = time.time()
+    proc = subprocess.run(run + ["--master_port", str(free_port()), "-m", "cse_tpu_torch.bench", "--mesh_data", "1"],
+                          capture_output=True, text=True, timeout=LEG_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    took = time.time() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    reports = [json.loads(x) for x in proc.stderr.splitlines() if x.startswith('{"launches"')]
+    line = lines[-1] if proc.returncode == 0 and len(lines) == 1 else None
+    report = reports[-1] if reports else None
+    ok = (line is not None and report is not None and line["metric"] == "train_throughput_contextual_extraction"
+          and line["value"] > 0 and f"DP x1 (global batch {DP_B})" in line["unit"]
+          and report["launches"] == {k: v * report["calls"] for k, v in want.items()})
+    log(f"  {line}; [14] default in this run {references['[14] default']:.3f}; launches over "
+        f"{None if report is None else report['calls']} steps {None if report is None else report['launches']}; "
+        f"{took:.1f} s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[18c] bench")
+        fail(f"data-parallel checks failed: {failures}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out["bench"] = dict(line, seconds=took, launches=report["launches"], calls=report["calls"])
+
+    # ---- (d) the Llama's tensor parallelism on two gloo ranks
+    log("[18d] Llama TP over a model axis of 2 (two gloo ranks on cuda:0): vocab 320, hidden 64, 2 layers, 4 / 2 "
+        f"heads, fp32 / int8 / w8a8 against the single-rank forward on the card (rtol = atol = {TOL_TP:.0e})")
+    t0 = time.time()
+    write_llama_dir(os.path.join(work, "llama"), vocab=320, hidden=64, inter=128, layers=2, heads=4, kv_heads=2,
+                    dtype=torch.float32, gen=torch.Generator(device="cuda").manual_seed(184))
+    ids = torch.randint(1, 320, (3, 24), generator=torch.Generator().manual_seed(0))
+    mask = torch.ones(3, 24, dtype=torch.int32)
+    for row, pad in enumerate((0, 7, 23)):
+        ids[row, :pad] = 0
+        mask[row, :pad] = 0
+    torch.save((ids, mask), os.path.join(work, "llama_inputs.pt"))
+    d = leg_results("18d", run_ranks("18d", leg + ["18d", work], 2))
+    forms = [k for k in d[0] if " " in k]
+    ok = all(x["backend"] == "gloo" and all(x[k]["bar_ratio"] <= 1 for k in forms) for x in d)
+    for k in forms:
+        log(f"  {k:<13s} " + "; ".join(f"rank {x['rank']}: max_abs_err {x[k]['max_abs_err']:.3e}, "
+                                        f"same bits {x[k]['same_bits']}" for x in d))
+    log(f"  rank 0's int8 shards {d[0]['layout']}; {time.time() - t0:.1f} s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("[18d]")
+        fail(f"data-parallel checks failed: {failures}")
+    out["llama_tp"] = {"ranks": d, "seconds": time.time() - t0}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -3203,6 +3618,11 @@ def main() -> int:
     t0 = time.time()
     cascaded = phase17(card, failures)
     log(f"  [17] took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    dp = phase18(card, failures, {"[7c] step ms": bench["step_ms"], "[11] fused": trainer["fused"]["sustained_mixtures_per_s"],
+                                  "[14] default": benches["default"]["value"]})
+    log(f"  [18] took {time.time() - t0:.1f} s")
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -3343,7 +3763,7 @@ def main() -> int:
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
                       "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext,
-                      "cascaded": cascaded}),
+                      "cascaded": cascaded, "data_parallel": dp}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3352,4 +3772,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--leg"]:  # one rank of a leg of [18], started by phase18
+        LEGS[sys.argv[2]](sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

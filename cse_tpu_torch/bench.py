@@ -6,6 +6,7 @@
     python -m cse_tpu_torch.bench --with_llm [--llama_quant w8a8] [--ctx_sim]
     python -m cse_tpu_torch.bench --cascaded [--cascaded_llm]
     python -m cse_tpu_torch.bench --smoke [--infer]    # tiny config on the CPU
+    python -m torch.distributed.run --nproc_per_node N -m cse_tpu_torch.bench --mesh_data N
 
 The port's counterpart of the root ``bench.py``, for the flags the port can
 serve. Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}, with
@@ -51,9 +52,16 @@ convolutions in TF32). With ``--smoke``: the tiny separator, Whisper at
 width 64 (2 + 2 layers, the real vocabulary and window), 16 tokens, a
 2-layer Llama.
 
+``--mesh_data N`` runs the train step data-parallel over N processes, one
+per rank (torchrun, or JAX's ``COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
+/ ``JAX_PROCESS_ID``; N must be the world size), exactly the trainers'
+sharded step: the global batch is ``--batch`` x N, each rank takes its
+``--batch`` rows, and the value is mixtures/s per chip (the unit notes
+"DP xN (global batch M)"). Only rank 0 prints. ``--infer`` and
+``--cascaded`` ignore it, as the root bench does.
+
 It runs on the card, and raises without one; only ``--smoke`` selects the
-CPU. ``--mesh_data`` raises ``NotImplementedError``: data parallel is not
-ported yet.
+CPU (gloo under ``--mesh_data``).
 
 vs_baseline: the reference publishes no throughput (BASELINE.md), so the
 denominator is the root bench's documented estimate of the 8xA100 recipe's
@@ -77,14 +85,11 @@ import numpy as np
 import torch
 
 from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.core.mesh import distributed_init_if_needed, make_mesh, process_count, process_index
 from cse_tpu_torch.models import Sepformer, SepformerConfig
 from cse_tpu_torch.ops.buckets import aligned_bucket
 
 REF_MIXTURES_PER_SEC_PER_GPU = 4.0  # documented estimate, see module docstring
-
-UNPORTED = (
-    ("mesh_data", "--mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"),
-)
 
 
 def _metric_name(args) -> str:
@@ -133,7 +138,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--llama_quant", choices=("int8", "w8a8"), default="int8",
                     help="the --with_llm prefill's weights: int8 weight-only (bf16 products) or w8a8 (int8 "
                          "activations too, torch._int_mm)")
-    ap.add_argument("--mesh_data", type=int, default=None, help="not ported yet: raises")
+    ap.add_argument("--mesh_data", type=int, default=None,
+                    help="run the step data-parallel over N processes, one per rank (global batch = --batch x N; "
+                         "reports per-chip throughput); N must be the world size")
     ap.add_argument("--cascaded", action="store_true",
                     help="measure the cascaded pipeline's realtime factor (separate, Whisper, select) instead")
     ap.add_argument("--cascaded_llm", action="store_true",
@@ -146,9 +153,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    for flag, why in UNPORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"cse_tpu_torch.bench: {why}")
     dev = resolve_device("cpu" if args.smoke else None)
     if args.cascaded:
         line = _bench_cascaded(args, dev)
@@ -171,7 +175,8 @@ def main(argv=None) -> dict:
         B, T = args.batch, aligned_bucket(int(args.seconds * args.sr))
     model = Sepformer(cfg, generator=torch.Generator().manual_seed(0))
     line = (_bench_infer if args.infer else _bench_train)(args, cfg, model, B, T, dev)
-    print(json.dumps(line), flush=True)
+    if process_index() == 0:
+        print(json.dumps(line), flush=True)
     return line
 
 
@@ -184,26 +189,41 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     from cse_tpu_torch.train.schedules import cosine_warmup_schedule
     from cse_tpu_torch.train.step import TrainConfig, make_train_step
 
+    mesh, n_chips = None, 1
+    if args.mesh_data:
+        # data parallel over one process per rank, exactly the trainers' sharded step
+        # (train/step.py): each rank holds its --batch rows, the parameters replicated
+        distributed_init_if_needed(device=dev)
+        if args.mesh_data != process_count():
+            raise SystemExit(f"--mesh_data {args.mesh_data} must be the world size, {process_count()} "
+                             "process(es): launch one process per rank (python -m torch.distributed.run "
+                             "--nproc_per_node N)")
+        n_chips = args.mesh_data
+        mesh = make_mesh(n_data=n_chips, device=dev)
+    G = B * n_chips  # the global batch; each rank's share stays --batch
+    rows = slice(None) if mesh is None else slice(mesh.data_index * B, (mesh.data_index + 1) * B)
     rng = np.random.default_rng(0)
-    gt = rng.standard_normal((B, T)).astype(np.float32)
+    gt = rng.standard_normal((G, T)).astype(np.float32)
     batch = {
-        "mixed": 0.7 * gt + 0.3 * rng.standard_normal((B, T)).astype(np.float32),
+        "mixed": 0.7 * gt + 0.3 * rng.standard_normal((G, T)).astype(np.float32),
         "gt": gt,
     }
     if args.variant == "contsep":
         # PIT targets: gt + 1 interferer (the 2-speaker DailyTalk recipe)
-        batch["noises"] = rng.standard_normal((B, T, 1)).astype(np.float32)
-    llm = _llm_setup(args, cfg, B, dev) if args.with_llm else None
-    if llm is None:
-        batch["ctx_feat"] = rng.standard_normal((B, 1, cfg.llm_dim)).astype(np.float32)
+        batch["noises"] = rng.standard_normal((G, T, 1)).astype(np.float32)
+    llm = _llm_setup(args, cfg, G, dev, mesh) if args.with_llm else None
+    if llm is not None:  # this rank's rows of the full-width context for the bare prefill
+        llm["full"] = tuple(t[rows] for t in llm["full"])
+    else:
+        batch["ctx_feat"] = rng.standard_normal((G, 1, cfg.llm_dim)).astype(np.float32)
     if args.variant == "hcontext":
-        batch["gt16k"] = rng.standard_normal((B, 2 * T)).astype(np.float32)  # the 16 kHz source
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        batch["gt16k"] = rng.standard_normal((G, 2 * T)).astype(np.float32)  # the 16 kHz source
+    batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
     gt16k = batch.pop("gt16k", None)
     with_se = _enrollment(args, gt16k, dev) if gt16k is not None else (lambda b: b)
     batches = [batch]
     if llm is not None:
-        batches = [dict(batch, context_ids=ids, context_mask=mask) for ids, mask in llm["contexts"]]
+        batches = [dict(batch, context_ids=ids[rows], context_mask=mask[rows]) for ids, mask in llm["contexts"]]
 
     tcfg = TrainConfig(
         variant=args.variant, num_spks=2,
@@ -213,7 +233,7 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
     )
     llm_kw = dict(llm_apply=llm["apply"], llm_params=llm["params"]) if llm else {}
     step = make_train_step(model, build_optimizer(cosine_warmup_schedule(1.5e-4, 500000, 10000)), tcfg,
-                           fused=not args.smoke, device=dev, **llm_kw)
+                           fused=not args.smoke, device=dev, mesh=mesh, **llm_kw)
     cue_gen = torch.Generator().manual_seed(0)  # hcontext: the step's cue draws
     _reset_launches()
     # with --ctx_sim: one step at each context width first, as the root bench compiles one program per width
@@ -231,14 +251,15 @@ def _bench_train(args, cfg, model, B, T, dev) -> dict:
 
     var_note = {"context": "", "contsep": ", PIT+BCE-selector 2-stream",
                 "hcontext": ", frozen ECAPA on a 1-5 s enrollment crop in-step"}[args.variant]
-    mixtures_per_sec = B * args.steps / dt
+    mixtures_per_sec = G * args.steps / dt / n_chips
     audio_s_per_s = mixtures_per_sec * T / args.sr
     ref_audio_s = REF_MIXTURES_PER_SEC_PER_GPU * 16.0  # per A100, 16 s clips
+    dp_note = "" if mesh is None else ", DP x%d (global batch %d)" % (n_chips, G)
     return {
         "metric": _metric_name(args),
         "value": mixtures_per_sec,
-        "unit": "mixtures/s%s (%.3fs@8kHz, %s, batch %d%s; %.1f audio-s/s%s; %s)"
-                % ("/GPU" if dev.type == "cuda" else "", T / args.sr, _dtype_name(cfg), B, var_note,
+        "unit": "mixtures/s%s (%.3fs@8kHz, %s, batch %d%s%s; %.1f audio-s/s%s; %s)"
+                % ("/GPU" if dev.type == "cuda" else "", T / args.sr, _dtype_name(cfg), B, dp_note, var_note,
                    audio_s_per_s, llm_note, _where(dev)),
         "vs_baseline": audio_s_per_s / ref_audio_s,
     }
@@ -263,12 +284,13 @@ def _enrollment(args, gt16k, dev):
     return with_se
 
 
-def _llm_setup(args, cfg, B, dev) -> dict:
+def _llm_setup(args, cfg, B, dev, mesh=None) -> dict:
     """The frozen Llama of ``--with_llm``: random weights on ``dev`` (the 8B
-    shape; ``--smoke``: 2 tiny layers), its ``apply`` (the last hidden state,
-    fp32, as the ContSep recipe reads it) and the steps' (ids, mask): one
-    full ``--ctx_tokens`` batch (``full``), or with ``--ctx_sim`` one batch a
-    timed step at simulated dialog-history lengths."""
+    shape; ``--smoke``: 2 tiny layers; sharded over ``mesh``'s model axis),
+    its ``apply`` (the last hidden state, fp32, as the ContSep recipe reads
+    it) and the steps' (ids, mask) for ``B`` rows: one full ``--ctx_tokens``
+    batch (``full``), or with ``--ctx_sim`` one batch a timed step at
+    simulated dialog-history lengths."""
     from cse_tpu_torch.models.llama import LlamaConfig, llama_forward, random_llama_params
 
     if args.smoke:
@@ -279,10 +301,10 @@ def _llm_setup(args, cfg, B, dev) -> dict:
     if lcfg.hidden_size != cfg.llm_dim:
         raise ValueError(f"the Llama's width {lcfg.hidden_size} is not the model's llm_dim {cfg.llm_dim}")
     params = random_llama_params(lcfg, dtype=torch.bfloat16, seed=0, quant=args.llama_quant, with_lm_head=False,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
 
     def apply(lp, ids, mask):
-        return llama_forward(lp, ids, mask, lcfg)[:, -1:].float()
+        return llama_forward(lp, ids, mask, lcfg, mesh=mesh)[:, -1:].float()
 
     rng = np.random.default_rng(0)
     full = (torch.from_numpy(rng.integers(0, lcfg.vocab_size, (B, args.ctx_tokens)).astype(np.int32)).to(dev),
@@ -446,6 +468,8 @@ def _report_launches(calls: int):
     from cse_tpu_torch.ops import attention, fused_stack_w8a8, fused_train
 
     counts = {**fused_train.launch_counts(), **fused_stack_w8a8.launch_counts(), **attention.launch_counts()}
+    if process_index() != 0:
+        return
     print(json.dumps({"launches": {k: v for k, v in counts.items() if v}, "calls": calls}),
           file=sys.stderr, flush=True)
 

@@ -150,7 +150,7 @@ def add_tpu_flags(p: argparse.ArgumentParser):
                         "use realistic lengths (e.g. 3 13) when measuring "
                         "host-pipeline cost")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="data-parallel mesh size (not ported yet: raises)")
+                   help="data-parallel mesh size (the world size: one process per rank)")
     p.add_argument("--remat", type=str, default="layer",
                    choices=["none", "block", "layer", "nested"])
     p.add_argument("--flash_attention", default=False, action="store_true")

@@ -289,6 +289,11 @@ class TrainLoader:
         rng.shuffle(idx)
         return idx[self.pi :: self.pc]  # per-host shard (DistributedSampler)
 
+    def num_batches(self, epoch: int) -> int:
+        """How many batches :meth:`batches` yields for ``epoch`` on this shard
+        (the last partial batch is dropped)."""
+        return len(self.epoch_indices(epoch)) // self.B
+
     def _plan(self, i: int, rng: random.Random, out: dict, row: int) -> dict:
         """Draw all per-sample randomness + paths (no audio IO except DEMAND)."""
         cfg = self.cfg

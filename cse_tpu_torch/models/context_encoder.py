@@ -95,13 +95,15 @@ def build_context_encoder(
     force_stub: bool = False,
     quant: str | None = None,
     device=None,
+    mesh=None,
 ):
     """Return the encoder: the Llama encoder when ``llama_path`` holds Llama
     weights (bf16, ``quant`` None, "int8" or "w8a8", on ``device``: the card
-    unless ``device="cpu"``), else the stub."""
+    unless ``device="cpu"``; tensor-parallel over ``mesh``'s model axis,
+    ``models/llama.py::llama_shardings``), else the stub."""
     if not force_stub and llama_weights_available(llama_path):
         from cse_tpu_torch.models.llama import LlamaContextEncoder
 
-        return LlamaContextEncoder(llama_path, ctx_length=ctx_length, quant=quant, device=device)
+        return LlamaContextEncoder(llama_path, ctx_length=ctx_length, quant=quant, device=device, mesh=mesh)
     enc = HashProjectionEncoder(dim=dim, ctx_length=ctx_length)
     return enc if device is None else enc.to(device)

@@ -32,12 +32,24 @@ Llama (``models/llama.py``; ``--llama_int8``, ``--llama_w8a8``) inside the
 step; ``--synthetic_smoke`` forces the stub. ``variant="hcontext"`` embeds a
 random 1-5 s enrollment crop of each batch's 16 kHz source with the frozen
 speaker encoder (``--ecapa_path``, else the stand-in) on the device, when the
-batch is prepared; validation embeds by the eval enrollment rules. Not
-ported yet: ``--mesh_data`` (data parallel) raises ``NotImplementedError``.
+batch is prepared; validation embeds by the eval enrollment rules.
+
+Data parallel (``--mesh_data N``, one process per rank: ``python -m
+torch.distributed.run --nproc_per_node N``, or JAX's ``COORDINATOR_ADDRESS``
+/ ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``): the rendezvous comes first
+(``core/mesh.py``); N must be the world size, and a run of several processes
+without ``--mesh_data`` stops. Each rank loads its own shard of the file
+list, the step all-reduces the gradients (``train/step.py``), and every rank
+runs the same updates. Each epoch runs the smallest batch count of any rank.
+Only rank 0 writes the metric logs, the audio dumps and the checkpoints (a
+barrier follows each checkpoint); every rank validates, and rank 0's
+validation SI-SNR decides the plateau, the best checkpoint and the files'
+names on every rank. A resume restores the same file on every rank.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -48,6 +60,16 @@ from torch.profiler import record_function
 from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
 from cse_tpu_torch.core.banner import announce_assets
 from cse_tpu_torch.core.cli import TAG, TINY_MODEL, corpus_paths, device_of, setup_synthetic
+from cse_tpu_torch.core.mesh import (
+    barrier,
+    distributed_init_if_needed,
+    from_rank0,
+    make_mesh,
+    min_over_ranks,
+    process_count,
+    process_index,
+    shard_batch,
+)
 from cse_tpu_torch.data import datasets as ds
 from cse_tpu_torch.data.pipeline import (
     EvalLoader,
@@ -144,17 +166,26 @@ def train_net(args, variant: str, stats: dict | None = None):
     ``torch.profiler`` and finds ``utils.profiling.device_activity`` of that
     window in ``stats["profile"]``."""
     assert variant in ("base", "contsep", "context", "hcontext")
-    if args.mesh_data:
-        raise NotImplementedError(
-            "cse_tpu_torch: --mesh_data (data parallel) is not ported yet (ROADMAP queue 1, item 5)"
-        )
     dev = device_of(args)
+    # the rendezvous before anything else (the torchrun / idr_torch
+    # replacement, reference train_ContSep.py:114-132)
+    distributed_init_if_needed(device=dev)
     stats = {} if stats is None else stats
     if args.synthetic_smoke:
         args = setup_synthetic(args)
 
     paths = corpus_paths(args)
     tokenizer = load_tokenizer(args.llama_path, args.llama_auth_token)
+    if process_count() > 1 and not args.mesh_data:
+        # without a mesh there is no gradient all-reduce: each process would
+        # silently train its own model on its shard of the data
+        raise SystemExit(f"a run of {process_count()} processes needs --mesh_data {process_count()}")
+    if args.mesh_data and args.mesh_data != process_count():
+        raise SystemExit(f"--mesh_data {args.mesh_data} must be the world size, {process_count()} "
+                         "process(es): launch one process per rank (python -m torch.distributed.run "
+                         "--nproc_per_node N, or COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)")
+    mesh = make_mesh(args.mesh_data, device=dev) if args.mesh_data else None
+    rank0 = process_index() == 0
     llm = None
     if variant != "base":
         llm = build_context_encoder(
@@ -164,6 +195,7 @@ def train_net(args, variant: str, stats: dict | None = None):
             quant=("w8a8" if getattr(args, "llama_w8a8", False)
                    else "int8" if getattr(args, "llama_int8", False) else None),
             device=dev,
+            mesh=mesh,
         )
 
     model, tcfg = build_model(args, variant)
@@ -188,6 +220,8 @@ def train_net(args, variant: str, stats: dict | None = None):
         demand_files=ds.demand_noise_list(paths) if args.noise_add else None,
         seed=args.seed,
         num_workers=args.workers,
+        process_index=process_index(),
+        process_count=process_count(),
         device=dev,
     )
 
@@ -210,8 +244,8 @@ def train_net(args, variant: str, stats: dict | None = None):
           + (" (auto)" if fused_flag is None else " (forced)") + f" on {dev}")
     llm_fn, llm_ps = llm.pure() if llm is not None else (None, None)
     train_step = make_train_step(model, tx, tcfg, fused=fused, device=dev,
-                                 llm_apply=llm_fn, llm_params=llm_ps)
-    eval_step = make_eval_step(model, tcfg, device=dev, llm_apply=llm_fn, llm_params=llm_ps)
+                                 llm_apply=llm_fn, llm_params=llm_ps, mesh=mesh)
+    eval_step = make_eval_step(model, tcfg, device=dev, llm_apply=llm_fn, llm_params=llm_ps, mesh=mesh)
     opt_state = train_step.opt_state
     plateau = ReduceLROnPlateau() if args.plateau else None
     step_num, start_epoch = args.start_step, args.start_epoch
@@ -252,7 +286,7 @@ def train_net(args, variant: str, stats: dict | None = None):
         args.temp_dir = os.path.join(
             "./tmp_eval", os.path.basename(os.path.normpath(args.checkpoint_dir))
         )
-    writer = MetricLogger(args.checkpoint_dir, args.project, enabled=True, config=vars(args))
+    writer = MetricLogger(args.checkpoint_dir, args.project, enabled=rank0, config=vars(args))
     # with a writer on, the loop reads every step's metrics back (a host sync per step)
     stats["metric_writers"] = [n for n, w in (("tensorboard", writer.tb), ("wandb", writer.wandb)) if w is not None]
     print(f"{TAG} metric writers: {', '.join(stats['metric_writers']) or 'none'}")
@@ -287,7 +321,8 @@ def train_net(args, variant: str, stats: dict | None = None):
         )
         sisnrs, prevs, accs = [], [], []
         dumped = 0
-        if args.generate_speech:
+        dump = args.generate_speech and rank0
+        if dump:
             # stale dumps from earlier validations are cleared first
             # (reference train_ContExt.py:579-582)
             import shutil
@@ -310,7 +345,7 @@ def train_net(args, variant: str, stats: dict | None = None):
             if "ctx_label" in aux:
                 accs.append((aux["ctx_pred"] == aux["ctx_label"]).cpu().numpy())
             # val audio dumps (reference train_ContSep.py:681-710)
-            if args.generate_speech and dumped < args.num_gen_speech:
+            if dump and dumped < args.num_gen_speech:
                 lens = batch["sp_len"].cpu().numpy()
                 host = {k: batch[k].float().cpu().numpy() for k in ("gt", "mixed")}
                 host["preds"] = enhanced.float().cpu().numpy()
@@ -323,7 +358,9 @@ def train_net(args, variant: str, stats: dict | None = None):
                     dumped += 1
         model.train()
         loader.close()
-        val = float(np.mean(np.concatenate(sisnrs))) if sisnrs else 0.0
+        # every rank validates; rank 0's value decides (the decoder's cuDNN
+        # conv_transpose1d is not deterministic, so the ranks' last bits differ)
+        val = from_rank0(float(np.mean(np.concatenate(sisnrs))) if sisnrs else 0.0, dev)
         prev = float(np.mean(np.concatenate(prevs))) if prevs else 0.0
         print(f"## VALIDATION SI-SNR ({args.train_data}): {val:.4f} "
               f"(SI-SNR-i {val - prev:+.4f})")
@@ -383,13 +420,18 @@ def train_net(args, variant: str, stats: dict | None = None):
             stats["h2d_bytes"] = train_loader.h2d_bytes
             if variant == "hcontext":
                 # the frozen speaker encoder on a random 1-5 s crop of the 16 kHz
-                # pre-mix source, enqueued behind the synthesis
+                # pre-mix source, enqueued behind the synthesis (the same draws
+                # on every rank, each on its own rows)
                 crop_gen.manual_seed(int(np.random.SeedSequence([args.seed + 1, dispatch_idx]).generate_state(1)[0]))
                 draws = draw_enrollment(b["gt16k"].shape[0], crop_gen)
                 b["se"] = encode_speaker(speaker, *crop_enrollment(b["gt16k"], b["gt16k_len"], *draws))
-            return {k: v for k, v in b.items() if k not in ("gt16k", "gt16k_len", "sp_len")}
+            b = {k: v for k, v in b.items() if k not in ("gt16k", "gt16k_len", "sp_len")}
+            return b if mesh is None else shard_batch(b, mesh)
 
-        host_iter = iter(prefetch(train_loader.batches(epoch)))
+        # every rank stops at the smallest batch count of any rank's shard: a
+        # rank with one batch more would wait in an all-reduce the others never enter
+        n_batches = min_over_ranks(train_loader.num_batches(epoch), dev)
+        host_iter = iter(prefetch(itertools.islice(train_loader.batches(epoch), n_batches)))
         nxt = next(host_iter, None)
         pending = _prepare(nxt) if nxt is not None else None
         i = -1
@@ -435,7 +477,7 @@ def train_net(args, variant: str, stats: dict | None = None):
                     f"######## Step(Epoch): {step_num}({epoch}), "
                     f"Loss: {_read_loss(metrics):.4f} #########"
                 )
-            if args.generate_speech and step_num % args.generate_step == 0:
+            if args.generate_speech and step_num % args.generate_step == 0 and rank0:
                 # train-batch audio dumps (reference train_ContSep.py:515-555)
                 model.eval()
                 enhanced, _ = eval_step(batch)
@@ -469,14 +511,16 @@ def train_net(args, variant: str, stats: dict | None = None):
                     "best_val": best_val,
                     "plateau": (plateau or ReduceLROnPlateau()).state_dict(),
                 }
-                print(f"Saving checkpoint for Epoch: {epoch}")
-                ckpt_lib.save_checkpoint(
-                    args.checkpoint_dir, epoch, step_num, val, state
-                )
-                if val >= best_val:
+                if rank0:
+                    print(f"Saving checkpoint for Epoch: {epoch}")
                     ckpt_lib.save_checkpoint(
-                        args.checkpoint_dir, epoch, step_num, val, state, best=True
+                        args.checkpoint_dir, epoch, step_num, val, state
                     )
+                    if val >= best_val:
+                        ckpt_lib.save_checkpoint(
+                            args.checkpoint_dir, epoch, step_num, val, state, best=True
+                        )
+                barrier()  # the files exist for every rank before any goes on
             if step_num - 1 == args.tot_iters:
                 print("Total Iteration Reached")  # clean stop (vs assert 1==0)
                 stop = True

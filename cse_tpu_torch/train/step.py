@@ -1,9 +1,18 @@
-"""Train and eval steps for every CSE variant.
+"""Train and eval steps for every CSE variant, data-parallel over a mesh.
 
-Port of ``cse_tpu/train/step.py`` on one device. A step runs the separator
-forward (the plain :class:`Sepformer`, or with ``fused=True`` the fused
-forward whose stacks run the training kernels), the loss, the backward, and
-the AdamW-amsgrad chain of :mod:`cse_tpu_torch.train.optimizer`.
+Port of ``cse_tpu/train/step.py``. A step runs the separator forward (the
+plain :class:`Sepformer`, or with ``fused=True`` the fused forward whose
+stacks run the training kernels), the loss, the backward, and the
+AdamW-amsgrad chain of :mod:`cse_tpu_torch.train.optimizer`.
+
+With a ``mesh`` (``core/mesh.py``) each rank runs the step on its own rows
+and one all-reduce over the data group averages the gradients and the
+metrics: the explicit form of the reduction XLA inserts from JAX's sharding
+annotations (and of the reference's DDP backward hook,
+``train_ContSep.py:276-280,396-419``). The mean over a rank's rows averaged
+over equally many rows per rank is JAX's mean over the global batch; the
+step raises when the ranks' row counts differ. Every rank then takes the
+same update from the same reduced gradients.
 
 Loss per variant:
 * contsep:  ctx_weight * selector loss (BCE | CE against the argmax of the
@@ -26,11 +35,19 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.core.mesh import Mesh, broadcast_tensors
 from cse_tpu_torch.ops.losses import ctx_selection_loss, pit_si_snr_loss, si_snr
 from cse_tpu_torch.serving import sepformer_fused_forward
 from cse_tpu_torch.train.optimizer import AdamWAmsgrad, global_norm
+
+_ALIGN = 128  # fp32 elements: a gradient's slot in the all-reduce buffer starts on 512 bytes
+
+
+def _slot(n: int) -> int:
+    return n + (-n) % _ALIGN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,22 +146,80 @@ def _llm_to(llm_params, device):
     return tuple(_llm_to(t, device) for t in llm_params)
 
 
+def all_reduce_mean(params, grads, metrics: dict, rows: int, mesh: Mesh):
+    """Average ``grads`` (None counts as zeros) and the 0-d ``metrics`` over
+    the mesh's data group in one fp32 all-reduce; returns ``(grads,
+    metrics, check)``: the reduced gradients as views of the buffer (None
+    where the local gradient was None), the reduced metrics, and ``check()``,
+    which raises unless every rank held ``rows`` rows.
+
+    Each gradient's slot starts on a 512-byte boundary, as a tensor of its
+    own would, so the reductions that read it (the norm, the clip) take the
+    same vectorised path and give the same bits as on unreduced gradients.
+    The row counts travel in the same buffer and are copied to the host
+    behind the reduction, so ``check`` reads them without waiting once the
+    optimizer has read its finite flag."""
+    names = list(metrics)
+    dev = params[0].device
+    pad = torch.zeros(_ALIGN, dtype=torch.float32, device=dev)
+    parts = []
+    for p, g in zip(params, grads):
+        n = p.numel()
+        parts += [torch.zeros(n, dtype=torch.float32, device=dev) if g is None else g.float().reshape(-1),
+                  pad[:_slot(n) - n]]
+    # rows and rows^2, filled on the device: a copy from the host would wait for the backward
+    row_stats = torch.full((2,), float(rows), device=dev)
+    row_stats[1] = float(rows * rows)
+    flat = torch.cat(parts + [torch.stack([metrics[k].detach().float() for k in names]), row_stats])
+    if mesh.data_group is not None:
+        dist.all_reduce(flat, group=mesh.data_group)
+    if dev.type == "cuda":
+        counts = torch.empty(2, pin_memory=True)
+        counts.copy_(flat[-2:], non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+    else:
+        counts, copied = flat[-2:], None
+    flat = flat[:-2].div_(torch.full((), float(mesh.n_data), device=dev))
+
+    def check():
+        if copied is not None:
+            copied.synchronize()
+        total, squares = counts.tolist()
+        if squares * mesh.n_data != total * total:
+            raise RuntimeError(f"the {mesh.n_data} data ranks hold unequal batches ({rows} rows here, "
+                               f"{total:g} in all): the mean over ranks is not the global batch's")
+
+    *chunks, reduced = flat.split([_slot(p.numel()) for p in params] + [len(names)])
+    grads = [None if g is None else c[:p.numel()].view_as(p) for p, g, c in zip(params, grads, chunks)]
+    return grads, dict(zip(names, reduced.unbind())), check
+
+
 def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: bool = False,
-                    device=None, llm_apply: Callable | None = None, llm_params=None):
+                    device=None, llm_apply: Callable | None = None, llm_params=None, mesh: Mesh | None = None):
     """step(batch, generator=None) -> metrics (floats: the loss terms,
     ``loss`` and the pre-clip ``grad_norm``).
 
-    Moves ``model`` to ``device`` (CUDA unless ``device="cpu"``) and updates
-    its parameters in place; the optimizer state is ``step.opt_state``.
-    ``step.tensors(batch, generator=None)`` is the same step returning the
-    metrics as 0-d tensors on the device, without reading them back: the
-    trainer's loop reads them only at its log boundaries.
-    ``llm_apply`` / ``llm_params``: see :func:`make_loss_fn`."""
-    dev = resolve_device(device)
+    Moves ``model`` to ``device`` (CUDA unless ``device="cpu"``; with a mesh
+    the mesh's device) and updates its parameters in place; the optimizer
+    state is ``step.opt_state``. ``step.tensors(batch, generator=None)`` is
+    the same step returning the metrics as 0-d tensors on the device, without
+    reading them back: the trainer's loop reads them only at its log
+    boundaries. ``llm_apply`` / ``llm_params``: see :func:`make_loss_fn`.
+
+    ``mesh``: the batch is this rank's rows. The parameters are broadcast
+    from data rank 0 once, here; each step all-reduces the gradients and
+    metrics (:func:`all_reduce_mean`), so ``grad_norm``, the clip and the
+    non-finite skip act on the reduced gradients alike on every rank.
+    ``step.reduced_bytes`` is the size of the last step's all-reduce."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
     params = list(model.parameters())
+    if mesh is not None and mesh.data_group is not None:
+        broadcast_tensors(params, mesh.data_group, mesh.data_src)
     opt_state = optimizer.init(params)
     loss_fn = make_loss_fn(model, cfg, llm_apply, fused, _llm_to(llm_params, dev))
+    n_slots = sum(_slot(p.numel()) for p in params)
 
     def tensors(batch, generator=None):
         batch = _to_device(batch, dev)
@@ -154,8 +229,14 @@ def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: boo
         loss.backward()
         grads = [p.grad for p in params]
         metrics["loss"] = loss
+        check = None
+        if mesh is not None:
+            grads, metrics, check = all_reduce_mean(params, grads, metrics, batch["mixed"].shape[0], mesh)
+            step.reduced_bytes = 4 * (n_slots + len(metrics) + 2)
         metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
         optimizer.step(params, grads, opt_state)
+        if check is not None:
+            check()
         return {k: v.detach() for k, v in metrics.items()}
 
     def step(batch, generator=None):
@@ -167,15 +248,19 @@ def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: boo
 
 
 def make_eval_step(model, cfg: TrainConfig, cue: str = "joint", fused: bool = False, device=None,
-                   llm_apply: Callable | None = None, llm_params=None):
+                   llm_apply: Callable | None = None, llm_params=None, mesh: Mesh | None = None):
     """step(batch) -> (enhanced [B, T], aux).
 
     ContSep picks the stream through the selector head (argmax of the
     softmax, or the sign of the BCE logit); base returns the oracle-best
     stream when ``gt`` is given; context variants return stream 0.
-    ``fused=True`` runs the fused serving forward."""
-    dev = resolve_device(device)
+    ``fused=True`` runs the fused serving forward. ``mesh``: the step runs on
+    the mesh's device, on data rank 0's parameters (broadcast once, here);
+    each rank evaluates the batches it is given."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model.to(dev)
+    if mesh is not None and mesh.data_group is not None:
+        broadcast_tensors(list(model.parameters()), mesh.data_group, mesh.data_src)
     llm_params = _llm_to(llm_params, dev)
     cue_idx = {"joint": 0, "history": 1, "voice": 2}[cue]
     if fused:

@@ -3,9 +3,9 @@ prints one JSON line with the root bench's metric name (and its launch report
 on standard error), also with the frozen Llama in the step (``--with_llm``,
 ``--ctx_sim``) and for the H-ContExt recipe (``--variant hcontext``), and
 the cascaded pipeline's realtime factor (``--cascaded``, also with
-``--cascaded_llm``); ``--mesh_data``, which needs data parallel, raises,
-naming its ROADMAP item; without ``--smoke`` and without a card it raises
-and prints nothing."""
+``--cascaded_llm``); ``--mesh_data N`` over N processes (one JSON line,
+from rank 0) and, in one process, the world-size check; without ``--smoke``
+and without a card it raises and prints nothing."""
 
 import argparse
 import importlib.util
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from cse_tpu_torch import bench
+from torch_ranks import launch
 
 torch.set_num_threads(1)
 
@@ -52,11 +53,26 @@ def test_smoke_prints_one_line_with_the_root_metric_name(extra, capsys):
     assert (line["vs_baseline"] is None) == args.infer
 
 
-@pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "item 5", id="extra2-item 5")])
+@pytest.mark.parametrize("extra,item", [pytest.param(["--mesh_data", "2"], "must be the world size, 1 process",
+                                                     id="extra2-item 5")])
 def test_unported_flags_raise(extra, item, capsys):
-    with pytest.raises(NotImplementedError, match=item):
+    # --mesh_data must be the world size: one process cannot hold a data axis of 2
+    with pytest.raises(SystemExit, match=item):
         bench.main(["--smoke"] + extra)
     assert capsys.readouterr().out == ""
+
+
+def test_smoke_mesh_data_over_two_processes():
+    """--mesh_data 2 over two gloo processes: rank 0 prints the one JSON
+    line (mixtures/s per chip, the root bench's DP note with the global
+    batch of 2 x 2) and the launch report; rank 1 prints neither."""
+    outs = launch(["-m", "cse_tpu_torch.bench", "--smoke", "--mesh_data", "2", "--steps", "2", "--warmup", "1"], 2)
+    lines = [[json.loads(x) for x in out.splitlines() if x.startswith("{")] for out in outs]
+    assert len(lines[0]) == 2 and lines[1] == []
+    (line,), (report,) = ([x for x in lines[0] if key in x] for key in ("metric", "launches"))
+    assert line["metric"] == "train_throughput_contextual_extraction" and line["value"] > 0
+    assert "batch 2, DP x2 (global batch 4)" in line["unit"] and "CPU smoke" in line["unit"]
+    assert report == {"launches": {}, "calls": 3}
 
 
 @pytest.mark.parametrize("extra", [["--with_llm"], ["--with_llm", "--ctx_sim"]])

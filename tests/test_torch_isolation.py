@@ -40,6 +40,7 @@ def test_every_module_imports_without_jax_or_cse_tpu():
     ]
     assert not bad, bad
     assert "cse_tpu_torch.serving" in loaded and "torch" in loaded
+    assert "cse_tpu_torch.core.mesh" in loaded  # the data-parallel layer is held to the same rule
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PKG_DIR).as_posix() for p in PKG_DIR.rglob("*.py")))

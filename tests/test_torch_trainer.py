@@ -51,6 +51,7 @@ from cse_tpu_torch.train import checkpoint as ckpt_lib
 from cse_tpu_torch.train.loop import train_net
 from cse_tpu_torch.train.optimizer import build_optimizer
 from cse_tpu_torch.train.schedules import ReduceLROnPlateau
+from torch_ranks import launch, tagged
 
 torch.set_num_threads(1)
 
@@ -89,7 +90,8 @@ def test_train_net_variants(tmp_path, variant, capsys):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # --mesh_data must be the world size: one process cannot hold a data axis of 2
+    with pytest.raises(SystemExit, match="must be the world size, 1 process"):
         train_net(_args(["--checkpoint_dir", tmp_path, "--mesh_data", 2]), variant="context")
     # no --platform: the card, and without one it raises rather than run on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,6 +99,41 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     args.platform = None
     with pytest.raises(RuntimeError, match="CUDA"):
         train_net(args, variant="context")
+
+
+DP_CHILD = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+import cse_tpu_torch.train.loop as loop
+from cse_tpu_torch.core.flags import parse_train_args
+from cse_tpu_torch.train import checkpoint as ckpt_lib
+
+saves, writers = [], []
+save = ckpt_lib.save_checkpoint
+ckpt_lib.save_checkpoint = lambda *a, **k: (saves.append(a[2]), save(*a, **k))[1]
+logger = loop.MetricLogger
+loop.MetricLogger = lambda *a, **k: (writers.append(k["enabled"]), logger(*a, **k))[1]
+stats = {}
+loop.train_net(parse_train_args(sys.argv[1:]), variant="context", stats=stats)
+print("RESULT", json.dumps({"saves": saves, "writers": writers, "final_step": stats["final_step"],
+                            "losses": [float(x).hex() for x in stats["loss_reads"]]}), flush=True)
+"""
+
+
+def test_two_processes_train_with_mesh_data(tmp_path):
+    """--mesh_data 2 over two gloo processes (JAX's rendezvous variables):
+    both ranks exit 0 after the same updates and read the same losses (the
+    reduced metrics); only rank 0 opens the metric logs and writes the
+    checkpoint of step 2."""
+    argv = ["-c", DP_CHILD] + [str(a) for a in BASE] + ["--tot_iters", 2, "--mesh_data", 2,
+                                                        "--checkpoint_dir", tmp_path]
+    res = [t["RESULT"] for t in tagged(launch(argv, 2, timeout=120))]
+    assert [r["writers"] for r in res] == [[True], [False]]
+    assert res[0]["saves"] == [2] and res[1]["saves"] == []
+    assert res[0]["final_step"] == res[1]["final_step"] == 3
+    assert res[0]["losses"] == res[1]["losses"] and res[0]["losses"]
+    assert [p.name[:16] for p in tmp_path.glob("Epoch_*.ckpt")] == ["Epoch_0000_00002"]
 
 
 def test_fused_path_can_be_forced_on_the_cpu(tmp_path, capsys):
