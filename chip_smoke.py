@@ -65,11 +65,15 @@ Phases (any failure exits non-zero and prints no result line):
      registers, local memory and resident blocks per SM (every L <= 256
      instantiation of either must have no local memory);
   9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
-     epilogues and the whole w8a8 stack against their plain versions; (b)
+     epilogues, layer_norm_quant and ffn_w8a8 (the bits of the kernel chains
+     they replace; ffn_w8a8 also against its plain version) and the whole
+     w8a8 stack against their plain versions; (b)
      ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
-     Sepformer: launches, median forward time, realtime factor; (c) kernel
-     times beside the plain versions, torch._int_mm or SDPA, and the bounds,
-     the int8 GEMM's time before its redesign;
+     Sepformer: launches (228 a forward), median forward time, realtime
+     factor; (c) kernel times beside the plain versions, torch._int_mm or
+     SDPA, and the bounds, the int8 GEMM's time before its redesign, and
+     layer_norm_quant and ffn_w8a8 beside the chains they replace, timed in
+     the same run;
  10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
      every mode (bf16 also on the multi-pass route, at L=300; the LayerNorm
      also for the same bits on a repeat) and the whole
@@ -1231,9 +1235,11 @@ def phase9_kernels(gen, failures, H, F_, NL):
 
     D, cd = 256, torch.bfloat16
     log(f"[9a] w8a8 kernels vs plain versions (quantizer bit-exact; int8 GEMM max_rel <= {TOL_W8A8_GEMM:.0e}; "
-        f"1-layer stack rel_l2 <= {TOL_BF16:.0e}; {NL}-layer stack error vs fp32 <= {TOL_W8A8_STACK_RATIO:.2f}x "
-        "plain's + 1e-3)")
-    err = dict.fromkeys(("quantize_rows", "linear_w8a8", "attention[w8a8]", "fused_stack_w8a8"), 0.0)
+        f"layer_norm_quant and ffn_w8a8 the bits of the kernel chains they replace, ffn_w8a8 max_rel <= "
+        f"{TOL_W8A8_GEMM:.0e} against its plain chain; 1-layer stack rel_l2 <= {TOL_BF16:.0e}; {NL}-layer stack "
+        f"error vs fp32 <= {TOL_W8A8_STACK_RATIO:.2f}x plain's + 1e-3)")
+    err = dict.fromkeys(("quantize_rows", "linear_w8a8", "attention[w8a8]", "fused_stack_w8a8", "layer_norm_quant",
+                         "ffn_w8a8"), 0.0)
     shapes = ((D, 3 * D, "bias"), (D, D, "residual"), (D, F_, "relu"), (F_, D, "residual"))
     for name, (G, L) in (("intra", INTRA), ("inter", INTER)):
         M = G * L
@@ -1264,6 +1270,40 @@ def phase9_kernels(gen, failures, H, F_, NL):
                 failures.append(f"linear_w8a8 {name} {epi} K={K}")
             err["linear_w8a8"] = max(err["linear_w8a8"], mx)
             del hq, sa, wq, s, got, want, res
+        x = 3 * torch.randn(M, D, device="cuda", generator=gen) + 0.5
+        x[0] = 2.5  # under the zero bias an all-zero LN row: the 1e-12 floor
+        sc = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        for bias in (0.1 * torch.randn(D, device="cuda", generator=gen), torch.zeros(D, device="cuda")):
+            (q, sa), (cq, csa) = w8.layer_norm_quant(x, sc, bias), w8.quantize_rows(fs.layer_norm(x, sc, bias,
+                                                                                                 torch.float32))
+            pq, psa = w8.layer_norm_quant_plain(x, sc, bias)
+            diff = int((q != cq).sum()) + int((sa != csa).sum())
+            flips = int((q != pq).sum())
+            err["layer_norm_quant"] = max(err["layer_norm_quant"], float((q.int() - pq.int()).abs().max()))
+            log(f"  layer_norm_quant {name} [{M},{D}]: {diff} elements differ from layer_norm (fp32) + quantize_rows; "
+                f"{flips} int8 flips against the plain version  {'ok' if diff == 0 else 'FAIL'}")
+            if diff:
+                failures.append(f"layer_norm_quant {name}")
+        del x, q, sa, cq, csa, pq, psa
+        hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
+        (w1, s1), (w2, s2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
+                              for k, n in ((D, F_), (F_, D)))
+        w1, w2, s1, s2 = fs.k_major(w1)[0], fs.k_major(w2)[0], s1[0], s2[0]  # as stack_weights keeps them
+        b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (F_, D))
+        res = torch.randn(M, D, device="cuda", generator=gen)
+        got = w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, res.clone())
+        fq, fsa = w8.quantize_rows(w8.linear_w8a8(hq, sa, w1, s1, b1, "relu"))
+        diff = int((got != w8.linear_w8a8(fq, fsa, w2, s2, b2, "residual", res.clone())).sum())
+        del fq, fsa
+        mx, rmax, _ = errs(got, w8.ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, res))
+        ok = diff == 0 and rmax <= TOL_W8A8_GEMM
+        log(f"  ffn_w8a8 {name} [{M},{D}]x[{D},{F_}]x[{F_},{D}]: {diff} elements differ from linear_w8a8 + "
+            f"quantize_rows + linear_w8a8; vs plain max_abs {mx:.3e} max_rel {rmax:.3e}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"ffn_w8a8 {name}")
+        err["ffn_w8a8"] = max(err["ffn_w8a8"], mx)
+        del hq, sa, w1, w2, got, res
+        torch.cuda.empty_cache()
         qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
         err["attention[w8a8]"] = max(err["attention[w8a8]"], check(
             f"attention bf16 operands, fp32 out {name}", fs.attention(qkv, L, H, torch.float32, operand_dtype=cd),
@@ -1360,7 +1400,34 @@ def phase9_times(gen, card, H, F_, NL):
                                      plain_ms=time_ms(lambda: fs.layer_norm_plain(h, s1, b1, torch.float32)),
                                      library_ms=time_ms(lambda: F.layer_norm(h, (D,), s1, b1, 1e-6)),
                                      **bound_of(M * D * 8 + 2 * D * 4, 0))
+        # 2e, beside the two launches it replaces at each LN site (2d then 2a), timed in this run
+        t["layer_norm_quant"] = dict(
+            ms=time_ms(lambda: w8.layer_norm_quant(h, s1, b1)),
+            plain_ms=time_ms(lambda: w8.layer_norm_quant_plain(h, s1, b1), reps=3), library_ms=None,
+            before_ms=time_ms(lambda: w8.quantize_rows(fs.layer_norm(h, s1, b1, torch.float32))),
+            launch=w8.kernel_info("layer_norm_quant"), **bound_of(M * D * 5 + M * 4 + 2 * D * 4, 0))
         del h
+        # 2f, beside the three launches it replaces (FFN1 relu, the [M, 1024] quantizer, FFN2), timed in this run
+        hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
+        (w1, sw1), (w2, sw2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
+                                for k, n in ((D, F_), (F_, D)))
+        ffn = (hq, sa, fs.k_major(w1)[0], sw1[0], torch.zeros(F_, device="cuda"), fs.k_major(w2)[0], sw2[0],
+               torch.zeros(D, device="cuda"), torch.zeros(M, D, device="cuda"))
+
+        def chain():
+            fq, fsa = w8.quantize_rows(w8.linear_w8a8(*ffn[:5], "relu"))
+            w8.linear_w8a8(fq, fsa, *ffn[5:8], "residual", ffn[8])
+        t["ffn_w8a8"] = dict(ms=time_ms(lambda: w8.ffn_w8a8(*ffn)), plain_ms=time_ms(lambda: w8.ffn_w8a8_plain(*ffn), reps=3),
+                             library_ms=None, before_ms=time_ms(chain), launch=w8.kernel_info("ffn_w8a8"),
+                             **bound_of(M * (D + 4 + 8 * D) + 2 * D * F_ + 4 * (2 * F_ + 2 * D), 4 * M * D * F_,
+                                        PEAK_INT8))
+        log(f"  {name} layer_norm_quant {t['layer_norm_quant']['ms']:.4f} ms (before: layer_norm + quantize_rows "
+            f"{t['layer_norm_quant']['before_ms']:.4f} ms); ffn_w8a8 {t['ffn_w8a8']['ms']:.4f} ms (before: "
+            f"linear_w8a8 + quantize_rows + linear_w8a8 {t['ffn_w8a8']['before_ms']:.4f} ms), this run  [{card}]")
+        for k in ("layer_norm_quant", "ffn_w8a8"):
+            log(f"  {name} {k} launch: {t[k]['launch']['registers']} registers and {t[k]['launch']['local_bytes']} B "
+                f"local memory a thread, {t[k]['launch']['blocks_per_sm']} blocks per SM")
+        del hq, sa, w1, w2, ffn
         ops_, lib_ = [], []
         for K, N, epi in shapes:
             hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
@@ -1370,15 +1437,17 @@ def phase9_times(gen, card, H, F_, NL):
             ops_.append((hq, sa, wq[0], s[0], torch.zeros(N, device="cuda"), epi, res))
             lib_.append((hq, wq[0]))
         gemm_ops = sum(2 * M * K * N for K, N, _ in shapes)
-        gemm_bytes = sum(M * K + K * N + M * 4 + 2 * N * 4 + M * N * (8 if e == "residual" else 4)
-                         for K, N, e in shapes)
-        t["linear_w8a8"] = dict(ms=sum(time_ms(lambda o=o: w8.linear_w8a8(*o)) for o in ops_),
-                                plain_ms=time_ms(lambda: [w8.linear_w8a8_plain(*o) for o in ops_], reps=3),
-                                library_ms=time_ms(lambda: [torch._int_mm(a, b) for a, b in lib_]),
-                                **bound_of(gemm_bytes, gemm_ops, PEAK_INT8))
+        gemm_bytes = [M * K + K * N + M * 4 + 2 * N * 4 + M * N * (8 if e == "residual" else 4) for K, N, e in shapes]
+        each = [time_ms(lambda o=o: w8.linear_w8a8(*o)) for o in ops_]
+        # the main path runs the first two (QKV, out-proj); FFN1 and FFN2 are ffn_w8a8's now
+        t["linear_w8a8"] = dict(ms=sum(each[:2]), four_gemms_ms=sum(each),
+                                plain_ms=time_ms(lambda: [w8.linear_w8a8_plain(*o) for o in ops_[:2]], reps=3),
+                                library_ms=time_ms(lambda: [torch._int_mm(a, b) for a, b in lib_[:2]]),
+                                **bound_of(sum(gemm_bytes[:2]), sum(2 * M * K * N for K, N, _ in shapes[:2]),
+                                           PEAK_INT8))
         del ops_, lib_
-        log(f"  {name} linear_w8a8, one layer's 4 GEMMs: {t['linear_w8a8']['ms']:.4f} ms; before the redesign "
-            f"{LINEAR_W8A8_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
+        log(f"  {name} linear_w8a8: QKV + out-proj {t['linear_w8a8']['ms']:.4f} ms; the 4 shapes {sum(each):.4f} ms, "
+            f"before the redesign {LINEAR_W8A8_EARLIER_MS[name]} ms (PERF.md, NVIDIA H100 80GB HBM3, 700 W)")
         qkv = torch.randn(M, 3 * D, device="cuda", generator=gen)
         q, k, v = (x.to(cd) for x in qkv.reshape(G, L, 3, H, hd).permute(2, 0, 3, 1, 4))
         att_flops = 4 * G * H * L * L * hd
@@ -3375,13 +3444,14 @@ def main() -> int:
     print(report.getvalue(), flush=True)
     _build.library()
     log(f"[2] kernels built in {time.time() - t0:.1f} s -> {_build.library_path().name}")
-    for kname in ("linear_bf16_kernel", "wgrad_bf16_kernel", "linear_w8a8_kernel"):
+    for kname in ("linear_bf16_kernel", "wgrad_bf16_kernel", "linear_w8a8_kernel", "ffn_w8a8_kernel"):
         gemm = ptxas_of(report.getvalue(), kname)
         log(f"  {kname} (wgmma + TMA), ptxas: {gemm}")
         if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
             fail(f"{kname} spills, is serialised or is missing from the ptxas report: {gemm}")
 
-    ln_ptxas = {k: ptxas_of(report.getvalue(), k) for k in ("layer_norm_bwd", "kp_ln_staged_kernel")}
+    ln_ptxas = {k: ptxas_of(report.getvalue(), k) for k in ("layer_norm_bwd", "kp_ln_staged_kernel",
+                                                            "layer_norm_quant_kernel")}
     for kname, inst in ln_ptxas.items():
         log(f"  {kname}, ptxas by instantiation: {inst}")
         if not inst or any(g["spill_bytes"] for g in inst.values()):
@@ -3684,25 +3754,40 @@ def main() -> int:
          flash_bench["launches"], flash_err,
          "dq, dk, dv; one call; launches per bf16 train step; library_ms: PyTorch's flash backward alone"),
         ("quantize_rows", SOURCE_W8A8, REPLACES_W8A8, "quantize_rows_kernel", wtimes, w8_serve["launches"], w8_err,
-         "fp32 [M, 256] -> int8 + row scales (_qdot :115-123); one launch; launches per w8a8 forward"),
+         "fp32 [M, 256] -> int8 + row scales (_qdot :115-123), the attention output's; one launch; launches per "
+         "w8a8 forward"),
         ("linear_w8a8", SOURCE_W8A8, REPLACES_W8A8, W8A8_SYMBOL, wtimes, w8_serve["launches"], w8_err,
-         "the four int8 projections (:149-154), one layer's 4 launches; launches per w8a8 forward"),
+         "the QKV and out-proj int8 projections (:149-151), one layer's 2 launches (all four shapes in "
+         "'four_gemms_ms'); launches per w8a8 forward"),
+        ("layer_norm_quant", SOURCE_W8A8, REPLACES_W8A8, "layer_norm_quant_kernel (persistent, a warp a row)", wtimes,
+         w8_serve["launches"], w8_err,
+         "_ln (:148, :152) and _qdot's row quantizer (:122-123) in one pass, fp32 [M, 256] -> int8 + row scales; "
+         "one launch; 'before_ms': layer_norm (fp32) + quantize_rows in this run; launches per w8a8 forward"),
+        ("ffn_w8a8", SOURCE_W8A8, REPLACES_W8A8,
+         "ffn_w8a8_kernel (wgmma s8 + TMA, persistent, warp-specialised; the int8 hidden in shared memory)", wtimes,
+         w8_serve["launches"], w8_err,
+         "FFN1, ReLU, the hidden's quantizer and FFN2 into the residual (:153-154); one launch; 'before_ms': "
+         "linear_w8a8 (relu) + quantize_rows [M, 1024] + linear_w8a8 (residual) in this run; launches per w8a8 "
+         "forward"),
         ("attention[w8a8]", SOURCE, REPLACES_W8A8, ATTENTION_SYMBOL.format("float", "float"), wtimes,
          {"attention[w8a8]": w8_serve["launches"]["attention"]}, w8_err,
          "_attention (:150) with bf16 operands and an fp32 output; one launch; launches per w8a8 forward"),
         ("layer_norm[w8a8]", SOURCE, REPLACES_W8A8, "layer_norm_kernel<float>", wtimes,
          {"layer_norm[w8a8]": w8_serve["launches"]["layer_norm"]}, {"layer_norm[w8a8]": max_err["layer_norm"]},
-         "_ln (:148-155) with an fp32 output; one launch; launches per w8a8 forward"),
+         "_ln (:148-155) with an fp32 output, one launch; launches per w8a8 forward: the final LN of each stack "
+         "(:156, bf16 out), the layers' LNs being layer_norm_quant"),
     )
     for name, source, replaces, symbol, tset, counts, errset, part in slice3:
         ti, tn = tset["intra"][name], tset["inter"][name]
+        extra = ("before_ms", "four_gemms_ms", "launch")  # 2e and 2f's chains, the 4 int8 shapes, the kernel's launch
         kernels.append({
             "name": name, "route": "cuda", "source": source, "symbol": symbol, "replaces": replaces,
             "launches": counts[name], "max_abs_err": errset[name],
             "ms": ti["ms"], "plain_ms": ti["plain_ms"], "bound_ms": ti["bound_ms"],
             "bound_by": ti["bound_by"], "library_ms": ti["library_ms"],
             "work": f"intra G={INTRA[0]} L={INTRA[1]} bf16, {part}",
-            "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: ti[k] for k in extra if k in ti},
+            "inter": {k: tn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", *extra) if k in tn},
         })
     # the kernel-parts tool (launches of the tool's own run, [10b])
     tool_parts = (

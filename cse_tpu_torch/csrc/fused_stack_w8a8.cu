@@ -3,16 +3,18 @@
 // layer run int8 x int8 -> int32 with a per-output-channel weight scale s
 // (fused_stack.py::quantize_stacked, :159) and a dynamic scale per activation
 // row. The host wrapper is cse_tpu_torch/ops/fused_stack_w8a8.py; the stack's
-// LayerNorm (fp32 out) and attention (bf16 operands, fp32 out) are the
-// serving kernels of fused_stack.cu.
+// attention (bf16 operands, fp32 out) and final LayerNorm are the serving
+// kernels of fused_stack.cu. The TPU kernel quantizes each fp32 row in VMEM
+// right where _qdot needs it (:149-154); here the two LayerNorms of a layer
+// write int8 themselves (c) and the whole FFN is one kernel (d), so of a
+// layer's fp32 rows only the attention output goes through device memory to
+// be quantized (a).
 //
 //   (a) quantize_rows_kernel: one warp per fp32 row of K <= 1024 values:
 //       sa = max(max |h|, 1e-12) / 127, q = round-half-even(h / sa) with a
 //       true division (__fdiv_rn, never __fdividef), written as int8, and sa.
 //       Bit-exact against the plain version. Bound by bytes (reads 4 B,
-//       writes 1 B per element). A separate pass rather than a LayerNorm
-//       epilogue: the attention and FFN1 outputs need the same pass, and it
-//       keeps the LN kernel shared with the other paths.
+//       writes 1 B per element). The attention output's quantizer.
 //   (b) linear_w8a8_kernel: C = A[M, K] . W[K, N] with A int8 row-major and W
 //       read K-major (Wt [N, K], each output channel's K bytes contiguous:
 //       the layout ops/fused_stack.py::stack_weights keeps, so no call
@@ -20,11 +22,23 @@
 //       with TMA loads and stores, persistent and warp-specialised as
 //       fused_stack.cu's bf16 GEMM (its design below). Integer accumulation
 //       is exact. The epilogue forms y = float(acc) * sa[row] * s[col] in
-//       that order in fp32, then y + b (QKV, fp32 out), relu(y + b) (FFN1,
-//       fp32 out: it is quantized again) or (r + y) + b into the fp32
-//       residual r (out-proj, FFN2), the association JAX writes. At M ~ 5e5
-//       rows, K, N <= 1024 the fp32 output and residual traffic outweighs the
-//       1,979 TOP/s of int8 work: bound by bytes.
+//       that order in fp32, then y + b (QKV, fp32 out), relu(y + b) (fp32
+//       out) or (r + y) + b into the fp32 residual r (out-proj), the
+//       association JAX writes. At M ~ 5e5 rows, K, N <= 1024 the fp32
+//       output and residual traffic outweighs the 1,979 TOP/s of int8 work:
+//       bound by bytes.
+//   (c) layer_norm_quant_kernel: LN (fused_stack.cu's layer_norm_kernel<float>
+//       arithmetic, summation order included) and (a)'s quantizer in one
+//       pass over D = 256 fp32 rows, the normalised row kept in registers:
+//       1284 bytes a row instead of 3332 for LN (fp32 out) then (a). Bound
+//       by bytes; its design below.
+//   (d) ffn_w8a8_kernel: r = (r + qdot(relu(qdot(hq, W1) + b1), W2)) + b2
+//       in place, D = 256, F = 1024, the [M, 1024] hidden never in device
+//       memory: the FFN1 tiles are computed twice (the row max first, then
+//       the int8 payload into shared memory, FFN2's A operand). (b)'s
+//       epilogues and (a)'s quantizer, step for step: the same bits as the
+//       three launches it replaces. Bound by bytes (2308 a row) against
+//       1.5x the int8 work; its design below.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -285,6 +299,444 @@ cudaError_t launch_linear_w8a8(const int8_t* a, const float* sa, const int8_t* w
   return cudaGetLastError();
 }
 
+// float(acc) for |acc| <= 2^22 (an int8 product over K <= 256) without a
+// conversion instruction (those issue at a quarter of the FP32 rate): the
+// integer added into the mantissa of 1.5 x 2^23, then 1.5 x 2^23 taken away,
+// both exact.
+constexpr float MAGIC = 12582912.0f;  // 1.5 x 2^23: its ulp is 1
+constexpr int MAGIC_BITS = 0x4B400000;
+__device__ __forceinline__ float small_int_to_float(int acc) {
+  return __fsub_rn(__int_as_float(MAGIC_BITS + acc), MAGIC);
+}
+// no memory access moves across it: bounds how many loads the compiler hoists (and so the registers they hold)
+__device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
+// (b)'s EPI_RELU on one accumulator, each step rounded on its own:
+// relu(float(acc) * ar * s + b), float(acc) by small_int_to_float; lin_epi
+// without the ReLU
+__device__ __forceinline__ float lin_epi(int acc, float ar, float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(small_int_to_float(acc), ar), s), b);
+}
+__device__ __forceinline__ float relu_epi(int acc, float ar, float s, float b) {
+  return fmaxf(lin_epi(acc, ar, s, b), 0.f);
+}
+// round-half-even(y / s) for |y / s| <= 128 as (a) computes it, rint of the
+// correctly rounded quotient (__fdiv_rn), without the division: t = y * rc
+// (rc = 1 / s rounded) is y / s within 2^-23 |t|, and the correctly rounded
+// quotient within 2^-24 |t| more, so rint(t) (t + 1.5 x 2^23 rounds it, half
+// to even) is (a)'s integer unless t lies within 1.8e-7 |t| of a
+// half-integer: then `near` is set, and the caller takes the division
+// (quant_int; ffn_w8a8_kernel's rare second loop).
+__device__ __forceinline__ int quant_fast(float y, float rc, bool& near) {
+  const float t = __fmul_rn(y, rc), big = __fadd_rn(t, MAGIC);
+  near |= fabsf(fabsf(__fsub_rn(t, __fsub_rn(big, MAGIC))) - 0.5f) <= 2.5e-7f * fabsf(t);
+  return __float_as_int(big) - MAGIC_BITS;
+}
+__device__ __forceinline__ int quant_int(float y, float s, float rc) {
+  bool near = false;
+  const int q = quant_fast(y, rc, near);
+  return near ? __float2int_rn(__fdiv_rn(y, s)) : q;
+}
+
+// ---------------------------------------------------------------- (c) LN -> int8
+// One warp per row of D = 256 fp32 values, 8 a lane, in a persistent grid
+// (SMs x the blocks the occupancy query fits; rows dealt to the warps in
+// turn). A row comes in by two 16-byte streamed loads a lane, the warp's
+// next row issued before this one is reduced; a 1 KB stage per warp in
+// shared memory turns them into the lane-strided order of
+// layer_norm_kernel<float> (lane l holds elements l, l + 32, ...), whose sums
+// and roundings this repeats expression for expression, so the LN values
+// equal its fp32 output bit for bit. (a)'s quantizer runs on those values in
+// registers (quant_int: (a)'s integers); the int8 row goes back through the
+// stage and out as 8 bytes a lane.
+namespace lnq {
+constexpr int D = 256, V = D / 32, WARPS = 8, THREADS = WARPS * 32;
+}
+
+__global__ void __launch_bounds__(lnq::THREADS)
+layer_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+                        int8_t* __restrict__ q, float* __restrict__ sa, long long M, float eps) {
+  using namespace lnq;
+  __shared__ __align__(16) float stage[WARPS][D];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* st = stage[w];
+  float gv[V], bv[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    gv[j] = g[lane + 32 * j];
+    bv[j] = b[lane + 32 * j];
+  }
+  const long long step = (long long)gridDim.x * WARPS;
+  long long row = (long long)blockIdx.x * WARPS + w;
+  float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+  if (row < M) {
+    const float4* xr = reinterpret_cast<const float4*>(x + row * D);
+    a0 = __ldcs(xr + lane);
+    a1 = __ldcs(xr + 32 + lane);
+  }
+  for (; row < M; row += step) {
+    reinterpret_cast<float4*>(st)[lane] = a0;
+    reinterpret_cast<float4*>(st)[32 + lane] = a1;
+    __syncwarp();
+    if (row + step < M) {  // the warp's next row, in flight while this one is reduced
+      const float4* xr = reinterpret_cast<const float4*>(x + (row + step) * D);
+      a0 = __ldcs(xr + lane);
+      a1 = __ldcs(xr + 32 + lane);
+    }
+    float v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = st[lane + 32 * j];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) s += v[j];
+    const float mean = warp_sum(s) / D;
+    float var = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = v[j] - mean;
+      var += d * d;
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(var) / D + eps);
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      v[j] = (v[j] - mean) * rstd * gv[j] + bv[j];
+      m = fmaxf(m, fabsf(v[j]));
+    }
+    const float sc = __fdiv_rn(fmaxf(warp_max(m), 1e-12f), 127.0f), rc = __frcp_rn(sc);
+    __syncwarp();  // every lane has read its values out of the stage
+    int8_t* sq = reinterpret_cast<int8_t*>(st);
+#pragma unroll
+    for (int j = 0; j < V; ++j) sq[lane + 32 * j] = (int8_t)quant_int(v[j], sc, rc);
+    __syncwarp();
+    reinterpret_cast<uint2*>(q + row * D)[lane] = reinterpret_cast<const uint2*>(sq)[lane];
+    if (lane == 0) sa[row] = sc;
+    __syncwarp();  // the stage is read out before the next row overwrites it
+  }
+}
+
+cudaError_t launch_layer_norm_quant(const float* x, const float* g, const float* b, int8_t* q, float* sa, long long M,
+                                    float eps, cudaStream_t st) {
+  static int per_sm = 0;
+  if (!per_sm) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer_norm_quant_kernel, lnq::THREADS, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  const long long rows_blocks = (M + lnq::WARPS - 1) / lnq::WARPS, fit = (long long)sm_count() * per_sm;
+  const long long blocks = rows_blocks < fit ? rows_blocks : fit;
+  layer_norm_quant_kernel<<<(unsigned)blocks, lnq::THREADS, 0, st>>>(x, g, b, q, sa, M, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- (d) the int8 FFN
+// FFN1, its ReLU, the hidden's row quantizer and FFN2 with the residual in
+// one kernel, at the model's widths (D = 256, F = 1024). A work unit is a
+// panel of 128 rows; consumer warpgroup c owns rows 64 c .. 64 c + 63 of
+// it, so each row's max is reduced inside one warp (the quad that holds the
+// row). Persistent: one block of 384 threads per SM walks the panels
+// (blockIdx.x, + gridDim.x, ...).
+//   - warp 0 loads by TMA: the panel's hq (128 x 256 int8, 32 KB) once into
+//     shared memory, where both FFN1 passes read it; W1's and W2's K-major
+//     16 KB chunks (128 output channels x 128 k) from L2 through a three-slot
+//     ring, in the consumers' order: per panel 2 x 8 FFN1 tiles of 2 chunks,
+//     then FFN2's two 128-column halves in 8 k-chunks each, each block
+//     starting at its own tile and k-chunk (blockIdx.x % 8), so that the
+//     SMs spread their reads over W rather than all asking L2 for one
+//     chunk at once. The next panel's hq is
+//     loaded as soon as pass 2 has freed the buffer, while this panel's
+//     FFN2 runs, and its residual rows are prefetched into L2
+//     (cp.async.bulk.prefetch) at the same time;
+//   - pass 1 (tiles 0-7): wgmma m64n128k32 s8 over K = 256, then the
+//     epilogue in registers: y = relu(float(acc) * sa * s1 + b1), rounded
+//     step by step as (b)'s EPI_RELU (float(acc) by small_int_to_float: the
+//     epilogues, not the products, bound the kernel, and the conversion
+//     instructions issue at a quarter rate), and each row's running max |y|;
+//     nothing is stored. Then sa2 = max(rowmax, 1e-12) / 127, as (a) takes
+//     it;
+//   - pass 2 (tiles 8-15): the same tiles again (integer sums are exact, so
+//     y repeats pass 1's), each y rounded to int8 as (a) rounds it (a true
+//     division only near a rounding tie: quant_int), and stored into the
+//     warpgroup's 64 x 1024 int8 buffer in shared memory, K-major with TMA's
+//     128-byte swizzle: FFN2's A operand;
+//   - FFN2: wgmma m64n128k32 s8 over K = 1024, one 128-column half at a
+//     time (64 accumulator registers), then r = (r + float(acc) * sa2 * s2) + b2
+//     as (b)'s EPI_RESIDUAL, read and written from registers in 32-byte runs
+//     of each row (the rows were prefetched into L2);
+//   - setmaxnreg hands the producer warpgroup's registers to the consumers.
+//   - s1, b1, s2 and b2 are copied into shared memory once: read from L1 or
+//     L2 at each use, their latency bound the epilogues (L1 is what the
+//     227 KB of shared memory leave of the SM's 256 KB).
+// Shared memory: hq 32 KB + hidden 128 KB + ring 48 KB + vectors 10 KB; one
+// block per SM.
+// The recomputed FFN1 costs 1.5x the int8 work of the two products; the
+// 2308 bytes a row (hq and sa read, r read and written) bound it on an H100.
+namespace ffn {
+constexpr int D = 256, F = 1024;
+constexpr int BM = 128;                           // rows a unit
+constexpr int CHUNK = 128 * 128;                  // 16 KB: 128 rows (or output channels) x 128 k
+constexpr int HALF = 64 * 128;                    // 8 KB: a warpgroup's 64 rows of a chunk
+constexpr int KCH = F / 128;                      // FFN1 column tiles = FFN2 k-chunks
+constexpr int W_SLOTS = 3;
+constexpr int TILES = 2 * KCH;                    // FFN1 tiles a unit: two passes
+constexpr int FILLS = 2 * TILES + 2 * KCH;        // W chunks a unit
+constexpr int VEC = 2 * F + 2 * D;                // s1, b1, s2, b2 (fp32)
+// shared memory: hq (2 chunks) | hidden (2 warpgroups x KCH halves) | W slots | s1 b1 s2 b2 | barriers
+constexpr int OFF_A2 = 2 * CHUNK, OFF_W = OFF_A2 + 2 * KCH * HALF, OFF_VEC = OFF_W + W_SLOTS * CHUNK;
+constexpr int OFF_BAR = OFF_VEC + VEC * 4;
+constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (2 + 2 * W_SLOTS);
+bool smem_ready = false;
+}  // namespace ffn
+
+// `bytes` (a multiple of 16, 16-byte aligned) of global memory into L2
+__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(p)), "r"(bytes)
+               : "memory");
+}
+// the 128 threads of one warpgroup (named barrier id > 0)
+__device__ __forceinline__ void warpgroup_sync(int id) { asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory"); }
+
+__global__ void __launch_bounds__(WS_THREADS, 1)
+ffn_w8a8_kernel(const __grid_constant__ CUtensorMap tmH, const __grid_constant__ CUtensorMap tmW1,
+                const __grid_constant__ CUtensorMap tmW2, const float* __restrict__ sa, const float* __restrict__ s1,
+                const float* __restrict__ b1, const float* __restrict__ s2, const float* __restrict__ b2,
+                float* __restrict__ r, int M) {
+  using namespace ffn;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Hs = smem;
+  unsigned char* A2 = smem + OFF_A2;
+  unsigned char* Ws = smem + OFF_W;
+  float* vec = reinterpret_cast<float*>(smem + OFF_VEC);
+  const float *vs1 = vec, *vb1 = vec + F, *vs2 = vec + 2 * F, *vb2 = vec + 2 * F + D;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  const TmaRing<1> hring{bars};            // the unit's hq
+  const TmaRing<W_SLOTS> wring{bars + 2};  // W1 and W2 chunks
+  const int units = (M + BM - 1) / BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the block's turn in W: FFN1 column tiles and FFN2 k-chunks from o on, FFN1's two k-chunks in order p, so
+  // that the SMs read different chunks at any time; integer sums and a row max do not depend on the order
+  const int o = blockIdx.x % KCH, p = (blockIdx.x / KCH) & 1;
+  for (int i = threadIdx.x; i < VEC; i += WS_THREADS)  // the epilogues' vectors, once: every unit reads them
+    vec[i] = i < F ? s1[i] : i < 2 * F ? b1[i - F] : i < 2 * F + D ? s2[i - 2 * F] : b2[i - 2 * F - D];
+  if (threadIdx.x == 0) {
+    hring.init(8);  // one release per consumer warp
+    wring.init(8);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // ---- producer warpgroup: warp 0 loads
+    ws_producer_regs();
+    if (warp == 0 && lane == 0) {
+      auto load_h = [&](int ui, int u) {  // fill ui of hq: unit u's rows, and its residual rows into L2
+        const long long row0 = (long long)u * BM;
+        const unsigned bytes = (unsigned)(M - row0 < BM ? M - row0 : BM) * D * 4;
+        for (unsigned off = 0; off < bytes; off += 16384)
+          prefetch_l2(r + row0 * D + off / 4, bytes - off < 16384u ? bytes - off : 16384u);
+        uint64_t* full = hring.fill(ui, 2 * CHUNK);
+        tma_load_2d(Hs, &tmH, 0, u * BM, full);
+        tma_load_2d(Hs + CHUNK, &tmH, 128, u * BM, full);
+      };
+      if ((int)blockIdx.x < units) load_h(0, blockIdx.x);
+      int wi = 0;
+      for (int u = blockIdx.x, ui = 0; u < units; u += gridDim.x, ++ui) {
+        for (int i = 0; i < 2 * TILES; ++i, ++wi)  // FFN1 tile i / 2: columns ((i / 2 + o) % 8) 128 .., k-chunk i % 2 ^ p
+          tma_load_2d(Ws + (wi % W_SLOTS) * CHUNK, &tmW1, ((i & 1) ^ p) * 128, (((i >> 1) + o) % KCH) * 128,
+                      wring.fill(wi, CHUNK));
+        for (int i = 0; i < 2 * KCH; ++i, ++wi) {  // FFN2 column half i / 8, k-chunk (i % 8 + o) % 8
+          if (i == 2 && u + (int)gridDim.x < units) load_h(ui + 1, u + gridDim.x);  // waits for pass 2 to free hq
+          tma_load_2d(Ws + (wi % W_SLOTS) * CHUNK, &tmW2, ((i % KCH + o) % KCH) * 128, (i / KCH) * 128,
+                      wring.fill(wi, CHUNK));
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each unit
+  ws_consumer_regs();
+  const int c = (warp >> 2) - 1;
+  const int g = lane >> 2, qd = lane & 3;
+  const int rl = (warp & 3) * 16 + g;  // the thread's rows among the warpgroup's 64: rl, rl + 8
+  const unsigned char* hA = Hs + c * HALF;
+  unsigned char* A2c = A2 + c * KCH * HALF;
+  int wbase = 0;
+  for (int u = blockIdx.x, ui = 0; u < units; u += gridDim.x, ++ui, wbase += FILLS) {
+    const int gr = u * BM + c * 64 + rl;  // the thread's first row of the matrix
+    const float ar[2] = {gr < M ? sa[gr] : 0.f, gr + 8 < M ? sa[gr + 8] : 0.f};
+    float mx[2] = {0.f, 0.f}, sa2[2] = {0.f, 0.f}, rc[2] = {0.f, 0.f};
+    hring.wait(ui);
+
+    // FFN1 tile t (columns ((t + o) % 8) 128 ..) into acc, committed as one group
+    auto issue = [&](int(&acc)[64], int t) {
+      const int w0 = wbase + 2 * t;
+      wring.wait(w0);
+      wring.wait(w0 + 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k32_s8(acc, desc_k_major(hA + (kc ^ p) * CHUNK, kk),
+                              desc_k_major(Ws + ((w0 + kc) % W_SLOTS) * CHUNK, kk), kc | kk);
+      wgmma_commit();
+    };
+    // tile t's products have retired: its W slots go back (and hq after the last tile)
+    auto retire = [&](int(&acc)[64], int t) {
+      fence_regs(acc);
+      if (lane == 0) {
+        wring.release(wbase + 2 * t);
+        wring.release(wbase + 2 * t + 1);
+        if (t == TILES - 1) hring.release(ui);
+      }
+    };
+    // pass 1 (t < 8): each row's running max |y|; pass 2: y as int8 into the hidden buffer, half a tile's
+    // integers by quant_fast before its stores, and quant_int only in a second loop, run where the first met
+    // a near tie (a branch, or a store before a load, inside the loop would serialise it)
+#pragma unroll 1
+    for (int t = 0; t < TILES; ++t) {
+      int acc1[64];
+      issue(acc1, t);
+      wgmma_wait0();
+      retire(acc1, t);
+      const int ct = (t + o) % KCH;
+      const float* s1t = vs1 + ct * 128 + 2 * qd;
+      const float* b1t = vb1 + ct * 128 + 2 * qd;
+      if (t < KCH) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          if (j % 8 == 0) compiler_fence();
+          const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
+          const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)  // max relu(y) = max(0, max y): mx starts at 0
+            mx[h] = fmaxf(mx[h], fmaxf(lin_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x),
+                                       lin_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y)));
+        }
+        if (t == KCH - 1) {  // pass 1 done: the quad that shares a row holds all its columns
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+            sa2[h] = __fdiv_rn(fmaxf(mx[h], 1e-12f), 127.0f);
+            rc[h] = __frcp_rn(sa2[h]);
+          }
+        }
+      } else {
+        unsigned char* dst = A2c + ct * HALF;
+        auto put = [&](int j, unsigned pk) {  // K-major, 128-byte swizzle: 16-byte chunk (col / 16) ^ (row % 8)
+          const int col = 8 * j + 2 * qd;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = rl + 8 * h;
+            *reinterpret_cast<unsigned short*>(dst + row * 128 + (((col >> 4) ^ (row & 7)) << 4) + (col & 15)) =
+                (unsigned short)(pk >> (16 * h));
+          }
+        };
+        bool near = false;
+#pragma unroll
+        for (int j0 = 0; j0 < 16; j0 += 8) {  // half a tile at a time: its loads, its integers, then its stores
+          compiler_fence();
+          unsigned pk[8];  // column pair j0 + i: row rl's two int8 in the low half, row rl + 8's in the high
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int j = j0 + i;
+            const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
+            const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
+            pk[i] = 0u;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q0 = quant_fast(relu_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x), rc[h], near);
+              const int q1 = quant_fast(relu_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y), rc[h], near);
+              pk[i] |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) put(j0 + i, pk[i]);
+        }
+        if (near) {  // rare: the tile's integers again, each by quant_int
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
+            const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
+            unsigned pk = 0u;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q0 = quant_int(relu_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x), sa2[h], rc[h]);
+              const int q1 = quant_int(relu_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y), sa2[h], rc[h]);
+              pk |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
+            }
+            put(j, pk);
+          }
+        }
+      }
+    }
+    fence_proxy_async();  // the hidden's generic stores -> visible to wgmma
+    warpgroup_sync(1 + c);
+
+    // FFN2, one 128-column half at a time (64 accumulator registers, not 128)
+#pragma unroll 1
+    for (int nh = 0; nh < 2; ++nh) {
+      int acc[64];
+#pragma unroll 1
+      for (int kc = 0; kc < KCH; ++kc) {
+        const int w0 = wbase + 2 * TILES + nh * KCH + kc;
+        wring.wait(w0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k32_s8(acc, desc_k_major(A2c + (kc + o) % KCH * HALF, kk),
+                              desc_k_major(Ws + (w0 % W_SLOTS) * CHUNK, kk), kc | kk);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+        if (lane == 0) wring.release(w0);
+      }
+      // (b)'s EPI_RESIDUAL: r = (r + y) + b2, y = float(acc) * sa2 * s2
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (gr + 8 * h >= M) continue;
+        float* rr = r + (long long)(gr + 8 * h) * D + nh * 128 + 2 * qd;
+        const float *s2h = vs2 + nh * 128 + 2 * qd, *b2h = vb2 + nh * 128 + 2 * qd;
+#pragma unroll
+        for (int j0 = 0; j0 < 16; j0 += 8) {  // eight 8-byte loads in flight a thread
+          compiler_fence();
+          float2 x[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) x[j] = *reinterpret_cast<const float2*>(rr + 8 * (j0 + j));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = 4 * (j0 + j) + 2 * h;
+            const float2 sc = *reinterpret_cast<const float2*>(s2h + 8 * (j0 + j));
+            const float2 bb = *reinterpret_cast<const float2*>(b2h + 8 * (j0 + j));
+            const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e]), sa2[h]), sc.x);
+            const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e + 1]), sa2[h]), sc.y);
+            __stcs(reinterpret_cast<float2*>(rr + 8 * (j0 + j)),
+                   make_float2(__fadd_rn(__fadd_rn(x[j].x, y0), bb.x), __fadd_rn(__fadd_rn(x[j].y, y1), bb.y)));
+          }
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_ffn_w8a8(const int8_t* hq, const float* sa, const int8_t* w1t, const float* s1, const float* b1,
+                            const int8_t* w2t, const float* s2, const float* b2, float* r, int M, cudaStream_t st) {
+  using namespace ffn;
+  if (M < 1) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(ffn_w8a8_kernel, SMEM, smem_ready);
+  if (e != cudaSuccess) return e;
+  const CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap th, t1, t2;
+  if (!tensor_map(&th, U8, hq, 1, D, M, 128, BM) || !tensor_map(&t1, U8, w1t, 1, D, F, 128, 128) ||
+      !tensor_map(&t2, U8, w2t, 1, F, D, 128, 128))
+    return cudaErrorInvalidValue;
+  const int blocks = min((M + BM - 1) / BM, sm_count());
+  ffn_w8a8_kernel<<<blocks, WS_THREADS, SMEM, st>>>(th, t1, t2, sa, s1, b1, s2, b2, r, M);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -312,6 +764,40 @@ int cse_linear_w8a8(const void* a, const void* sa, const void* wt, const void* s
     case EPI_RESIDUAL: return (int)launch_linear_w8a8<EPI_RESIDUAL>(ap, sap, wp, sp, bp, cp, (int)M, N, K, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// q[M, D] int8 and sa[M] fp32 = the row quantization of LN(x[M, D]) (scale g,
+// bias b, eps), the LN being cse_layer_norm's fp32 output. Needs D == 256
+// and a 16-byte aligned x.
+int cse_layer_norm_quant(const void* x, const void* g, const void* b, void* q, void* sa, long long M, int D, float eps,
+                         void* stream) {
+  if (D != lnq::D || M < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_layer_norm_quant(static_cast<const float*>(x), static_cast<const float*>(g),
+                                      static_cast<const float*>(b), static_cast<int8_t*>(q), static_cast<float*>(sa),
+                                      M, eps, static_cast<cudaStream_t>(stream));
+}
+
+// r[M, D] = (r + qdot(q, w2t) * s2) + b2 with q, sa2 the row quantization of
+// h = relu(hq[M, D] . w1t[F, D]^T * sa * s1 + b1): FFN1 as cse_linear_w8a8's
+// epilogue 1, cse_quantize_rows, FFN2 as epilogue 2, in one launch. Needs
+// D == 256, F == 1024 and 16-byte aligned hq, w1t, w2t and r.
+int cse_ffn_w8a8(const void* hq, const void* sa, const void* w1t, const void* s1, const void* b1, const void* w2t,
+                 const void* s2, const void* b2, void* r, long long M, int D, int F, void* stream) {
+  if (D != ffn::D || F != ffn::F) return (int)cudaErrorInvalidValue;
+  return (int)launch_ffn_w8a8(static_cast<const int8_t*>(hq), static_cast<const float*>(sa),
+                              static_cast<const int8_t*>(w1t), static_cast<const float*>(s1),
+                              static_cast<const float*>(b1), static_cast<const int8_t*>(w2t),
+                              static_cast<const float*>(s2), static_cast<const float*>(b2), static_cast<float*>(r),
+                              (int)M, static_cast<cudaStream_t>(stream));
+}
+
+// info[3] of a kernel: {registers a thread, local-memory bytes a thread,
+// resident blocks per SM}; kernel 0: layer_norm_quant_kernel, kernel 1: ffn_w8a8_kernel.
+int cse_w8a8_kernel_info(int kernel, int* info) {
+  if (kernel == 0) return (int)kernel_info((const void*)layer_norm_quant_kernel, lnq::THREADS, 0, info);
+  if (kernel != 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(ffn_w8a8_kernel, ffn::SMEM, ffn::smem_ready);
+  return (int)(e != cudaSuccess ? e : kernel_info((const void*)ffn_w8a8_kernel, WS_THREADS, ffn::SMEM, info));
 }
 
 }  // extern "C"

@@ -51,6 +51,9 @@ SIGNATURES = {
     # fused_stack_w8a8.cu
     "cse_quantize_rows": (P, P, P, LL, I, P),
     "cse_linear_w8a8": (P, P, P, P, P, P, I, LL, I, I, P),
+    "cse_layer_norm_quant": (P, P, P, P, P, LL, I, F, P),
+    "cse_ffn_w8a8": (P, P, P, P, P, P, P, P, P, LL, I, I, P),
+    "cse_w8a8_kernel_info": (I, P),
     # kernel_parts.cu
     "cse_kp_layer_norm": (P, P, I, P, I, I, LL, I, F, P),
     "cse_kp_layer_norm_info": (I, I, I, P),

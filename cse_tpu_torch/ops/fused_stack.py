@@ -8,8 +8,9 @@ two-pass attention), 57 launches per stack call at 8 layers, with the fp32
 residual stream kept in device memory between them. The training path
 (:mod:`cse_tpu_torch.ops.fused_train`) runs its forward on the same kernels.
 With ``quant="w8a8"`` the stack runs ``_stack_kernel_w8a8`` instead
-(:mod:`cse_tpu_torch.ops.fused_stack_w8a8`: int8 projections, this module's
-LayerNorm and attention kernels with fp32 outputs).
+(:mod:`cse_tpu_torch.ops.fused_stack_w8a8`: LayerNorms that write int8,
+int8 projections, one int8 FFN kernel, this module's attention with an fp32
+output and its final LayerNorm).
 
 Each kernel has a wrapper here (:func:`layer_norm`, :func:`linear`,
 :func:`attention`) and a plain PyTorch version beside it (``*_plain``). A
@@ -339,11 +340,13 @@ reset_launches()
 
 def launches_per_stack(n_layers: int, quant: str | None = None) -> dict[str, int]:
     """Launches one stack call makes: per layer 2 LN + 4 GEMM + 1 attention,
-    plus the final LN; with ``quant="w8a8"`` the 4 GEMMs are int8 GEMMs
-    (:mod:`cse_tpu_torch.ops.fused_stack_w8a8`), each after a row quantizer."""
+    plus the final LN; with ``quant="w8a8"``
+    (:mod:`cse_tpu_torch.ops.fused_stack_w8a8`) per layer 2 LNs that write
+    int8, the QKV and out-proj int8 GEMMs, the attention output's row
+    quantizer, 1 attention and 1 FFN kernel, plus the final LN."""
     if quant == "w8a8":
-        return {"layer_norm": 2 * n_layers + 1, "attention": n_layers,
-                "quantize_rows": 4 * n_layers, "linear_w8a8": 4 * n_layers}
+        return {"layer_norm": 1, "layer_norm_quant": 2 * n_layers, "attention": n_layers,
+                "quantize_rows": n_layers, "linear_w8a8": 2 * n_layers, "ffn_w8a8": n_layers}
     return {"layer_norm": 2 * n_layers + 1, "linear": 4 * n_layers, "attention": n_layers}
 
 
@@ -409,7 +412,7 @@ def fused_stack_apply(
 
     x: [G, L, D] sequences (all L positions real); w: :func:`stack_weights`
     for ``compute_dtype`` and ``quant``. CUDA tensors go through the kernels
-    (:func:`launches_per_stack`: 57 launches at 8 layers, 89 with
+    (:func:`launches_per_stack`: 57 launches at 8 layers, with or without
     ``quant="w8a8"``), CPU tensors through :func:`fused_stack_reference`.
     Returns [G, L, D] in x's dtype.
     """

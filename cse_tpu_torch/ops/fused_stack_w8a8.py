@@ -13,15 +13,20 @@ dtype (cd) with an fp32 output. On Hopper (``csrc/fused_stack_w8a8.cu``):
 * :func:`linear_w8a8`: ``wgmma`` s8 x s8 -> s32 (TMA loads and stores, the
   weight read K-major as :func:`fused_stack.stack_weights` keeps it) and the
   epilogue y = acc * sa[row] * s[col] in fp32, then ``y + b`` (QKV), ``relu(y + b)``
-  (FFN1) or ``(r + y) + b`` into the fp32 residual (out-proj, FFN2), the
-  association JAX writes (``x = x + _qdot(...) + b``);
-* the serving stack's LayerNorm (fp32 out) and attention (bf16 operands,
-  fp32 out) kernels of :mod:`cse_tpu_torch.ops.fused_stack`.
+  or ``(r + y) + b`` into the fp32 residual (out-proj), the association JAX
+  writes (``x = x + _qdot(...) + b``);
+* :func:`layer_norm_quant`: the LayerNorm (fp32, the arithmetic of
+  :func:`fused_stack.layer_norm`'s kernel) and the row quantizer in one pass,
+  writing int8 and ``sa``: both LNs of a layer;
+* :func:`ffn_w8a8`: FFN1, ReLU, the hidden's quantizer and FFN2 into the
+  residual in one kernel, the ``[M, 1024]`` hidden kept on chip;
+* the serving stack's attention (bf16 operands, fp32 out) and final LN
+  kernels of :mod:`cse_tpu_torch.ops.fused_stack`.
 
-Per layer: LN, quantize, QKV, attention, quantize, out-proj, LN, quantize,
-FFN1, quantize, FFN2; then the final LN: 89 launches at 8 layers. Each
-wrapper counts its launches in ``launches``; a CPU tensor takes the plain
-version, anything else raises.
+Per layer: LN + quantize, QKV, attention, quantize, out-proj, LN + quantize,
+FFN; then the final LN: 57 launches at 8 layers. Each wrapper counts its
+launches in ``launches``; a CPU tensor takes the plain version, anything else
+raises.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from cse_tpu_torch.ops import _build
 from cse_tpu_torch.ops import fused_stack as fs
 
 MAX_K = 1024  # |acc| <= 127^2 * K < 2^24: integer sums are exact in fp32
+D_MODEL = 256  # the widths layer_norm_quant and ffn_w8a8 are built for: the model's
+D_FFN = 1024
 
 
 # ---------------------------------------------------------------- plain versions
@@ -64,6 +71,21 @@ def linear_w8a8_plain(hq, sa, w8, s, bias, epilogue, residual=None):
     if epilogue == "residual":
         return residual.add_(y).add_(bias)
     raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def layer_norm_quant_plain(x, scale, bias):
+    """:func:`fused_stack.layer_norm_plain` in fp32, then
+    :func:`quantize_rows_plain`: (int8 ``[M, D]``, fp32 ``sa [M]``)."""
+    return quantize_rows_plain(fs.layer_norm_plain(x, scale, bias, torch.float32))
+
+
+def ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, residual):
+    """The layer's FFN on its quantized LN2 output, into the fp32 ``residual``
+    in place (returned): r = (r + qdot(relu(qdot(hq, w1) + b1), w2)) + b2,
+    the hidden quantized by :func:`quantize_rows_plain` in between."""
+    f = linear_w8a8_plain(hq, sa, w1, s1, b1, "relu")
+    fq, sa2 = quantize_rows_plain(f)
+    return linear_w8a8_plain(fq, sa2, w2, s2, b2, "residual", residual)
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -121,7 +143,77 @@ def linear_w8a8(hq, sa, w8, s, bias, epilogue, residual=None):
     return out
 
 
-KERNELS = {"quantize_rows": quantize_rows, "linear_w8a8": linear_w8a8}
+def _check_vector(t, name, n):
+    fs._check(t, name, torch.float32)
+    if t.numel() != n:
+        raise ValueError(f"{name} has {t.numel()} entries, want {n}")
+
+
+def layer_norm_quant(x, scale, bias):
+    """See :func:`layer_norm_quant_plain`; kernel (c) on CUDA, D = 256 only.
+    The LN values are those of :func:`fused_stack.layer_norm`'s fp32 output
+    bit for bit, so the result equals ``quantize_rows(layer_norm(x, fp32))``."""
+    if not fs._route(x, scale, bias):
+        return layer_norm_quant_plain(x, scale, bias)
+    fs._check(x, "x", torch.float32, 2)
+    M, D = x.shape
+    if D != D_MODEL:
+        raise ValueError(f"layer_norm_quant kernel takes D = {D_MODEL}, got {D}")
+    _check_vector(scale, "scale", D)
+    _check_vector(bias, "bias", D)
+    if x.data_ptr() % 16:
+        raise ValueError("layer_norm_quant kernel needs a 16-byte aligned x")
+    hq = torch.empty(M, D, dtype=torch.int8, device=x.device)
+    sa = torch.empty(M, dtype=torch.float32, device=x.device)
+    err = _build.library().cse_layer_norm_quant(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), hq.data_ptr(),
+                                                sa.data_ptr(), M, D, fs.LN_EPS, fs._stream())
+    fs._check_launch("layer_norm_quant", err)
+    layer_norm_quant.launches += 1
+    return hq, sa
+
+
+def ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, residual):
+    """See :func:`ffn_w8a8_plain`; kernel (d) on CUDA, at D = 256 and F =
+    1024 only. ``w1 [D, F]`` and ``w2 [F, D]`` are int8 stored K-major
+    (:func:`fused_stack.k_major`), as :func:`linear_w8a8` takes them. The
+    same bits as :func:`linear_w8a8` (relu), :func:`quantize_rows` and
+    :func:`linear_w8a8` (residual) in turn."""
+    if not fs._route(hq, sa, w1, s1, b1, w2, s2, b2, residual):
+        return ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, residual)
+    fs._check(hq, "hq", torch.int8, 2)
+    M, D = hq.shape
+    if D != D_MODEL or tuple(w1.shape) != (D, D_FFN) or tuple(w2.shape) != (D_FFN, D):
+        raise ValueError(f"ffn_w8a8 kernel takes D = {D_MODEL}, F = {D_FFN}; got hq {tuple(hq.shape)}, "
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    fs._check(w1.t(), "w1.t() (w1 stored K-major, fused_stack.k_major)", torch.int8, 2)
+    fs._check(w2.t(), "w2.t() (w2 stored K-major, fused_stack.k_major)", torch.int8, 2)
+    for t, name, n in ((sa, "sa", M), (s1, "s1", D_FFN), (b1, "b1", D_FFN), (s2, "s2", D), (b2, "b2", D)):
+        _check_vector(t, name, n)
+    fs._check(residual, "residual", torch.float32, 2)
+    if tuple(residual.shape) != (M, D):
+        raise ValueError(f"residual is {tuple(residual.shape)}, want {(M, D)}")
+    if any(t.data_ptr() % 16 for t in (hq, w1, w2, residual)):
+        raise ValueError("ffn_w8a8 kernel needs 16-byte aligned hq, w1, w2 and residual")
+    err = _build.library().cse_ffn_w8a8(
+        hq.data_ptr(), sa.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), residual.data_ptr(), M, D, D_FFN, fs._stream())
+    fs._check_launch("ffn_w8a8", err)
+    ffn_w8a8.launches += 1
+    return residual
+
+
+# what cse_w8a8_kernel_info writes, in order
+KERNEL_INFO_KEYS = ("registers", "local_bytes", "blocks_per_sm")
+
+
+def kernel_info(name: str) -> dict:
+    """Registers and local-memory bytes a thread and resident blocks per SM
+    of ``"layer_norm_quant"`` or ``"ffn_w8a8"``'s kernel (on the card)."""
+    return _build.query("cse_w8a8_kernel_info", KERNEL_INFO_KEYS, ("layer_norm_quant", "ffn_w8a8").index(name))
+
+
+KERNELS = {"quantize_rows": quantize_rows, "linear_w8a8": linear_w8a8, "layer_norm_quant": layer_norm_quant,
+           "ffn_w8a8": ffn_w8a8}
 
 
 def reset_launches():
@@ -140,9 +232,10 @@ def launch_counts() -> dict[str, int]:
 
 reset_launches()
 
-KERNEL_OPS = types.SimpleNamespace(ln=fs.layer_norm, quant=quantize_rows, lin=linear_w8a8, attn=fs.attention)
-PLAIN_OPS = types.SimpleNamespace(ln=fs.layer_norm_plain, quant=quantize_rows_plain, lin=linear_w8a8_plain,
-                                  attn=fs.attention_plain)
+KERNEL_OPS = types.SimpleNamespace(ln=fs.layer_norm, lnq=layer_norm_quant, quant=quantize_rows, lin=linear_w8a8,
+                                   attn=fs.attention, ffn=ffn_w8a8)
+PLAIN_OPS = types.SimpleNamespace(ln=fs.layer_norm_plain, lnq=layer_norm_quant_plain, quant=quantize_rows_plain,
+                                  lin=linear_w8a8_plain, attn=fs.attention_plain, ffn=ffn_w8a8_plain)
 
 
 # ---------------------------------------------------------------- the stack
@@ -156,16 +249,13 @@ def run_stack(x, w, nhead, cd, ops):
     f32 = torch.float32
     r = x.to(cd).to(f32, copy=True).reshape(G * L, D).contiguous()  # updated in place
 
-    def qlin(h, name, li, epilogue, residual=None):
-        hq, sa = ops.quant(h)
+    def lin(hq, sa, name, li, epilogue, residual=None):
         return ops.lin(hq, sa, w[f"{name}_w"][li], w[f"{name}_s"][li], w[f"{name}_b"][li], epilogue, residual)
 
     for li in range(w["qkv_w"].shape[0]):
-        h = ops.ln(r, w["ln1_s"][li], w["ln1_b"][li], f32)
-        qkv = qlin(h, "qkv", li, "bias")
+        qkv = lin(*ops.lnq(r, w["ln1_s"][li], w["ln1_b"][li]), "qkv", li, "bias")
         a = ops.attn(qkv, L, nhead, f32, operand_dtype=cd)
-        qlin(a, "out", li, "residual", r)
-        h = ops.ln(r, w["ln2_s"][li], w["ln2_b"][li], f32)
-        f = qlin(h, "f1", li, "relu")
-        qlin(f, "f2", li, "residual", r)
+        lin(*ops.quant(a), "out", li, "residual", r)
+        hq, sa = ops.lnq(r, w["ln2_s"][li], w["ln2_b"][li])
+        ops.ffn(hq, sa, *(w[k][li] for k in ("f1_w", "f1_s", "f1_b", "f2_w", "f2_s", "f2_b")), r)
     return ops.ln(r, w["fn_s"], w["fn_b"], x.dtype).reshape(G, L, D)

@@ -30,10 +30,45 @@ LN_INFO_ENTRIES = {("fused_train.cu", "cse_layer_norm_bwd_info"): "LN_BWD_INFO_K
                    ("kernel_parts.cu", "cse_kp_layer_norm_info"): "KP_LN_INFO_KEYS"}
 
 
+# the w8a8 kernels' attributes: {entry: (its Python reader's key list, the kernels it names in order)}
+W8A8_INFO_ENTRIES = {("fused_stack_w8a8.cu", "cse_w8a8_kernel_info"): ("KERNEL_INFO_KEYS",
+                                                                       ("layer_norm_quant", "ffn_w8a8"))}
+
+
 def test_route_entries_are_every_info_entry():
     found = {(src, e) for src in _build.SOURCES for e in re.findall(r"^int (cse_\w+_info)\(",
                                                                     (_build.CSRC / src).read_text(), flags=re.M)}
-    assert found == set(ROUTE_ENTRIES) | set(LN_INFO_ENTRIES)
+    assert found == set(ROUTE_ENTRIES) | set(LN_INFO_ENTRIES) | set(W8A8_INFO_ENTRIES)
+
+
+@pytest.mark.parametrize("src, entry", sorted(W8A8_INFO_ENTRIES))
+def test_w8a8_info_entry_matches_its_reader(src, entry, monkeypatch):
+    """The w8a8 ``*_info`` entry writes as many ints as ``kernel_info`` names,
+    takes its kernels in the order the source's comment gives, and a failed
+    query raises."""
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    keys_name, kernels = W8A8_INFO_ENTRIES[(src, entry)]
+    keys = getattr(w8, keys_name)
+    comment = re.search(rf"((?://[^\n]*\n)+)int {entry}\(", (_build.CSRC / src).read_text()).group(1)
+    assert f"info[{len(keys)}]" in comment
+    assert all(f"kernel {i}: {k}_kernel" in comment for i, k in enumerate(kernels))
+    seen = []
+
+    def fake(err):
+        def call(kernel, out):
+            seen.append(kernel)
+            for i in range(len(keys)):
+                out[i] = 10 + i
+            return err
+        return type("Lib", (), {entry: staticmethod(call)})()
+
+    monkeypatch.setattr(_build, "library", lambda: fake(0))
+    assert [w8.kernel_info(k) for k in kernels] == [{k: 10 + i for i, k in enumerate(keys)}] * len(kernels)
+    assert seen == list(range(len(kernels)))
+    monkeypatch.setattr(_build, "library", lambda: fake(2))
+    with pytest.raises(RuntimeError, match="cudaError 2"):
+        w8.kernel_info(kernels[0])
 
 
 @pytest.mark.parametrize("src, entry", sorted(LN_INFO_ENTRIES))

@@ -565,6 +565,56 @@ def test_linear_w8a8_matches_plain(gen, epilogue, mkn):
             w8.linear_w8a8(hq, sa, wq.contiguous(), s, b, epilogue, None if res is None else res.clone())
 
 
+@pytest.mark.parametrize("m", [1, 7, 999, 2016 * 251])
+def test_layer_norm_quant_matches_the_kernel_chain(gen, m):
+    """LN and the quantizer in one kernel give the bits of layer_norm (fp32
+    out) then quantize_rows, payload and scales; a constant row under a zero
+    bias takes the 1e-12 floor; other widths are refused."""
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    x = 3 * torch.randn(m, 256, device="cuda", generator=gen) + 0.5
+    x[0] = 2.5
+    s = 1 + 0.1 * torch.randn(256, device="cuda", generator=gen)
+    for b in (0.1 * torch.randn(256, device="cuda", generator=gen), torch.zeros(256, device="cuda")):
+        q, sa = w8.layer_norm_quant(x, s, b)
+        cq, csa = w8.quantize_rows(fs.layer_norm(x, s, b, torch.float32))
+        assert q.dtype == torch.int8 and torch.equal(q, cq) and torch.equal(sa, csa)
+    assert sa[0].item() == np.float32(1e-12) / np.float32(127.0) and not q[0].any()
+    with pytest.raises(ValueError, match="D = 256"):
+        w8.layer_norm_quant(x[:, :128].contiguous(), s[:128], b[:128])
+
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 4000 * 127, 2016 * 251])
+def test_ffn_w8a8_matches_the_kernel_chain_and_plain(gen, m):
+    """The one-kernel FFN gives the bits of linear_w8a8 (relu), quantize_rows
+    and linear_w8a8 (residual) in turn, and holds the int8 GEMM's bar
+    (max_rel <= 1e-6) against its plain version; ragged panels of 128 rows
+    included. A repeat gives the same bits."""
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    hq, sa = w8.quantize_rows(torch.randn(m, 256, device="cuda", generator=gen))
+    w1 = fs.k_major(torch.randint(-127, 128, (256, 1024), device="cuda", generator=gen, dtype=torch.int8))
+    w2 = fs.k_major(torch.randint(-127, 128, (1024, 256), device="cuda", generator=gen, dtype=torch.int8))
+    s1 = (torch.rand(1, 1024, device="cuda", generator=gen) + 0.1) / 1000
+    s2 = (torch.rand(1, 256, device="cuda", generator=gen) + 0.1) / 1000
+    b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (1024, 256))
+    r = torch.randn(m, 256, device="cuda", generator=gen)
+    got = w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, r.clone())
+    fq, fsa = w8.quantize_rows(w8.linear_w8a8(hq, sa, w1, s1, b1, "relu"))
+    assert torch.equal(got, w8.linear_w8a8(fq, fsa, w2, s2, b2, "residual", r.clone()))
+    assert torch.equal(got, w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, r.clone()))
+    want = w8.ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, r.clone())
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_w8a8_kernels_spill_nothing(gen):
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    for name in ("layer_norm_quant", "ffn_w8a8"):
+        info = w8.kernel_info(name)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (name, info)
+
+
 @pytest.mark.parametrize("seq_len", [7, 251, 300])
 def test_attention_fp32_output_matches_plain(gen, seq_len):
     qkv = 2 * torch.randn(5 * seq_len, 768, device="cuda", generator=gen)

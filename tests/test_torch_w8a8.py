@@ -19,7 +19,7 @@ import torch
 
 from cse_tpu.models import Sepformer as JaxSepformer
 from cse_tpu.models import SepformerConfig as JaxConfig
-from cse_tpu.ops.fused_stack import _qdot, _quantize_stacked
+from cse_tpu.ops.fused_stack import _ln, _qdot, _quantize_stacked
 from cse_tpu.ops.fused_stack import fused_stack_apply as jax_fused_stack_apply
 from cse_tpu.serving import ServingEngine as JaxEngine
 from cse_tpu_torch.compat.jax_params import load_jax_params
@@ -85,6 +85,58 @@ def test_linear_w8a8_epilogues_associate_as_jax():
     assert torch.equal(got, (r + y) + b)
 
 
+@pytest.mark.parametrize("bias", ["random", "zero"])
+def test_layer_norm_quant_plain_matches_jax_ln_and_quantizer(bias):
+    """LN then the row quantizer against JAX's _ln and _qdot's quantization
+    (:122-123, in jnp). The payloads are equal but for +-1 flips on at most
+    1e-4 of them (an LN output one ulp apart can cross a rounding midpoint);
+    sa to rtol 1e-6. A constant row under a zero bias is an all-zero LN row:
+    it takes the 1e-12 floor and a zero payload."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((600, 256)) * 3.0 + 0.5).astype(np.float32)
+    x[3] = 2.5
+    scale = (1 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(256)).astype(np.float32) if bias == "random" else np.zeros(256, np.float32)
+    h = _ln(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(b))
+    jsa = jnp.maximum(jnp.max(jnp.abs(h), axis=-1, keepdims=True), 1e-12) / 127.0
+    jq, jsa = np.asarray(jnp.round(h / jsa).astype(jnp.int8)), np.asarray(jsa)[:, 0]
+    q, sa = w8.layer_norm_quant_plain(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(b))
+    assert q.dtype == torch.int8 and q.shape == x.shape and sa.dtype == torch.float32 and sa.shape == (600,)
+    d = np.abs(q.numpy().astype(np.int32) - jq.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).sum() <= 1e-4 * d.size
+    np.testing.assert_allclose(sa.numpy(), jsa, rtol=1e-6)
+    if bias == "zero":
+        assert sa[3].item() == np.float32(1e-12) / np.float32(127.0) and not q[3].any()
+
+
+def test_ffn_w8a8_plain_matches_jax_qdot_composition():
+    """The FFN on the quantized LN2 output against JAX's
+    x + _qdot(relu(_qdot(h, f1, s1) + b1), f2, s2) + b2 at the bar of
+    test_quantize_rows_and_qdot_match_jax_and_oracle; the weights K-major, as
+    stack_weights keeps them."""
+    rng = np.random.default_rng(8)
+    m, d, f = 45, 32, 64
+    h = (rng.standard_normal((m, d)) * 2.0).astype(np.float32)
+    w1 = rng.integers(-127, 128, (d, f)).astype(np.int8)
+    w2 = rng.integers(-127, 128, (f, d)).astype(np.int8)
+    s1 = ((rng.random((1, f)) + 0.1) / 100.0).astype(np.float32)
+    s2 = ((rng.random((1, d)) + 0.1) / 100.0).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(f)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    jh = jnp.maximum(_qdot(jnp.asarray(h), jnp.asarray(w1), jnp.asarray(s1)) + b1, 0.0)
+    want = np.asarray(jnp.asarray(x) + _qdot(jh, jnp.asarray(w2), jnp.asarray(s2)) + b2)
+    t = torch.from_numpy
+    hq, sa = w8.quantize_rows_plain(t(h))
+    r = t(x.copy())
+    got = w8.ffn_w8a8_plain(hq, sa, fs.k_major(t(w1)), t(s1), t(b1), fs.k_major(t(w2)), t(s2), t(b2), r)
+    assert got is r and got.dtype == torch.float32 and got.shape == (m, d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    # the three-step chain it replaces, in the stack's order
+    fq, fsa = w8.quantize_rows_plain(w8.linear_w8a8_plain(hq, sa, t(w1), t(s1), t(b1), "relu"))
+    assert torch.equal(got, w8.linear_w8a8_plain(fq, fsa, t(w2), t(s2), t(b2), "residual", t(x.copy())))
+
+
 def _stack_params(rng):
     def n(*s, scale=1.0):
         return (scale * rng.standard_normal(s)).astype(np.float32)
@@ -124,8 +176,10 @@ def test_stack_matches_jax_w8a8(cd):
     assert got.dtype == torch.float32 and got.shape == (G, L, D)
     assert _rel_l2(got.numpy(), want) <= 1e-3
     assert _rel_l2(got.numpy(), exact) <= 5e-2
-    assert fs.launches_per_stack(8, "w8a8") == {"layer_norm": 17, "attention": 8, "quantize_rows": 32,
-                                                "linear_w8a8": 32}
+    per_stack = fs.launches_per_stack(8, "w8a8")
+    assert per_stack == {"layer_norm": 1, "layer_norm_quant": 16, "attention": 8, "quantize_rows": 8,
+                         "linear_w8a8": 16, "ffn_w8a8": 8}
+    assert sum(per_stack.values()) == 57 == sum(fs.launches_per_stack(8).values())
 
 
 MATS = {"qkv": lambda l: l.self_att.in_proj.weight, "out": lambda l: l.self_att.out_proj.weight,
@@ -203,6 +257,13 @@ def test_w8a8_refuses_training_and_unknown_modes():
                                 stacks=ServingEngine(cfg, model, device="cpu").stacks)
 
 
+def _ffn_args(m=4, d=256, f=1024, device="cpu"):
+    i8 = dict(dtype=torch.int8, device=device)
+    return (torch.zeros(m, d, **i8), torch.ones(m, device=device), fs.k_major(torch.zeros(d, f, **i8)),
+            torch.ones(1, f, device=device), torch.zeros(f, device=device), fs.k_major(torch.zeros(f, d, **i8)),
+            torch.ones(1, d, device=device), torch.zeros(d, device=device), torch.zeros(m, d, device=device))
+
+
 def test_wrappers_refuse_other_devices():
     h = torch.empty(4, 16, device="meta")
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
@@ -210,3 +271,27 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         w8.linear_w8a8(torch.empty(4, 16, dtype=torch.int8, device="meta"), torch.empty(4, device="meta"),
                        torch.empty(16, 8, dtype=torch.int8), torch.empty(8), torch.empty(8), "bias")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        w8.layer_norm_quant(torch.empty(4, 256, device="meta"), torch.ones(256), torch.zeros(256))
+    args = list(_ffn_args())
+    args[0] = args[0].to("meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        w8.ffn_w8a8(*args)
+
+
+@pytest.mark.parametrize("d, f", [(128, 1024), (256, 512), (512, 1024)])
+def test_new_wrappers_refuse_other_widths(d, f, monkeypatch):
+    """layer_norm_quant and ffn_w8a8 take the model's widths (D 256, F 1024)
+    and raise for any other before they launch: run here with the device
+    check answered as for CUDA tensors, so the widths are what is checked."""
+    monkeypatch.setattr(fs, "_route", lambda *ts: True)
+    monkeypatch.setattr(w8._build, "library", lambda: pytest.fail("no launch for a refused width"))
+    if d != 256:
+        with pytest.raises(ValueError, match="D = 256"):
+            w8.layer_norm_quant(torch.zeros(4, d), torch.ones(d), torch.zeros(d))
+    with pytest.raises(ValueError, match="D = 256, F = 1024"):
+        w8.ffn_w8a8(*_ffn_args(d=d, f=f))
+    with pytest.raises(ValueError, match="K-major"):  # the right widths, a row-major weight
+        args = list(_ffn_args())
+        args[2] = args[2].contiguous()
+        w8.ffn_w8a8(*args)
