@@ -19,6 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
      the median forward time and realtime factor;
   5. each kernel's time beside its plain version, a library call that computes
      the same function (timed only; the port never calls it) and its bound;
+     the 8-layer stack beside nn.TransformerEncoder (8 pre-LN layers and the
+     final LN, bf16, its residual bf16) under inference_mode, and one
+     TransformerEncoderLayer's training forward;
      each GEMM product's TB/s and TFLOP/s beside torch.matmul and the
      like-for-like torch.addmm (bias or residual in, fp32 out, where the card's
      torch takes out_dtype); the attention's launch (route, registers, local
@@ -206,6 +209,21 @@ Phases (any failure exits non-zero and prints no result line):
      default, the launch report by formula); (d) the tiny Llama on a model
      axis of 2 (two gloo ranks) in fp32, int8 and w8a8 against the
      single-rank forward on the card (rtol = atol = 1e-4).
+ 19. every width: at --debug_tiny_model's widths (d_model 32, 4 heads of
+     width 8, FFN 64) and the JAX suite's (d_model 16, 4 heads of width 4,
+     FFN 32), B=2, T=4000, seeded weights: (a) the bf16 and w8a8 engines,
+     context and contsep, against the plain fp32 model (rel L2 5e-2; launches
+     by formula, the w8a8 stack on the route its widths choose: the chain of
+     LN, quantizer and int8 GEMM launches) and the w8a8 stack alone against
+     its plain version (rel L2 1e-3); (b) the fused step's fp32 loss and
+     gradients against the plain model (5e-3), #3 / #4 launches by formula;
+     (c) the flash step's the same, #5 / #6 launched; (d) the kernels at head
+     width 4 (attention with bf16 and fp32 out and stats, its backward, flash
+     forward and backward; strip and multi-pass routes) and the LayerNorm
+     backward at D 16 and 48 against their plain versions ([12a]'s bars);
+     (e) num_spks=3 at the paper's width: a contsep (ce) ServingEngine bf16
+     forward at B=16 against plain fp32 (5e-2) and one fused ContSep step's
+     fp32 gradients on B=2 (5e-3). Its own clock is printed.
 The second-to-last lines are the kernels' JSON line and the card; the last line
 is {"ok": true, "device": {...}}.
 
@@ -1352,7 +1370,8 @@ def phase9_serve(gen, card, failures):
     out = engine(mix, ctx)
     torch.cuda.synchronize()
     counts = w8.launch_counts()
-    want = {k: v * 2 * cfg.num_dp_layers for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8").items()}
+    want = {k: v * 2 * cfg.num_dp_layers
+            for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8", cfg.d_model, cfg.d_ffn).items()}
     log(f"  launches in one w8a8 forward: {counts} (want {want}, total {sum(want.values())})")
     if counts != want:
         fail(f"w8a8 launch counts {counts} != {want}")
@@ -2079,7 +2098,8 @@ def phase13(card, failures):
         n_fwd = len(recorded)
         n_att = 2 * cfg.num_dp_layers * cfg.num_tf_layers
         if "fused" in name:
-            want = {k: v * 2 * cfg.num_dp_layers * n_fwd for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
+            want = {k: v * 2 * cfg.num_dp_layers * n_fwd
+                    for k, v in fs.launches_per_stack(cfg.num_tf_layers, None, cfg.d_model, cfg.d_ffn).items()}
             fwant = {k: 0 for k in fcounts}
         else:
             want = {k: 0 for k in counts}
@@ -2136,8 +2156,9 @@ def phase14(card, references):
     cfg = SepformerConfig(variant="context")
     n_stacks = 2 * cfg.num_dp_layers
     train = {k: v * n_stacks for k, v in ft.launches_per_train_stack(cfg.num_tf_layers).items()}
-    infer = {k: v * n_stacks for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
-    w8a8 = {k: v * n_stacks for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8").items()}
+    infer = {k: v * n_stacks for k, v in fs.launches_per_stack(cfg.num_tf_layers, None, cfg.d_model, cfg.d_ffn).items()}
+    w8a8 = {k: v * n_stacks
+            for k, v in fs.launches_per_stack(cfg.num_tf_layers, "w8a8", cfg.d_model, cfg.d_ffn).items()}
     # (name, flags, metric, the phase to read it beside, launches per step or forward)
     forms = (("default", [], "train_throughput_contextual_extraction", "[7c] mixtures/s", train),
              ("--variant contsep", ["--variant", "contsep"], "train_throughput_contsep", "[7c] mixtures/s", train),
@@ -2728,7 +2749,8 @@ def phase16(card, failures, references):
         torch.cuda.synchronize()
         took = time.time() - t0
         counts, n_fwd = fs.launch_counts(), len(recorded)
-        want = {k: v * n_stacks * n_fwd for k, v in fs.launches_per_stack(cfg.num_tf_layers).items()}
+        want = {k: v * n_stacks * n_fwd
+                for k, v in fs.launches_per_stack(cfg.num_tf_layers, None, cfg.d_model, cfg.d_ffn).items()}
         files = [os.path.join(save, "random_init", f"2_speaker_0_ctx_{cue}", f"{f}_{corpus}.txt")
                  for f in ("test_results", "acc")]
         finite = all(math.isfinite(res[k]) for k in ("si_snr", "sdr", "si_snr_i", "sdr_i", "pesq", "pesq_i"))
@@ -2960,7 +2982,7 @@ def phase17(card, failures):
     torch.cuda.synchronize()
     counts = fs.launch_counts()
     n_stacks = 2 * scfg.num_dp_layers
-    per_fwd = {k: v * n_stacks for k, v in fs.launches_per_stack(scfg.num_tf_layers).items()}
+    per_fwd = {k: v * n_stacks for k, v in fs.launches_per_stack(scfg.num_tf_layers, None, scfg.d_model, scfg.d_ffn).items()}
     rl2 = errs(est, plain(mix))[2]
     sep_ms = statistics.median(cuda_ms(lambda: engine(mix)))
     ok = counts == per_fwd and rl2 <= TOL_SERVE_BF16 and tuple(est.shape) == (1, 128000, 2)
@@ -3413,6 +3435,285 @@ def phase18(card, failures, references):
     return out
 
 
+# [19]: the JAX suite's model widths (tests/test_serving.py's TINY: d_model 16, 4 heads of width 4, FFN
+# 32), run beside --debug_tiny_model's (core/cli.py's TINY_MODEL: head width 8) and the paper's
+JAX_TINY = dict(enc_channels=16, enc_kernel=8, enc_stride=4, d_model=16, nhead=4, d_ffn=32, num_tf_layers=2,
+                num_dp_layers=2, chunk_size=10, llm_dim=24, se_dim=12, pe_max_len=256)
+# The whole w8a8 stack against its plain version on the card, at the tiny widths, 2 layers: the JAX
+# suite's stack bar (tests/test_torch_w8a8.py) -> relative L2 <= 1e-3.
+TOL_W8A8_TINY_STACK = 1e-3
+
+
+def loss_grads(model, batch, tcfg, fused):
+    """The loss and every parameter's gradient (the key-bias third of a
+    qkv-bias gradient left out) of make_loss_fn on one batch."""
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.train.step import make_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, _ = make_loss_fn(model, tcfg, fused=fused)(batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    grads = {k: (ft.qv_part(p.grad) if k.endswith("in_proj.bias") else p.grad).clone()
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def held_grads(name, got, want, failures) -> dict:
+    """Loss and gradients of one run against another's, at the training-parity bar."""
+    (lf, gf), (lp, gp) = got, want
+    rl = abs(lf - lp) / abs(lp)
+    worst = sorted(((errs(gf[k], gp[k])[2], k) for k in gp), reverse=True)
+    bad = [k for r, k in worst if not r <= TOL_TRAIN_FP32]
+    ok = rl <= TOL_TRAIN_FP32 and not bad
+    log(f"  {name}: loss {lf:.6f} vs {lp:.6f} (rel {rl:.3e}); {len(gp)} gradients, worst rel_l2 {worst[0][0]:.3e} "
+        f"({worst[0][1]}) (<= {TOL_TRAIN_FP32:.0e})  {'ok' if ok else 'FAIL ' + str(bad)}")
+    if not ok:
+        failures.append(name)
+    return {"loss_rel": rl, "worst_grad_rel_l2": worst[0][0]}
+
+
+def target_batch(model, mix, ctx, gen, n_spks=None):
+    """A batch whose SI-SNR targets are the model's own fp32 estimates plus
+    noise (SI-SNR near +6 dB: no near-cancellation that magnifies summation
+    order): gt from stream 0 and, for n_spks, noises from streams 1 .. n - 1."""
+    with torch.no_grad():
+        out = model(mix, ctx)
+    est = out[0] if isinstance(out, tuple) else out
+
+    def near(e):
+        return e + 0.5 * e.std() * torch.randn(e.shape, device="cuda", generator=gen)
+
+    batch = {"mixed": mix, "gt": near(est[:, :, 0]), "ctx_feat": ctx}
+    if n_spks:
+        batch["noises"] = torch.stack([near(est[:, :, i]) for i in range(1, n_spks)], dim=-1)
+    return batch
+
+
+def phase19(gen, card, failures):
+    """[19] every width: (a)-(d) at --debug_tiny_model's widths and the JAX
+    suite's, B=2, T=4000, seeded weights: the bf16 and w8a8 engines (the w8a8
+    stack's route by shape) against the plain fp32 model, the w8a8 stack
+    against its plain version, the fused step's and the flash step's fp32
+    gradients, and the kernels new at these widths alone (head width 4, the
+    LayerNorm backward at D 16 and 48); (e) the three-speaker forms at the
+    paper's width: a contsep (ce) engine forward at B=16 and one fused
+    ContSep step's gradients on B=2."""
+    import dataclasses
+
+    from cse_tpu_torch.core.cli import TINY_MODEL
+    from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig
+    from cse_tpu_torch.ops import attention as at
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+    from cse_tpu_torch.ops import fused_train as ft
+    from cse_tpu_torch.ops.buckets import aligned_bucket
+    from cse_tpu_torch.serving import ServingEngine
+    from cse_tpu_torch.train.step import TrainConfig
+
+    t_start = time.time()
+    out = {}
+    B, T = 2, 4000
+    for wname, widths in (("cli-tiny", dict(TINY_MODEL)), ("jax-tiny", dict(JAX_TINY))):
+        D, H, F_, NL = widths["d_model"], widths["nhead"], widths["d_ffn"], widths["num_tf_layers"]
+        route = w8.stack_route(D, F_)
+        res = out[wname] = {"d_model": D, "head_width": D // H, "d_ffn": F_, "w8a8_route": route}
+        log(f"[19a] {wname}: d_model {D}, {H} heads of width {D // H}, FFN {F_}, {NL} layers; w8a8 route {route}; "
+            f"B={B}, T={T} (serving vs plain fp32: rel_l2 <= {TOL_SERVE_BF16:.0e})  [{card}]")
+        mix = torch.randn(B, T, device="cuda", generator=gen)
+        for variant in ("context", "contsep"):
+            cfg32 = SepformerConfig(variant=variant, num_spks=2, **widths)
+            ctx = torch.randn(B, 1, cfg32.llm_dim, device="cuda", generator=gen)
+            plain = Sepformer(cfg32, generator=torch.Generator().manual_seed(7)).cuda().eval()(mix, ctx)
+            plain = plain[0] if isinstance(plain, tuple) else plain
+            cfg = dataclasses.replace(cfg32, compute_dtype=torch.bfloat16)
+            n_stacks = 2 * cfg.num_dp_layers
+            for quant in (None, "w8a8"):
+                engine = ServingEngine(cfg, Sepformer(cfg, generator=torch.Generator().manual_seed(7)), quant=quant)
+                w8.reset_launches()
+                est = engine(mix, ctx)
+                torch.cuda.synchronize()
+                est = est[0] if isinstance(est, tuple) else est
+                counts = w8.launch_counts()
+                want = {k: v * n_stacks for k, v in fs.launches_per_stack(NL, quant, D, F_).items()}
+                rl2 = errs(est, plain)[2]
+                ok = (counts == want and tuple(est.shape) == tuple(plain.shape) and bool(torch.isfinite(est).all())
+                      and rl2 <= TOL_SERVE_BF16)
+                tag = f"{variant} {'w8a8' if quant else 'bf16'}"
+                log(f"  {tag:<13s} engine: rel_l2 {rl2:.3e} vs plain fp32; launches {counts} (want {want})  "
+                    f"{'ok' if ok else 'FAIL'}")
+                res[f"{tag} rel_l2"], res[f"{tag} launches"] = rl2, counts
+                if not ok:
+                    failures.append(f"[19a] {wname} {tag} engine")
+                if quant and variant == "context":
+                    # the w8a8 stack alone at the engine's intra shape, kernels against the plain version
+                    K = cfg.chunk_size
+                    x = torch.randn(B * (T // cfg.enc_stride // (K // 2)), K, D, device="cuda",
+                                    generator=gen).to(torch.bfloat16)
+                    wst = engine.stacks["0.intra"]
+                    w8.reset_launches()
+                    got = fs.fused_stack_apply(x, wst, H, torch.bfloat16, quant="w8a8")
+                    torch.cuda.synchronize()
+                    scounts = w8.launch_counts()
+                    srl2 = errs(got, fs.fused_stack_reference(x, wst, H, torch.bfloat16, quant="w8a8"))[2]
+                    sok = srl2 <= TOL_W8A8_TINY_STACK and scounts == fs.launches_per_stack(NL, "w8a8", D, F_)
+                    log(f"  w8a8 stack {tuple(x.shape)} ({route}) vs its plain version: rel_l2 {srl2:.3e} "
+                        f"(<= {TOL_W8A8_TINY_STACK:.0e}); launches {scounts}  {'ok' if sok else 'FAIL'}")
+                    res["w8a8 stack rel_l2"] = srl2
+                    if not sok:
+                        failures.append(f"[19a] {wname} w8a8 stack")
+                del engine, est
+            torch.cuda.empty_cache()
+
+        # (b) the fused step, (c) the flash step: fp32 gradients against the plain model
+        log(f"[19b] {wname}: make_loss_fn(fused=True) vs the plain model, fp32, B={B}; [19c] flash "
+            f"(use_flash_attention) vs the plain model")
+        cfg = SepformerConfig(variant="context", num_spks=2, **widths)
+        ctx = torch.randn(B, 1, cfg.llm_dim, device="cuda", generator=gen)
+        model = Sepformer(cfg, generator=torch.Generator().manual_seed(8)).cuda()
+        batch = target_batch(model, mix, ctx, gen)
+        n_stacks = 2 * cfg.num_dp_layers
+        tcfg = TrainConfig(variant="context")
+        plain_lg = loss_grads(model, batch, tcfg, False)
+        ft.reset_launches()
+        at.reset_launches()
+        fused_lg = loss_grads(model, batch, tcfg, True)
+        counts, want = ft.launch_counts(), {k: v * n_stacks for k, v in ft.launches_per_train_stack(NL).items()}
+        res["fused step"] = held_grads(f"[19b] {wname} fused step", fused_lg, plain_lg, failures)
+        res["fused step"]["launches"] = counts
+        log(f"  fused step launches {counts} (want {want})  {'ok' if counts == want else 'FAIL'}")
+        if counts != want:
+            failures.append(f"[19b] {wname} fused step launches")
+        flash = Sepformer(dataclasses.replace(cfg, use_flash_attention=True), generator=torch.Generator().manual_seed(8))
+        flash = flash.cuda()
+        ft.reset_launches()
+        at.reset_launches()
+        flash_lg = loss_grads(flash, batch, tcfg, False)
+        fcounts = at.launch_counts()
+        fwant = at.launches_per_step(n_stacks * NL, False)
+        res["flash step"] = held_grads(f"[19c] {wname} flash step", flash_lg, plain_lg, failures)
+        res["flash step"]["launches"] = fcounts
+        log(f"  flash step launches {fcounts} (want {fwant})  {'ok' if fcounts == fwant else 'FAIL'}")
+        if fcounts != fwant:
+            failures.append(f"[19c] {wname} flash step launches")
+        del model, flash, batch, plain_lg, fused_lg, flash_lg
+        torch.cuda.empty_cache()
+
+    # (d) the kernels new at these widths, alone against their plain versions ([12a]'s bars)
+    log(f"[19d] head width 4 and the LayerNorm backward below 32 columns vs plain (fp32: max_rel <= {TOL_FP32:.0e}; "
+        f"bf16: rel_l2 <= {TOL_BF16:.0e})")
+    kerr = out["kernels"] = {}
+
+    def held(key, e):
+        kerr[key] = max(kerr.get(key, 0.0), e)
+
+    H = 4
+    D = 4 * H
+    for G, L in ((400, 10), (20, 201), (4, 300)):  # jax-tiny's intra and inter shapes, and L > 256
+        M = G * L
+        for cd in (torch.float32, torch.bfloat16):
+            tag = f"{'fp32' if cd == torch.float32 else 'bf16'} G={G} L={L}"
+            qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
+            held("attention", check(f"attention hd 4 {tag}", fs.attention(qkv, L, H, cd),
+                                    fs.attention_plain(qkv, L, H, cd), cd, failures))
+            if cd == torch.bfloat16:
+                held("attention", check(f"attention hd 4 bf16 -> fp32 out G={G} L={L}",
+                                        fs.attention(qkv, L, H, torch.float32, None, cd),
+                                        fs.attention_plain(qkv, L, H, torch.float32, None, cd), cd, failures))
+            sk, sp = (torch.empty(2, M, H, device="cuda") for _ in range(2))
+            held("attention", check(f"attention+stats hd 4 {tag}", fs.attention(qkv, L, H, cd, sk),
+                                    fs.attention_plain(qkv, L, H, cd, sp), cd, failures))
+            held("attention", check(f"attention+stats hd 4 {tag} stats", sk, sp, torch.float32, failures))
+            dattn = torch.randn(M, D, device="cuda", generator=gen)
+            (got, gb), (want, wb) = (ft.attention_backward(qkv, dattn, sp, L, H, cd),
+                                     ft.attention_backward_plain(qkv, dattn, sp, L, H, cd))
+            held("attention_backward", check(f"attention_backward hd 4 {tag}", got, want, cd, failures))
+            held("attention_backward", check(f"attention_backward hd 4 {tag} dbias (q, v)", ft.qv_part(gb),
+                                             ft.qv_part(wb), cd, failures))
+            q, k, v, do = (torch.randn(G, H, L, 4, device="cuda", generator=gen).to(cd) for _ in range(4))
+            (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
+            held("flash_fwd", check(f"flash_fwd hd 4 {tag} o", o, po, cd, failures))
+            held("flash_fwd", check(f"flash_fwd hd 4 {tag} lse", lse, plse, torch.float32, failures))
+            for gname, g, w in zip(("dq", "dk", "dv"), at.flash_bwd(q, k, v, po, plse, do),
+                                   at.flash_bwd_plain(q, k, v, po, plse, do)):
+                held("flash_bwd", check(f"flash_bwd hd 4 {tag} {gname}", g, w, cd, failures))
+    routes = {f"L={L}": {"attention": fs.attention_info(L, 4)["route"],
+                         "attention_backward": ft.attention_backward_info(L, 4)["route"],
+                         "flash_fwd": at.flash_fwd_info(L, 4)["route"], "flash_bwd": at.flash_bwd_info(L, 4)["route"]}
+              for L in (10, 201, 300)}
+    log(f"  head width 4 routes: {routes}")
+    out["hd4_routes"] = routes
+    for Dn in (16, 48):
+        M = 20000
+        x = 3 * torch.randn(M, Dn, device="cuda", generator=gen) + 0.5
+        dh = torch.randn(M, Dn, device="cuda", generator=gen)
+        sc = 1 + 0.1 * torch.randn(Dn, device="cuda", generator=gen)
+        g32 = torch.randn(M, Dn, device="cuda", generator=gen)
+        for cd in (torch.float32, torch.bfloat16):
+            name = f"layer_norm_backward D={Dn} {'fp32' if cd == torch.float32 else 'bf16'} out"
+            (k32, kcd, ks), (p32, pcd, ps) = (fn(dh, x, sc, g32.clone(), torch.empty(M, Dn, device="cuda"), cd)
+                                              for fn in (ft.layer_norm_backward, ft.layer_norm_backward_plain))
+            held("layer_norm_backward", check(f"{name} g_out fp32", k32, p32, torch.float32, failures))
+            held("layer_norm_backward", check(f"{name} g_out cd", kcd, pcd, cd, failures))
+            held("layer_norm_backward", check(f"{name} sums", ks, ps, torch.float32, failures))
+        info = ft.layer_norm_backward_info(M, Dn)
+        log(f"  layer_norm_backward D={Dn}: path {info['path']}, grid {info['grid']}, {info['registers']} registers, "
+            f"{info['local_bytes']} local bytes")
+        out[f"ln_bwd D={Dn} path"] = info["path"]
+    torch.cuda.empty_cache()
+
+    # (e) the three-speaker forms at the paper's width
+    B3, T3 = 16, aligned_bucket(128000)
+    log(f"[19e] num_spks=3, paper width: contsep (ce) ServingEngine bf16, B={B3}, T={T3}, vs plain fp32 "
+        f"(rel_l2 <= {TOL_SERVE_BF16:.0e}); one fused ContSep step's fp32 gradients on B=2 (<= {TOL_TRAIN_FP32:.0e})")
+    cfg32 = SepformerConfig(variant="contsep", num_spks=3, ce=True)
+    mix = torch.randn(B3, T3, device="cuda", generator=gen)
+    ctx = torch.randn(B3, 1, cfg32.llm_dim, device="cuda", generator=gen)
+    plain_est, plain_logits = Sepformer(cfg32, generator=torch.Generator().manual_seed(9)).cuda().eval()(mix, ctx)
+    cfg = dataclasses.replace(cfg32, compute_dtype=torch.bfloat16)
+    engine = ServingEngine(cfg, Sepformer(cfg, generator=torch.Generator().manual_seed(9)))
+    fs.reset_launches()
+    est, logits = engine(mix, ctx)
+    torch.cuda.synchronize()
+    counts = fs.launch_counts()
+    want = {k: v * 2 * cfg.num_dp_layers for k, v in fs.launches_per_stack(cfg.num_tf_layers, None, cfg.d_model,
+                                                                           cfg.d_ffn).items()}
+    rl2, lrl2 = errs(est, plain_est)[2], errs(logits, plain_logits)[2]
+    ok = (tuple(est.shape) == (B3, T3, 3) and bool(torch.isfinite(est).all()) and rl2 <= TOL_SERVE_BF16
+          and counts == want)
+    log(f"  contsep 3 speakers: est {tuple(est.shape)} rel_l2 {rl2:.3e}, logits {tuple(logits.shape)} rel_l2 "
+        f"{lrl2:.3e}; launches {counts} (want {want})  {'ok' if ok else 'FAIL'}")
+    out["3spk serving"] = {"rel_l2": rl2, "logits_rel_l2": lrl2, "launches": counts}
+    if not ok:
+        failures.append("[19e] three-speaker serving")
+    del engine, est, logits, plain_est, plain_logits, mix, ctx
+    torch.cuda.empty_cache()
+    B2 = 2
+    mix = torch.randn(B2, T3, device="cuda", generator=gen)
+    ctx = torch.randn(B2, 1, cfg32.llm_dim, device="cuda", generator=gen)
+    model = Sepformer(cfg32, generator=torch.Generator().manual_seed(10)).cuda()
+    batch = target_batch(model, mix, ctx, gen, n_spks=3)
+    tcfg = TrainConfig(variant="contsep", use_ce=True)
+    plain_lg = loss_grads(model, batch, tcfg, False)
+    ft.reset_launches()
+    fused_lg = loss_grads(model, batch, tcfg, True)
+    counts = ft.launch_counts()
+    want = {k: v * 2 * cfg32.num_dp_layers for k, v in ft.launches_per_train_stack(cfg32.num_tf_layers).items()}
+    out["3spk fused step"] = held_grads("[19e] contsep 3 speakers fused step", fused_lg, plain_lg, failures)
+    log(f"  fused step launches {counts} (want {want})  {'ok' if counts == want else 'FAIL'}")
+    if counts != want:
+        failures.append("[19e] three-speaker step launches")
+    del model, batch, plain_lg, fused_lg
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_start
+    log(f"  [19] took {out['seconds']:.1f} s")
+    if failures:
+        fail(f"[19] every width failed: {failures}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -3525,7 +3826,7 @@ def main() -> int:
             fail(f"serving output {tuple(out.shape)} (want {(B, T, 1)}) or non-finite")
         if cd == torch.bfloat16:
             main_counts = counts
-            per_stack = fs.launches_per_stack(cfg.num_tf_layers)
+            per_stack = fs.launches_per_stack(cfg.num_tf_layers, None, cfg.d_model, cfg.d_ffn)
             n_stacks = 2 * cfg.num_dp_layers
             want = {k: v * n_stacks for k, v in per_stack.items()}
             log(f"  launches in one bf16 forward: {counts} (want {want}, total {sum(want.values())})")
@@ -3627,7 +3928,23 @@ def main() -> int:
             plain_ms=time_ms(lambda: fs.fused_stack_reference(xs, w, H, cd), reps=2, warmup=1),
             bound_ms=1e3 * stk_flops / PEAK_BF16, bound_by="operations",
         )
-        del w, xs
+        # one PyTorch call for the same 8 pre-LN layers and final LN (its residual bf16, not fp32), timed only:
+        # inference under inference_mode (its fused fast path; #1's yardstick), and one layer's training
+        # forward with autograd recording (#3's)
+        enc = torch.nn.TransformerEncoder(
+            torch.nn.TransformerEncoderLayer(D, H, F_, dropout=0.0, batch_first=True, norm_first=True,
+                                             layer_norm_eps=fs.LN_EPS),
+            NL, norm=torch.nn.LayerNorm(D, eps=fs.LN_EPS), enable_nested_tensor=False).to("cuda", cd)
+        with torch.inference_mode():
+            stk["library_ms"] = time_ms(lambda: enc.eval()(xs), reps=5)
+        layer = enc.layers[0].train()
+        with torch.enable_grad():
+            xg = xs.detach().clone().requires_grad_(True)
+            stk["library_train_layer_ms"] = time_ms(lambda: layer(xg), reps=5)
+        log(f"  {shape_name} nn.TransformerEncoder (8 layers + LN, bf16 residual) under inference_mode "
+            f"{stk['library_ms']:.4f} ms; one TransformerEncoderLayer training forward "
+            f"{stk['library_train_layer_ms']:.4f} ms  [{card}]")
+        del w, xs, enc, layer, xg
         torch.cuda.empty_cache()
         times[shape_name] = {"layer_norm": ln, "linear": lin, "attention": att, "fused_stack": stk}
         for kname, t in times[shape_name].items():
@@ -3693,6 +4010,7 @@ def main() -> int:
     dp = phase18(card, failures, {"[7c] step ms": bench["step_ms"], "[11] fused": trainer["fused"]["sustained_mixtures_per_s"],
                                   "[14] default": benches["default"]["value"]})
     log(f"  [18] took {time.time() - t0:.1f} s")
+    widths = phase19(gen, card, failures)
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -3848,7 +4166,7 @@ def main() -> int:
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
                       "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext,
-                      "cascaded": cascaded, "data_parallel": dp}),
+                      "cascaded": cascaded, "data_parallel": dp, "every_width": widths}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@
 // L padded to a multiple of 128 (one product, one exp). An SM has 227 KB of
 // shared memory and the registers are the scarcer store, so here scores live
 // only in registers and no padding is stored: keys past L are masked (p = 0)
-// and rows past L are not written. Any L; head width DH in {8, 16, 32, 48, 64}.
+// and rows past L are not written. Any L; head width DH in {4, 8, 16, 32, 48,
+// 64} (DH 4 in common.cuh's Head<8>-shaped tiles: a row is one 8-byte chunk).
 //
 // Arithmetic, that of the TPU kernels:
 //   forward  s = (q . k^T) * scale in fp32 (the scale after the product),
@@ -93,15 +94,29 @@ __device__ __forceinline__ void split_pack(float a, float b, unsigned& hi, unsig
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
+// a row of [L, DH] bf16 moves in chunks of CW columns: 16 bytes, or the
+// whole 8-byte row at DH 4
+template <int DH>
+__host__ __device__ constexpr int chunk_cols() { return DH < 8 ? DH : 8; }
+template <int DH>
+using Chunk = std::conditional_t<chunk_cols<DH>() == 8, uint4, uint2>;
+
+// one chunk global -> shared by cp.async (zero-filled when !pred)
+template <int DH>
+__device__ __forceinline__ void cp_async_chunk(bf16* smem, const bf16* gmem, bool pred) {
+  if constexpr (DH < 8) cp_async8(smem, gmem, pred);
+  else cp_async16(smem, gmem, pred);
+}
+
 // rows r0 .. r0 + n - 1 of src [L, DH] (bf16) into dst [n][LDH], zero past L
 template <int DH>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int r0, int n, int L) {
-  constexpr int C = DH / 8;  // 16-byte chunks per row
+  constexpr int CW = chunk_cols<DH>(), C = DH / CW;  // chunks per row
   for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
-    const int r = e / C, c = (e % C) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < L) v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * DH + c);
-    *reinterpret_cast<uint4*>(dst + r * Head<DH>::LD + c) = v;
+    const int r = e / C, c = (e % C) * CW;
+    Chunk<DH> v{};
+    if (r0 + r < L) v = *reinterpret_cast<const Chunk<DH>*>(src + (long long)(r0 + r) * DH + c);
+    *reinterpret_cast<Chunk<DH>*>(dst + r * Head<DH>::LD + c) = v;
   }
 }
 
@@ -114,16 +129,18 @@ __device__ __forceinline__ void load_afrag(unsigned (&f)[Head<DH>::KS][4], const
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
       const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
-      const bool in = ks * 16 + hi * 8 < DH;  // a half k-step is zero
+      const bool in = ks * 16 + hi * 8 < DH && in_head<DH>(ks * 16 + hi * 8, lane);  // past the head: zero
       f[ks][hi * 2] = in && ra < L ? ld_pair(x + (long long)ra * DH + d) : 0u;
       f[ks][hi * 2 + 1] = in && rb < L ? ld_pair(x + (long long)rb * DH + d) : 0u;
     }
 }
 
 template <int DH>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DH / 8][4], int ra, int L, int lane) {
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Head<DH>::NT][4], int ra, int L,
+                                           int lane) {
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
+  for (int j = 0; j < Head<DH>::NT; ++j) {
+    if (!in_head<DH>(j * 8, lane)) continue;  // DH 4: the tile's columns 4 .. 7
     const int d = j * 8 + (lane & 3) * 2;
     if (ra < L)
       *reinterpret_cast<__nv_bfloat162*>(out + (long long)ra * DH + d) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
@@ -165,9 +182,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     load_kv(0, true);
     __syncthreads();
   }
-  float ma = NEG_INF, mb = NEG_INF, za = 0.f, zb = 0.f, acc[DH / 8][4];
+  float ma = NEG_INF, mb = NEG_INF, za = 0.f, zb = 0.f, acc[Head<DH>::NT][4];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < Head<DH>::NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -249,17 +266,17 @@ __global__ void __launch_bounds__(256, 1)
 flash_fwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                             bf16* __restrict__ o, float* __restrict__ lse, int L, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = Head<DH>::LD, C = DH / 8;
+  constexpr int LD = Head<DH>::LD, CW = chunk_cols<DH>(), C = DH / CW;
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [NB * 16][LD]
   bf16* Vs = Ks + NB * 16 * LD;
   const long long bh = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const long long off = bh * L * DH;
   for (int e = threadIdx.x; e < NB * 16 * C; e += blockDim.x) {
-    const int r = e / C, c = (e % C) * 8;
+    const int r = e / C, c = (e % C) * CW;
     const long long g = off + (long long)min(r, L - 1) * DH + c;
-    cp_async16(Ks + r * LD + c, k + g, r < L);  // zero past L
-    cp_async16(Vs + r * LD + c, v + g, r < L);
+    cp_async_chunk<DH>(Ks + r * LD + c, k + g, r < L);  // zero past L
+    cp_async_chunk<DH>(Vs + r * LD + c, v + g, r < L);
   }
   cp_async_commit();
   const float NEG_INF = __int_as_float(0xff800000);
@@ -298,9 +315,9 @@ flash_fwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     strip_exp<NB, true>(s, m, c2, z);  // p in place of s
     const float iz[2] = {1.0f / z[0], 1.0f / z[1]};
     // o = cd(p / z) . v
-    float acc[DH / 8][4];
+    float acc[Head<DH>::NT][4];
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < Head<DH>::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
@@ -458,9 +475,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_afrag<DH>(da, dout + off, ra, L, lane);
   const float la = ra < L ? lse[bh * L + ra] : 0.f, lb = rb < L ? lse[bh * L + rb] : 0.f;
   const float ea = ra < L ? delta[bh * L + ra] : 0.f, eb = rb < L ? delta[bh * L + rb] : 0.f;
-  float acc[DH / 8][4];
+  float acc[Head<DH>::NT][4];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < Head<DH>::NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -522,9 +539,9 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   unsigned kf[Head<DH>::KS][4], vf[Head<DH>::KS][4];
   load_afrag<DH>(kf, k + off, ka, L, lane);
   load_afrag<DH>(vf, v + off, ka, L, lane);
-  float gk[DH / 8][4], gv[DH / 8][4];
+  float gk[Head<DH>::NT][4], gv[Head<DH>::NT][4];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < Head<DH>::NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
 
@@ -619,7 +636,7 @@ flash_bwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                             bf16* __restrict__ dv, int L, float scale) {
   using S = BwdStrip<DH, NB>;
   constexpr int LD = S::LD, QC = S::QC, LDT = S::LDT, LDP = S::LDP, NT = Head<DH>::NT, KS = Head<DH>::KS;
-  constexpr int C = DH / 8;  // 16-byte chunks a row
+  constexpr int CW = chunk_cols<DH>(), C = DH / CW;  // chunks a row
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + S::NR * LD;
@@ -638,8 +655,8 @@ flash_bwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
   auto fetch = [&](bf16* dst, const bf16* src, int r0, int n) {  // rows r0 .. r0 + n - 1, zero past L
     for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
-      const int r = r0 + e / C, c = (e % C) * 8;
-      cp_async16(dst + r * LD + c, src + off + (long long)min(r, L - 1) * DH + c, r < L);
+      const int r = r0 + e / C, c = (e % C) * CW;
+      cp_async_chunk<DH>(dst + r * LD + c, src + off + (long long)min(r, L - 1) * DH + c, r < L);
     }
   };
   fetch(Ks, k, 0, S::NR);
@@ -659,12 +676,13 @@ flash_bwd_strip_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       l = lse[bh * L + r] * LOG2E;
       const bf16 *orow = o + off + (long long)r * DH, *drow = dout + off + (long long)r * DH;
 #pragma unroll
-      for (int c = 0; c < DH; c += 8) {
-        const uint4 a = *reinterpret_cast<const uint4*>(orow + c), b = *reinterpret_cast<const uint4*>(drow + c);
+      for (int c = 0; c < DH; c += CW) {
+        const Chunk<DH> a = *reinterpret_cast<const Chunk<DH>*>(orow + c);
+        const Chunk<DH> b = *reinterpret_cast<const Chunk<DH>*>(drow + c);
         const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
         const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < CW / 2; ++i) {
           const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
           d = fmaf(y.x, x.x, d);
           d = fmaf(y.y, x.y, d);
@@ -1108,7 +1126,7 @@ cudaError_t launch_bwd(int bf, const void* q, const void* k, const void* v, cons
 extern "C" {
 
 // o [BH, L, dh] (bf16 when bf16 else fp32), lse [BH, L] fp32 = flash forward
-// of q, k, v [BH, L, dh] (same type); dh in {8, 16, 32, 48, 64}.
+// of q, k, v [BH, L, dh] (same type); dh in {4, 8, 16, 32, 48, 64}.
 int cse_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bf, int BH, int L, int dh,
                   float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

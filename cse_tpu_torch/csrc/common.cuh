@@ -1,8 +1,9 @@
 // Device helpers shared by the kernel sources: type conversion, warp
 // reductions, streaming loads and stores, cp.async, one-dimensional bulk
 // copies, ldmatrix and the bf16 mma.sync m16n8k16, the
-// head-width fragments of the attention kernels (any head width that is a
-// multiple of 8: a half k-step is zero-padded inside the fragment), ex2, the
+// head-width fragments of the attention kernels (head width 4 or any multiple
+// of 8: the columns of a k-step past the head are zeroed inside the
+// fragment), ex2, the
 // row max and exp of a warp's score strip, the staging of fp32 rows as bf16
 // tiles, Hopper's mbarrier, TMA and wgmma (bf16 and s8) with the TMA ring,
 // the operand descriptors, the swizzled epilogue tile and the
@@ -85,6 +86,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const int n = pred ? 16 : 0;  // 0 bytes read -> the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem), "r"(n));
 }
+// 8 bytes (a row of a head of width 4 in bf16), through L1
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool pred) {
+  const int n = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
@@ -115,30 +121,48 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------- head widths
-// A head of HD columns (HD % 8 == 0) on mma.sync m16n8k16: a product that
-// contracts over the head takes KS k-steps of 16, the last one half zero when
-// HD % 16 == 8 (its upper eight columns are set to zero in both fragments, so
-// the padding columns of a shared-memory tile are never read into a sum); a
-// product whose output spans the head has HD / 8 n8 tiles. Tiles in shared
-// memory are bf16 rows of HD + 8 elements (ldmatrix without bank conflicts).
+// A head of HD columns (HD % 8 == 0, or HD == 4) on mma.sync m16n8k16: a
+// product that contracts over the head takes KS k-steps of 16, the last one
+// half zero when the head ends eight columns into it (its upper eight columns
+// are set to zero in both fragments, so the padding columns of a
+// shared-memory tile are never read into a sum); a product whose output spans
+// the head has NT n8 tiles. Tiles in shared memory are bf16 rows of LD
+// elements (ldmatrix without bank conflicts). Head width 4 is staged in a
+// Head<8>-shaped tile (W = 8 columns, of which 4 .. 7 are never written):
+// its one k-step zeroes its upper twelve columns in both fragments (QUARTER:
+// the lanes whose column pair lies at 4 .. 7 as well as HALF's eight), and
+// its one n8 output tile is stored only in its first four columns (in_head).
 template <int HD>
 struct Head {
-  static_assert(HD % 8 == 0 && HD >= 8, "head width must be a multiple of 8");
-  static constexpr int KS = (HD + 15) / 16;
-  static constexpr int NT = HD / 8;
-  static constexpr int LD = HD + 8;
-  static constexpr bool HALF = HD % 16 == 8;
+  static_assert((HD % 8 == 0 && HD >= 8) || HD == 4, "head width must be 4 or a multiple of 8");
+  static constexpr int W = HD < 8 ? 8 : HD;  // columns a fragment spans
+  static constexpr int KS = (W + 15) / 16;
+  static constexpr int NT = W / 8;
+  static constexpr int LD = W + 8;
+  static constexpr bool HALF = W % 16 == 8;
+  static constexpr bool QUARTER = HD % 8 != 0;
 };
 
+// whether this lane's column pair c0 + 2 (lane % 4), + 1 of an eight-column
+// group starting at c0 (an n8 tile's, or a k-step half's) lies in the head;
+// always, for a head width that is a multiple of 8
+template <int HD>
+__device__ __forceinline__ bool in_head(int c0, int lane) {
+  return HD % 8 == 0 || c0 + 2 * (lane & 3) < HD;
+}
+
 // The head widths the attention kernels are instantiated for, listed once:
-// HeadWidths (ops/fused_stack.py::HEAD_WIDTHS) and, for the flash kernels,
-// FlashHeadWidths (ops/attention.py::HEAD_WIDTHS). by_head_width(list, hd, f)
+// HeadWidths (ops/fused_stack.py::HEAD_WIDTHS), for the flash kernels
+// FlashHeadWidths (ops/attention.py::HEAD_WIDTHS) and for the tool's
+// KpHeadWidths (ops/kernel_parts.py::HEAD_WIDTHS). by_head_width(list, hd, f)
 // returns (int)f(std::integral_constant<int, HD>{}) for the listed HD equal to
 // hd, and cudaErrorInvalidValue for any other hd.
 template <int... W>
 struct Widths {};
-using HeadWidths = Widths<8, 16, 32, 64>;
-using FlashHeadWidths = Widths<8, 16, 32, 48, 64>;
+using HeadWidths = Widths<4, 8, 16, 32, 64>;
+using FlashHeadWidths = Widths<4, 8, 16, 32, 48, 64>;
+// the kernel-parts tool's attention (kernel_parts.cu), at the widths of its own runs
+using KpHeadWidths = Widths<8, 16, 32, 64>;
 
 template <int... W, class F>
 int by_head_width(Widths<W...>, int hd, F&& f) {
@@ -161,6 +185,7 @@ __device__ __forceinline__ void prod16(float (&s)[2][4], const unsigned (&xa)[He
     unsigned f[4];  // {b0, b1} of rows cb .. cb + 7, then of rows cb + 8 .. cb + 15
     ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * Head<HD>::LD + ks * 16 + ((lane >> 3) & 1) * 8);
     if (Head<HD>::HALF && ks == Head<HD>::KS - 1) f[1] = f[3] = 0u;
+    if (Head<HD>::QUARTER && !in_head<HD>(0, lane)) f[0] = f[2] = 0u;
     mma_bf16_16816(s[0], xa[ks], f[0], f[1]);
     mma_bf16_16816(s[1], xa[ks], f[2], f[3]);
   }
@@ -181,6 +206,7 @@ __device__ __forceinline__ void prod16_smem(float (&s)[2][4], const bf16* Xs, in
     ldmatrix_x4(a, Xs + (r0 + (lane & 15)) * Head<HD>::LD + ks * 16 + (lane >> 4) * 8);
     ldmatrix_x4(f, Ys + (cb + (lane & 7) + ((lane >> 4) << 3)) * Head<HD>::LD + ks * 16 + ((lane >> 3) & 1) * 8);
     if (Head<HD>::HALF && ks == Head<HD>::KS - 1) a[2] = a[3] = f[1] = f[3] = 0u;
+    if (Head<HD>::QUARTER && !in_head<HD>(0, lane)) a[0] = a[1] = f[0] = f[2] = 0u;
     mma_bf16_16816(s[0], a, f[0], f[1]);
     mma_bf16_16816(s[1], a, f[2], f[3]);
   }
@@ -206,6 +232,7 @@ __device__ __forceinline__ void afrag_smem(unsigned (&f)[Head<HD>::KS][4], const
   for (int ks = 0; ks < Head<HD>::KS; ++ks) {
     ldmatrix_x4(f[ks], Xs + (r0 + (lane & 15)) * Head<HD>::LD + ks * 16 + (lane >> 4) * 8);
     if (Head<HD>::HALF && ks == Head<HD>::KS - 1) f[ks][2] = f[ks][3] = 0u;
+    if (Head<HD>::QUARTER && !in_head<HD>(0, lane)) f[ks][0] = f[ks][1] = 0u;
   }
 }
 
@@ -222,7 +249,7 @@ __device__ __forceinline__ void afrag_f32(unsigned (&f)[Head<HD>::KS][4], const 
     for (int hi = 0; hi < 2; ++hi) {
       const int d = ks * 16 + hi * 8 + (lane & 3) * 2;
       float2 xa = make_float2(0.f, 0.f), xb = xa;
-      if (ks * 16 + hi * 8 < HD) {
+      if (ks * 16 + hi * 8 < HD && in_head<HD>(ks * 16 + hi * 8, lane)) {
         if (ra < L) xa = *reinterpret_cast<const float2*>(x + (long long)ra * stride + d);
         if (rb < L) xb = *reinterpret_cast<const float2*>(x + (long long)rb * stride + d);
       }

@@ -25,8 +25,8 @@
 //       K, N <= 1024 the bytes bound it: the fp32 qkv write and the fp32
 //       residual read-modify-write outweigh the operations.
 //   (c) attention_*_kernel: masked MHSA of one (sequence, head) per block
-//       over the packed fp32 qkv, head width HD a template argument (8, 16,
-//       32, 64). The TPU kernel's arithmetic: q*scale, k and v rounded to
+//       over the packed fp32 qkv, head width HD a template argument (4, 8,
+//       16, 32, 64; hd 4 in common.cuh's Head<8>-shaped tiles). The TPU kernel's arithmetic: q*scale, k and v rounded to
 //       cd, fp32 scores, m = max over the L keys, p = exp(s - m), z summed
 //       from the unrounded p, cd(p).cd(v) in fp32, divided by z after PV.
 //       bf16, routed by L alone:
@@ -543,6 +543,7 @@ __device__ __forceinline__ void store_strip(TO* out, float* stats, const float (
                                             int L, int D, int H, int h, long long MH, int lane) {
 #pragma unroll
   for (int j = 0; j < Head<HD>::NT; ++j) {
+    if (!in_head<HD>(j * 8, lane)) continue;  // hd 4: the tile's columns 4 .. 7
     const int d = h * HD + j * 8 + (lane & 3) * 2;
     if (ra < L) store_pair(out + row_a * D + d, o[j][0] / z[0], o[j][1] / z[0]);
     if (ra + 8 < L) store_pair(out + (row_a + 8) * D + d, o[j][2] / z[1], o[j][3] / z[1]);
@@ -895,7 +896,7 @@ int cse_linear(const void* a, const void* w, const void* bias, void* c, int bf16
   }
 }
 
-// out[G*L, H*hd] = masked MHSA of qkv[G*L, 3*H*hd], hd in {8, 16, 32, 64};
+// out[G*L, H*hd] = masked MHSA of qkv[G*L, 3*H*hd], hd in {4, 8, 16, 32, 64};
 // mode: see launch_attention (0: fp32, 1: bf16, 2: bf16 operands with an
 // fp32 out); stats (null, or [2, G*L, H] fp32) receives each row's max and 1/z.
 int cse_attention(const void* qkv, void* out, int mode, int G, int L, int H, int hd,

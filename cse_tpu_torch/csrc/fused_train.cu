@@ -38,8 +38,8 @@
 //       the tensor cores with the [16 x 16] score, p, dp and ds tiles in
 //       registers; fp32 on CUDA-core FMAs. Both write cd(dqkv) and per-tile
 //       column partials of the fp32 dq | dk | dv (the qkv bias gradient).
-//       Head width HD in {8, 16, 32, 64} (a template argument; common.cuh's
-//       fragments zero-pad a half k-step). Bound by bytes at head width 32
+//       Head width HD in {4, 8, 16, 32, 64} (a template argument; common.cuh's
+//       fragments zero the columns of a k-step past the head). Bound by bytes at head width 32
 //       (fp32 qkv and dattn in, cd dqkv out).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
@@ -241,9 +241,10 @@ wgrad_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float
 //     row's reductions instead ran 1.3% slower at 16 bytes an element and
 //     0.8% faster at 14, in turns on an NVIDIA H100 80GB HBM3 at 700 W:
 //     PERF.md.)
-//   - other D % 32 == 0 up to LNB_MAXD, layer_norm_bwd_narrow_kernel: warp w
+//   - other D % 8 == 0 up to LNB_MAXD, layer_norm_bwd_narrow_kernel: warp w
 //     of the grid's W takes rows w, w + W, ..., lane l columns l + 32 j,
-//     masked, the next row's loads sent before this row's reductions;
+//     masked past D (a D below 32 leaves lanes idle), the next row's loads
+//     sent before this row's reductions;
 //   - the four column sums (dscale, dbias, colsum(g_in), colsum(g_out)) of a
 //     lane's columns stay in registers over the warp's rows, the warps meet
 //     in shared memory in warp order, one partial row per block, and
@@ -251,7 +252,7 @@ wgrad_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float
 // The arithmetic is _ln_bwd's (cse_tpu/ops/fused_train.py:77): mean, the
 // centred variance, dx = inv * (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
 // g_out = g_in + dx.
-constexpr int LNB_MAXD = 256;  // columns per row (D % 32 == 0, D <= 256)
+constexpr int LNB_MAXD = 256;  // columns per row (D % 8 == 0, D <= 256)
 constexpr int LNB_THREADS = 256, LNB_WARPS = LNB_THREADS / 32;
 constexpr int LNB_STAGES = 4;  // tiles of LNB_WARPS rows in flight a block (the wide path)
 
@@ -537,7 +538,7 @@ cudaError_t by_lnb_dtypes(int g_in_bf16, int out_bf16, F&& f) {
 }
 
 // ---------------------------------------------------------------- (c) attention backward
-// Head width HD (8, 16, 32, 64) is a template argument throughout.
+// Head width HD (4, 8, 16, 32, 64) is a template argument throughout.
 constexpr int STRIP_MAX_L = 256;  // the bf16 route: one block a (sequence, head) up to here
 constexpr int KT = 256;    // keys per shared-memory tile (dq kernels)
 constexpr int QT = 128;    // queries per shared-memory tile (dk/dv kernels)
@@ -681,10 +682,11 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
     float v[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = scale * dq[j][e];
-    if (ra < L)
+    const bool in = in_head<HD>(j * 8, lane);  // hd 4: not the tile's columns 4 .. 7
+    if (in && ra < L)
       *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)g * L + ra) * D3 + h * HD + d) =
           __floats2bfloat162_rn(v[0], v[1]);
-    if (rb < L)
+    if (in && rb < L)
       *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)g * L + rb) * D3 + h * HD + d) =
           __floats2bfloat162_rn(v[2], v[3]);
 #pragma unroll
@@ -698,6 +700,7 @@ attention_bwd_dq_bf16_kernel(const float* __restrict__ qkv, const float* __restr
   if (lane < 4)
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
+      if (!in_head<HD>(j * 8, lane)) continue;
       red[warp][j * 8 + lane * 2] = cs[j][0];
       red[warp][j * 8 + lane * 2 + 1] = cs[j][1];
     }
@@ -803,10 +806,11 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
     for (int j = 0; j < NT; ++j) {
       const float* v = t == 0 ? dk[j] : dv[j];
       const int col = (t + 1) * D + h * HD + j * 8 + (lane & 3) * 2;
-      if (ka_ < L)
+      const bool in = in_head<HD>(j * 8, lane);
+      if (in && ka_ < L)
         *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)g * L + ka_) * D3 + col) =
             __floats2bfloat162_rn(v[0], v[1]);
-      if (kb_ < L)
+      if (in && kb_ < L)
         *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)g * L + kb_) * D3 + col) =
             __floats2bfloat162_rn(v[2], v[3]);
 #pragma unroll
@@ -822,6 +826,7 @@ attention_bwd_dkdv_bf16_kernel(const float* __restrict__ qkv, const float* __res
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
+        if (!in_head<HD>(j * 8, lane)) continue;
         red[warp][t * HD + j * 8 + lane * 2] = cs[t][j][0];
         red[warp][t * HD + j * 8 + lane * 2 + 1] = cs[t][j][1];
       }
@@ -1048,14 +1053,15 @@ attention_bwd_strip_bf16_kernel(const float* __restrict__ qkv, const float* __re
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = mul * x[j][e];
         bf16* o = dqkv + ((long long)g * L + ra) * D3 + t * D + h * HD + j * 8 + 2 * q4;
-        if (ra < L) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
-        if (rb < L) *reinterpret_cast<__nv_bfloat162*>(o + 8 * D3) = __floats2bfloat162_rn(v[2], v[3]);
+        const bool in = in_head<HD>(j * 8, lane);  // hd 4: not the tile's columns 4 .. 7
+        if (in && ra < L) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+        if (in && rb < L) *reinterpret_cast<__nv_bfloat162*>(o + 8 * D3) = __floats2bfloat162_rn(v[2], v[3]);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float c = (ra < L ? v[e] : 0.f) + (rb < L ? v[2 + e] : 0.f);
 #pragma unroll
           for (int o2 = 4; o2 < 32; o2 <<= 1) c += __shfl_xor_sync(FULL, c, o2);
-          if (lane < 4) cred[warp * 3 * HD + t * HD + j * 8 + 2 * lane + e] = c;
+          if (lane < 4 && in) cred[warp * 3 * HD + t * HD + j * 8 + 2 * lane + e] = c;
         }
       }
     };
@@ -1459,7 +1465,7 @@ int cse_weight_grad(const void* a, const void* dy, void* partials, void* dw, int
 int cse_layer_norm_bwd(const void* dh, const void* x, const void* scale, const void* g_in, void* g_out32,
                        void* g_out_cd, void* partials, void* sums, int g_in_bf16, int out_bf16,
                        long long M, int D, float eps, int blocks, void* stream) {
-  if (D % 32 || D > LNB_MAXD || M < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D < 8 || D > LNB_MAXD || M < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* ptrs[] = {dh, x, g_in, g_out32, g_out_cd};
   const int path = lnb_path(D, aligned16(ptrs, 5));
@@ -1479,7 +1485,7 @@ int cse_layer_norm_bwd(const void* dh, const void* x, const void* scale, const v
 // bytes, registers a thread, local-memory bytes a thread, resident blocks per
 // SM.
 int cse_layer_norm_bwd_info(int D, int g_in_bf16, int out_bf16, int aligned, int* info) {
-  if (D % 32 || D > LNB_MAXD || D < 32) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > LNB_MAXD || D < 8) return (int)cudaErrorInvalidValue;
   const int path = lnb_path(D, aligned != 0);
   return (int)by_lnb_dtypes(g_in_bf16, out_bf16, [&](auto tg, auto to) {
     const LnbLaunch l = lnb_launch<decltype(tg), decltype(to)>(path, D);
@@ -1493,7 +1499,7 @@ int cse_layer_norm_bwd_info(int D, int g_in_bf16, int out_bf16, int aligned, int
 }
 
 // Attention backward, see (c). dqkv: [G*L, 3*H*hd] (bf16 when bf16 else
-// fp32), hd in {8, 16, 32, 64}; delta: [G*L, H] fp32 scratch of the
+// fp32), hd in {4, 8, 16, 32, 64}; delta: [G*L, H] fp32 scratch of the
 // two-kernel routes (null on the bf16 strip route, L <= 256); partials:
 // [G, 3*H*hd] on the strip route, else [G * ceil(L / 64), 3*H*hd]; dbias:
 // [3*H*hd] fp32, the column sums of the fp32 dq | dk | dv.

@@ -967,7 +967,7 @@ int cse_kp_attention(const void* qkv, const void* j, int ldj, void* x, int bf16_
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qkv);
   float* xf = static_cast<float*>(x);
-  return by_head_width(HeadWidths{}, hd, [&](auto w) {
+  return by_head_width(KpHeadWidths{}, hd, [&](auto w) {
     constexpr int HD = decltype(w)::value;
     switch (mode) {
       case SM_SKIP: return launch_kp_attention<SM_SKIP, HD>(bf16_operands, q, j, ldj, xf, G, L, H, scale, st);
@@ -984,7 +984,7 @@ int cse_kp_attention(const void* qkv, const void* j, int ldj, void* x, int bf16_
 // multi-pass), threads, query rows a block, dynamic shared bytes, registers
 // a thread, local-memory bytes a thread, resident blocks per SM.
 int cse_kp_attention_info(int mode, int L, int hd, int* info) {
-  return by_head_width(HeadWidths{}, hd, [&](auto w) {
+  return by_head_width(KpHeadWidths{}, hd, [&](auto w) {
     constexpr int HD = decltype(w)::value;
     switch (mode) {
       case SM_SKIP: return kp_attention_info<SM_SKIP, HD>(L, info);

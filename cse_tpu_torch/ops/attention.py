@@ -33,8 +33,8 @@ from cse_tpu_torch.ops import _build
 from cse_tpu_torch.ops import fused_stack as fs
 from cse_tpu_torch.ops.fused_stack import wide
 
-# head widths the flash kernels are instantiated for
-HEAD_WIDTHS = (8, 16, 32, 48, 64)
+# head widths the flash kernels are instantiated for (csrc/common.cuh's FlashHeadWidths)
+HEAD_WIDTHS = (4, 8, 16, 32, 48, 64)
 STRIP_MAX_L = 256  # csrc/attention.cu's STRIP_MAX_L: the bf16 kernels' one-pass route
 
 

@@ -8,9 +8,10 @@ two-pass attention), 57 launches per stack call at 8 layers, with the fp32
 residual stream kept in device memory between them. The training path
 (:mod:`cse_tpu_torch.ops.fused_train`) runs its forward on the same kernels.
 With ``quant="w8a8"`` the stack runs ``_stack_kernel_w8a8`` instead
-(:mod:`cse_tpu_torch.ops.fused_stack_w8a8`: LayerNorms that write int8,
-int8 projections, one int8 FFN kernel, this module's attention with an fp32
-output and its final LayerNorm).
+(:mod:`cse_tpu_torch.ops.fused_stack_w8a8`: at the model's widths
+LayerNorms that write int8, int8 projections, one int8 FFN kernel, this
+module's attention with an fp32 output and its final LayerNorm; at other
+widths the LayerNorms, quantizers and int8 products as separate launches).
 
 Each kernel has a wrapper here (:func:`layer_norm`, :func:`linear`,
 :func:`attention`) and a plain PyTorch version beside it (``*_plain``). A
@@ -269,9 +270,10 @@ def linear(a, w, bias, epilogue, residual=None):
     return out
 
 
-# head widths the attention kernels are instantiated for (the Pallas kernels
-# take any width; ROADMAP.md records the deviation)
-HEAD_WIDTHS = (8, 16, 32, 64)
+# head widths the attention kernels are instantiated for (csrc/common.cuh's
+# HeadWidths): the JAX suite's 4, the tiny model's 8 and the paper's 32 among
+# them (the Pallas kernels take any width; ROADMAP.md records the rest)
+HEAD_WIDTHS = (4, 8, 16, 32, 64)
 
 
 def check_head_width(hd: int, what: str, widths=HEAD_WIDTHS):
@@ -338,15 +340,25 @@ def launch_counts() -> dict[str, int]:
 reset_launches()
 
 
-def launches_per_stack(n_layers: int, quant: str | None = None) -> dict[str, int]:
-    """Launches one stack call makes: per layer 2 LN + 4 GEMM + 1 attention,
-    plus the final LN; with ``quant="w8a8"``
-    (:mod:`cse_tpu_torch.ops.fused_stack_w8a8`) per layer 2 LNs that write
-    int8, the QKV and out-proj int8 GEMMs, the attention output's row
-    quantizer, 1 attention and 1 FFN kernel, plus the final LN."""
+def launches_per_stack(n_layers: int, quant: str | None = None, d_model: int = 256,
+                       d_ffn: int = 1024) -> dict[str, int]:
+    """Launches one stack call makes at these widths: per layer 2 LN + 4 GEMM
+    + 1 attention, plus the final LN; with ``quant="w8a8"``
+    (:mod:`cse_tpu_torch.ops.fused_stack_w8a8`, its ``stack_route``) on the
+    "fused" route (D 256, F 1024) per layer 2 LNs that write int8, the QKV
+    and out-proj int8 GEMMs, the attention output's row quantizer, 1
+    attention and 1 FFN kernel, plus the final LN; on the "chain" route (any
+    other width) per layer 2 LNs, 4 int8 GEMMs, 4 row quantizers (the two
+    LNs', the attention output's, the FFN hidden's) and 1 attention, plus
+    the final LN."""
     if quant == "w8a8":
-        return {"layer_norm": 1, "layer_norm_quant": 2 * n_layers, "attention": n_layers,
-                "quantize_rows": n_layers, "linear_w8a8": 2 * n_layers, "ffn_w8a8": n_layers}
+        from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+        if w8.stack_route(d_model, d_ffn) == "fused":
+            return {"layer_norm": 1, "layer_norm_quant": 2 * n_layers, "attention": n_layers,
+                    "quantize_rows": n_layers, "linear_w8a8": 2 * n_layers, "ffn_w8a8": n_layers}
+        return {"layer_norm": 2 * n_layers + 1, "attention": n_layers, "quantize_rows": 4 * n_layers,
+                "linear_w8a8": 4 * n_layers}
     return {"layer_norm": 2 * n_layers + 1, "linear": 4 * n_layers, "attention": n_layers}
 
 
@@ -413,7 +425,8 @@ def fused_stack_apply(
     x: [G, L, D] sequences (all L positions real); w: :func:`stack_weights`
     for ``compute_dtype`` and ``quant``. CUDA tensors go through the kernels
     (:func:`launches_per_stack`: 57 launches at 8 layers, with or without
-    ``quant="w8a8"``), CPU tensors through :func:`fused_stack_reference`.
+    ``quant="w8a8"`` at the model's widths), CPU tensors through
+    :func:`fused_stack_reference`.
     Returns [G, L, D] in x's dtype.
     """
     if not _route(x, w["qkv_w"]):
@@ -422,5 +435,6 @@ def fused_stack_apply(
     if quant == "w8a8":
         from cse_tpu_torch.ops import fused_stack_w8a8 as w8
 
+        w8.check_widths(x.shape[-1], w["f1_w"].shape[-1], nhead)  # before the first launch
         return w8.run_stack(x, w, nhead, compute_dtype, w8.KERNEL_OPS)
     return _run_stack(x, w, nhead, compute_dtype, layer_norm, linear, attention)

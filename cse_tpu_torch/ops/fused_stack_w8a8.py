@@ -23,10 +23,18 @@ dtype (cd) with an fp32 output. On Hopper (``csrc/fused_stack_w8a8.cu``):
 * the serving stack's attention (bf16 operands, fp32 out) and final LN
   kernels of :mod:`cse_tpu_torch.ops.fused_stack`.
 
-Per layer: LN + quantize, QKV, attention, quantize, out-proj, LN + quantize,
-FFN; then the final LN: 57 launches at 8 layers. Each wrapper counts its
-launches in ``launches``; a CPU tensor takes the plain version, anything else
-raises.
+The stack's route is a function of its widths alone (:func:`stack_route`),
+chosen before any launch. At the model's widths (D 256, F 1024), "fused":
+per layer LN + quantize, QKV, attention, quantize, out-proj, LN + quantize,
+FFN; then the final LN: 57 launches at 8 layers. At any other width, "chain"
+(``layer_norm_quant`` and ``ffn_w8a8`` are built for the model's widths
+only): each LN as :func:`fused_stack.layer_norm` (fp32 out) then
+:func:`quantize_rows`, the FFN as :func:`linear_w8a8` (relu),
+:func:`quantize_rows`, :func:`linear_w8a8` (residual): the same arithmetic in
+more launches, 89 at 8 layers. A width no route takes raises before the
+first launch (:func:`check_widths`, called by
+:func:`fused_stack.fused_stack_apply`). Each wrapper counts its launches in
+``launches``; a CPU tensor takes the plain version, anything else raises.
 """
 
 from __future__ import annotations
@@ -232,6 +240,28 @@ def launch_counts() -> dict[str, int]:
 
 reset_launches()
 
+
+def stack_route(d_model: int, d_ffn: int) -> str:
+    """The w8a8 stack's route at these widths: "fused" (``layer_norm_quant``
+    and ``ffn_w8a8``) at D = 256, F = 1024, the widths those kernels are
+    built for; "chain" (LN, quantizer and int8 GEMM launches) at any other."""
+    return "fused" if (d_model, d_ffn) == (D_MODEL, D_FFN) else "chain"
+
+
+def check_widths(d_model: int, d_ffn: int, nhead: int):
+    """Raise ``ValueError`` unless the kernels of the stack's route take
+    these widths: the int8 GEMM's K (D and F) % 16 == 0 and <= MAX_K (its
+    N, 3D, D and F, are then multiples of 8), and a head width the
+    attention is instantiated for."""
+    if d_model % nhead:
+        raise ValueError(f"d_model {d_model} does not split into {nhead} heads")
+    fs.check_head_width(d_model // nhead, "attention")
+    for k in (d_model, d_ffn):
+        if k % 16 or k > MAX_K:
+            raise ValueError(f"the w8a8 stack's int8 GEMM needs K % 16 == 0, K <= {MAX_K}; got d_model "
+                             f"{d_model}, d_ffn {d_ffn}")
+
+
 KERNEL_OPS = types.SimpleNamespace(ln=fs.layer_norm, lnq=layer_norm_quant, quant=quantize_rows, lin=linear_w8a8,
                                    attn=fs.attention, ffn=ffn_w8a8)
 PLAIN_OPS = types.SimpleNamespace(ln=fs.layer_norm_plain, lnq=layer_norm_quant_plain, quant=quantize_rows_plain,
@@ -243,19 +273,27 @@ PLAIN_OPS = types.SimpleNamespace(ln=fs.layer_norm_plain, lnq=layer_norm_quant_p
 
 def run_stack(x, w, nhead, cd, ops):
     """``_stack_kernel_w8a8`` on x ``[G, L, D]`` (PE added) with
-    :func:`fused_stack.stack_weights` ``(..., quant="w8a8")``; the result in
-    x's dtype."""
+    :func:`fused_stack.stack_weights` ``(..., quant="w8a8")``, on the route
+    :func:`stack_route` chooses for its widths; the result in x's dtype."""
     G, L, D = x.shape
+    fused = stack_route(D, w["f1_w"].shape[-1]) == "fused"
     f32 = torch.float32
     r = x.to(cd).to(f32, copy=True).reshape(G * L, D).contiguous()  # updated in place
 
     def lin(hq, sa, name, li, epilogue, residual=None):
         return ops.lin(hq, sa, w[f"{name}_w"][li], w[f"{name}_s"][li], w[f"{name}_b"][li], epilogue, residual)
 
+    def lnq(name, li):  # LN of the residual, quantized: (int8, row scales)
+        s, b = w[f"{name}_s"][li], w[f"{name}_b"][li]
+        return ops.lnq(r, s, b) if fused else ops.quant(ops.ln(r, s, b, f32))
+
     for li in range(w["qkv_w"].shape[0]):
-        qkv = lin(*ops.lnq(r, w["ln1_s"][li], w["ln1_b"][li]), "qkv", li, "bias")
+        qkv = lin(*lnq("ln1", li), "qkv", li, "bias")
         a = ops.attn(qkv, L, nhead, f32, operand_dtype=cd)
         lin(*ops.quant(a), "out", li, "residual", r)
-        hq, sa = ops.lnq(r, w["ln2_s"][li], w["ln2_b"][li])
-        ops.ffn(hq, sa, *(w[k][li] for k in ("f1_w", "f1_s", "f1_b", "f2_w", "f2_s", "f2_b")), r)
+        hq, sa = lnq("ln2", li)
+        if fused:
+            ops.ffn(hq, sa, *(w[k][li] for k in ("f1_w", "f1_s", "f1_b", "f2_w", "f2_s", "f2_b")), r)
+        else:
+            lin(*ops.quant(lin(hq, sa, "f1", li, "relu")), "f2", li, "residual", r)
     return ops.ln(r, w["fn_s"], w["fn_b"], x.dtype).reshape(G, L, D)

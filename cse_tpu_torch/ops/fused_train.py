@@ -257,6 +257,13 @@ def ln_bwd_plan(M: int, D: int, sms: int, per_sm: int, rows_per_block: int) -> L
     return LnBwdPlan(blocks, -(-M // (blocks * rows_per_block)), (blocks, 4, D))
 
 
+def _ln_bwd_width(D: int) -> bool:
+    """The widths ``cse_layer_norm_bwd`` takes: the wide path at D % 128 ==
+    0, the narrow one (a column a lane, masked past D) at any other D % 8 ==
+    0 up to 256."""
+    return D % 8 == 0 and 8 <= D <= 256
+
+
 @functools.cache
 def _ln_bwd_launch(D: int, g_bf16: bool, out_bf16: bool, aligned: bool) -> dict:
     return _build.query("cse_layer_norm_bwd_info", LN_BWD_INFO_KEYS, D, int(g_bf16), int(out_bf16), int(aligned))
@@ -275,8 +282,8 @@ def layer_norm_backward(dh, x, scale, g_in, out32=None, cd=None):
     for t, n in ((dh, "dh"), (x, "x")):
         fs._check(t, n, torch.float32, 2)
     M, D = x.shape
-    if tuple(dh.shape) != (M, D) or tuple(g_in.shape) != (M, D) or D % 32 or D > 256:
-        raise ValueError(f"layer_norm_backward takes [M, D] with D % 32 == 0, D <= 256; got {tuple(x.shape)}")
+    if tuple(dh.shape) != (M, D) or tuple(g_in.shape) != (M, D) or not _ln_bwd_width(D):
+        raise ValueError(f"layer_norm_backward takes [M, D] with D % 8 == 0, D <= 256; got {tuple(x.shape)}")
     fs._check(scale, "scale", torch.float32, 1)
     fs._check(g_in, "g_in", None, 2)
     if g_in.dtype not in fs._KERNEL_DTYPES or (cd is not None and cd not in fs._KERNEL_DTYPES):
@@ -307,8 +314,8 @@ def layer_norm_backward_info(M: int, D: int = 256, g_dtype: torch.dtype = torch.
     dynamic shared bytes, registers and local-memory bytes a thread, blocks
     per SM (the occupancy query), and the grid and the most rows a warp takes
     (:func:`ln_bwd_plan`)."""
-    if D % 32 or D > 256 or D < 32:
-        raise ValueError(f"layer_norm_backward takes D % 32 == 0, D <= 256; got {D}")
+    if not _ln_bwd_width(D):
+        raise ValueError(f"layer_norm_backward takes D % 8 == 0, D <= 256; got {D}")
     info = dict(_ln_bwd_launch(D, g_dtype == torch.bfloat16, cd == torch.bfloat16, aligned))
     plan = _ln_bwd_plan_of(M, D, info, torch.cuda.current_device())
     info.update(path=LN_BWD_PATHS[info["path_code"]], grid=plan.blocks, rows_per_warp=plan.rows_per_warp)

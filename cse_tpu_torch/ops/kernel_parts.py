@@ -72,6 +72,9 @@ MODES = {
 # the modes whose softmax sum goes through jmat: D x softmax, and Lp == D
 JMAT_SOFTMAX = ("cd", "x2")
 KPLN_MAXD = 1024  # csrc/kernel_parts.cu's KPLN_MAXD: the widest row of the staged LayerNorm
+# head widths kp_attention is instantiated for (csrc/common.cuh's KpHeadWidths): the tool runs at its own
+# widths only, so it takes no head width 4 (ROADMAP.md, width limits)
+HEAD_WIDTHS = (8, 16, 32, 64)
 # what cse_kp_layer_norm_info writes, in order
 KP_LN_INFO_KEYS = ("staged", "threads", "rows_per_block", "smem_bytes", "registers", "local_bytes", "blocks_per_sm")
 
@@ -209,7 +212,7 @@ def kp_attention(qkv, jmat, x, seq_len, nhead, sm_mode, cd):
     if D3 % 3 or D % nhead or M % seq_len or tuple(x.shape) != (M, D):
         raise ValueError(f"qkv {tuple(qkv.shape)}, x {tuple(x.shape)} do not split into L={seq_len}, {nhead} heads")
     hd = D // nhead
-    fs.check_head_width(hd, "kp_attention")
+    fs.check_head_width(hd, "kp_attention", HEAD_WIDTHS)
     if qkv.data_ptr() % 16 or x.data_ptr() % 8:
         raise ValueError("kp_attention kernel needs a 16-byte aligned qkv and an 8-byte aligned x")
     _check_jmat(jmat, cd, seq_len if sm_mode in JMAT_SOFTMAX else 0)
@@ -225,7 +228,7 @@ def kp_attention_info(seq_len: int, sm_mode: str, hd: int = 32) -> dict:
     """How :func:`kp_attention` launches the bf16 attention at this L, mode
     and head width: see :func:`cse_tpu_torch.ops._build.launch_info`."""
     _check_mode(SOFTMAX_MODES, sm_mode, "softmax mode")
-    fs.check_head_width(hd, "kp_attention")
+    fs.check_head_width(hd, "kp_attention", HEAD_WIDTHS)
     return _build.launch_info("cse_kp_attention_info", SOFTMAX_MODES[sm_mode], seq_len, hd)
 
 

@@ -62,10 +62,11 @@ def test_attention_matches_plain(gen, cd, seq_len):
 
 # the GEMM's shapes: the main path's (K, N) pairs (QKV, out-proj, FFN1, FFN2),
 # the backward's dX products, ragged M (not a multiple of 128), several
-# 128-row panels a block, and the tiny model's widths (K = 32)
+# 128-row panels a block, the tiny model's widths (K = 32) and the JAX
+# suite's (d_model 16, FFN 32: K 16 is a quarter of a 64-wide k-chunk)
 LINEAR_SHAPES = [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 40, 24), (1000, 256, 256),
                  (1000, 256, 1024), (1000, 768, 256), (40000, 256, 768), (77, 32, 32), (77, 32, 64), (77, 32, 96),
-                 (300, 64, 96)]
+                 (300, 64, 96), (77, 16, 48), (77, 16, 16), (300, 16, 32), (300, 32, 16), (300, 48, 16)]
 
 
 @pytest.mark.parametrize("cd", DTYPES)
@@ -102,8 +103,11 @@ def test_stack_matches_reference_and_counts(gen, cd):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     qkv = torch.randn(10, 3 * 96, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head widths 8, 16, 32, 64; got 12"):
+    with pytest.raises(ValueError, match="head widths 4, 8, 16, 32, 64; got 12"):
         fs.attention(qkv, 5, 8, torch.float32)  # head width 12
+    qkv4 = torch.randn(10, 3 * 32, device="cuda", generator=gen)  # head width 4 is taken
+    for cd in DTYPES:
+        _close(fs.attention(qkv4, 5, 8, cd), fs.attention_plain(qkv4, 5, 8, cd), cd)
     with pytest.raises(TypeError):
         fs.layer_norm(torch.randn(4, 256, device="cuda"), torch.ones(256, device="cuda"),
                       torch.zeros(256, device="cuda"), torch.float16)
@@ -128,7 +132,8 @@ def _train_weights(gen, cd, d=256, ffn=1024, n_layers=1):
     return w
 
 
-HEAD_WIDTHS = [8, 16, 32, 64]
+HEAD_WIDTHS = [4, 8, 16, 32, 64]
+KP_HEAD_WIDTHS = [8, 16, 32, 64]  # the kernel-parts tool's own widths
 
 
 @pytest.mark.parametrize("out_dtype", DTYPES)
@@ -217,10 +222,12 @@ def test_attention_backward_strip_instantiations_spill_nothing(gen, seq_len, hd)
 
 
 # the main path's four (K, N) at M = 40000, the tiny model's (K 32 and 64),
-# ragged K and N below a tile, several slabs, and tiles of 128 and 256 columns
+# the JAX suite's (K 16 and 32 against N 48, 16, 32), ragged K and N below a
+# tile, several slabs, and tiles of 128 and 256 columns
 WGRAD_SHAPES = [(1000, 256, 768), (777, 1024, 256), (5000, 256, 256), (33, 40, 24), (40000, 256, 768),
                 (40000, 256, 256), (40000, 256, 1024), (40000, 1024, 256), (3000, 32, 96), (3000, 32, 32),
-                (3000, 32, 64), (3000, 64, 32)]
+                (3000, 32, 64), (3000, 64, 32), (3000, 16, 48), (3000, 16, 16), (3000, 16, 32), (3000, 32, 16),
+                (3000, 48, 16)]
 
 
 @pytest.mark.parametrize("cd", DTYPES)
@@ -236,7 +243,8 @@ def test_weight_grad_matches_plain_and_repeats(gen, cd, mkn):
 
 
 @pytest.mark.parametrize("cd", DTYPES)
-@pytest.mark.parametrize("mkn", [(1000, 256, 1024), (77, 40, 24), (40000, 256, 1024), (77, 32, 96), (300, 32, 64)])
+@pytest.mark.parametrize("mkn", [(1000, 256, 1024), (77, 40, 24), (40000, 256, 1024), (77, 32, 96), (300, 32, 64),
+                                 (300, 16, 32)])
 def test_linear_relu_grad_matches_plain(gen, cd, mkn):
     """Also: the column sums come from fixed-order per-tile partials, so a
     second run gives the same bits."""
@@ -274,9 +282,10 @@ def test_layer_norm_backward_matches_plain(gen, cd, g_dtype):
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("g_dtype", DTYPES)
 @pytest.mark.parametrize("m", [1, 7, 3001, 50003])
-@pytest.mark.parametrize("d", [32, 64, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 256])
 def test_layer_norm_backward_widths_rows_and_repeats(gen, d, m, g_dtype, cd):
-    """Both load paths (D 256: 16-byte accesses; 32, 64: a column a lane), a
+    """Both load paths (D 256: 16-byte accesses; 16 to 64: a column a lane,
+    masked past D below 32 and at 48), a
     grid larger than the rows (1, 7), one smaller (3001) and one whose warps
     end one row apart (50003); g_out in place; the fixed-order sums give the
     same bits on a repeat."""
@@ -325,7 +334,7 @@ def test_layer_norm_backward_unaligned_rows_take_the_narrow_path(gen, cd):
     assert narrow["grid"] == min(sms * narrow["blocks_per_sm"], -(-m // narrow["rows_per_block"]))
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128, 256])
 def test_layer_norm_backward_launch(gen, d):
     """The persistent grid fills the card: blocks per SM from the occupancy
     query, no local memory, the wide path for D % 128 == 0."""
@@ -414,7 +423,8 @@ def _flash_inputs(gen, cd, bh, seq_len, dh):
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("seq_len,dh", [(16, 32), (17, 32), (128, 32), (129, 32), (251, 32), (256, 32), (257, 32),
                                         (300, 32), (600, 32), (127, 16), (130, 64), (77, 48), (7, 8), (127, 8),
-                                        (251, 8), (300, 8), (251, 16), (300, 16)])
+                                        (251, 8), (300, 8), (251, 16), (300, 16), (7, 4), (127, 4), (251, 4),
+                                        (300, 4)])
 def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
     """Any length: bf16 on the strip route (L <= 128: 8 key blocks in
     registers, L <= 256: 16) or the three-pass route (257 and on, one key tile
@@ -430,7 +440,7 @@ def test_flash_forward_matches_plain(gen, cd, seq_len, dh):
 
 @pytest.mark.parametrize("cd", DTYPES)
 @pytest.mark.parametrize("seq_len,dh", [(17, 32), (251, 32), (300, 32), (600, 32), (127, 16), (130, 64), (77, 48),
-                                        (7, 8), (251, 8), (300, 8), (251, 16)])
+                                        (7, 8), (251, 8), (300, 8), (251, 16), (7, 4), (251, 4), (300, 4)])
 def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
     from cse_tpu_torch.ops import attention as at
 
@@ -442,7 +452,7 @@ def test_flash_backward_matches_plain(gen, cd, seq_len, dh):
 
 
 @pytest.mark.parametrize("seq_len", [1, 16, 127, 128, 129, 251, 256, 257])
-@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64])
 def test_flash_backward_strip_matches_plain_and_repeats(gen, seq_len, dh):
     """bf16 on the one-pass strip (L <= 256: 8 or 16 key strips) and the
     three-kernel route (257), every head width: the bf16 bar, and the same
@@ -470,7 +480,7 @@ def test_flash_backward_strip_matches_plain_and_repeats(gen, seq_len, dh):
     assert at.flash_bwd_info(seq_len, dh)["route"] == ("strip" if seq_len <= at.STRIP_MAX_L else "passes")
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64])
 @pytest.mark.parametrize("seq_len", [128, 256])
 def test_flash_backward_strip_instantiations_spill_nothing(gen, seq_len, dh):
     """Each L <= 256 instantiation of the backward's strip keeps its key
@@ -483,7 +493,7 @@ def test_flash_backward_strip_instantiations_spill_nothing(gen, seq_len, dh):
     assert at.flash_bwd_info(seq_len + 1, dh)["route"] == ("strip" if seq_len < 256 else "passes")
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 48, 64])
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64])
 @pytest.mark.parametrize("seq_len", [128, 256])
 def test_flash_strip_instantiations_spill_nothing(gen, seq_len, dh):
     """Each L <= 256 instantiation keeps its score strip in registers: no
@@ -499,9 +509,16 @@ def test_flash_strip_instantiations_spill_nothing(gen, seq_len, dh):
 def test_flash_refuses_head_widths_it_does_not_take(gen):
     from cse_tpu_torch.ops import attention as at
 
-    q = torch.randn(1, 2, 9, 40, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head widths"):
-        at.flash_fwd(q, q, q)
+    for dh in (12, 40):
+        q = torch.randn(1, 2, 9, dh, device="cuda", generator=gen)
+        with pytest.raises(ValueError, match="head widths"):
+            at.flash_fwd(q, q, q)
+    for cd in DTYPES:  # head width 4 is taken
+        q, k, v, do = _flash_inputs(gen, cd, 6, 9, 4)
+        (o, lse), (po, plse) = at.flash_fwd(q, k, v), at.flash_fwd_plain(q, k, v)
+        _close(o, po, cd)
+        for got, want in zip(at.flash_bwd(q, k, v, po, plse, do), at.flash_bwd_plain(q, k, v, po, plse, do)):
+            _close(got, want, cd)
 
 
 def test_flash_model_step_counts(gen):
@@ -536,11 +553,14 @@ def test_quantize_rows_is_bit_exact(gen, mk):
 
 
 # the serving path's four (K, N) at intra M = 2016 x 251, small and ragged M,
-# K (32, 48, 64: one chunk below 128 bytes) and N (24, 96: below a tile), and
-# K 1024 streamed with one or two N tiles a pass
+# K (16, 32, 48, 64: one chunk below 128 bytes; 16 is half a wgmma s8 k-step)
+# and N (16, 24, 32, 48, 96: below a tile), the chain route's products at the
+# JAX suite's widths (d_model 16, FFN 32) and K 1024 streamed with one or two
+# N tiles a pass
 W8A8_SHAPES = [(1, 256, 256), (300, 256, 768), (1000, 1024, 256), (77, 48, 24), (1000, 32, 96), (777, 64, 256),
                (129, 1024, 96), (4000, 256, 1024), (2016 * 251, 256, 768), (2016 * 251, 256, 256),
-               (2016 * 251, 256, 1024), (2016 * 251, 1024, 256)]
+               (2016 * 251, 256, 1024), (2016 * 251, 1024, 256), (77, 16, 48), (1000, 16, 16), (300, 16, 32),
+               (300, 32, 16)]
 
 
 @pytest.mark.parametrize("epilogue", ["bias", "relu", "residual"])
@@ -569,7 +589,8 @@ def test_linear_w8a8_matches_plain(gen, epilogue, mkn):
 def test_layer_norm_quant_matches_the_kernel_chain(gen, m):
     """LN and the quantizer in one kernel give the bits of layer_norm (fp32
     out) then quantize_rows, payload and scales; a constant row under a zero
-    bias takes the 1e-12 floor; other widths are refused."""
+    bias takes the 1e-12 floor; other widths are refused by the kernel, and
+    the w8a8 stack takes the chain there instead."""
     from cse_tpu_torch.ops import fused_stack_w8a8 as w8
 
     x = 3 * torch.randn(m, 256, device="cuda", generator=gen) + 0.5
@@ -582,6 +603,34 @@ def test_layer_norm_quant_matches_the_kernel_chain(gen, m):
     assert sa[0].item() == np.float32(1e-12) / np.float32(127.0) and not q[0].any()
     with pytest.raises(ValueError, match="D = 256"):
         w8.layer_norm_quant(x[:, :128].contiguous(), s[:128], b[:128])
+    _w8a8_stack_case(gen, 128, 8, 512)  # the stack at D 128: the chain, not the kernel
+
+
+def _w8a8_stack_case(gen, d, h, f):
+    """A 2-layer w8a8 stack at (d, h, f) on the card: its launches those of
+    the route stack_route chooses, its output within the bf16 bar of the plain
+    stack on the same route."""
+    from cse_tpu_torch.models.sepformer import SepformerConfig, TransformerStack
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    stack = TransformerStack(SepformerConfig(d_model=d, nhead=h, d_ffn=f, num_tf_layers=2))
+    w = {k: v.cuda() for k, v in fs.stack_weights(stack, torch.bfloat16, quant="w8a8").items()}
+    x = torch.randn(9, 127, d, device="cuda", generator=gen).to(torch.bfloat16)
+    w8.reset_launches()
+    got = fs.fused_stack_apply(x, w, h, torch.bfloat16, quant="w8a8")
+    torch.cuda.synchronize()
+    want_counts = fs.launches_per_stack(2, "w8a8", d, f)
+    assert w8.launch_counts() == want_counts
+    assert ("ffn_w8a8" in want_counts) == (w8.stack_route(d, f) == "fused")
+    _close(got, fs.fused_stack_reference(x, w, h, torch.bfloat16, quant="w8a8"), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dhf", [(16, 4, 32), (32, 4, 64), (256, 8, 1024)])
+def test_w8a8_stack_routes_by_width(gen, dhf):
+    """The JAX suite's widths (head width 4), --debug_tiny_model's and the
+    paper's: the chain at the first two, layer_norm_quant and ffn_w8a8 at
+    the last."""
+    _w8a8_stack_case(gen, *dhf)
 
 
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 4000 * 127, 2016 * 251])
@@ -729,7 +778,7 @@ def test_kp_attention_head_widths_match_plain(gen, cd, hd, sm_mode, seq_len):
 
 @pytest.mark.parametrize("seq_len", [128, 256])
 @pytest.mark.parametrize("sm_mode", ["skip", "sum", "cd", "x2"])
-@pytest.mark.parametrize("hd", HEAD_WIDTHS)
+@pytest.mark.parametrize("hd", KP_HEAD_WIDTHS)
 def test_kp_attention_one_pass_instantiations_spill_nothing(gen, sm_mode, seq_len, hd):
     from cse_tpu_torch.ops import kernel_parts as kp
 

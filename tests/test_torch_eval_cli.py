@@ -87,6 +87,19 @@ def test_eval_cli_synthetic(tmp_path, test_model, workers, fused):
     assert res["n"] == 6
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_eval_cli_contsep_3spk(tmp_path, fused):
+    """Three speakers (tests/test_eval_cli.py::test_eval_cli_contsep_3spk's
+    flags): the mixed_3speaker / gt_3speaker / noise_{1,2}_3speaker corpus,
+    the CE selector over three streams, results under 3_speaker_0_ctx; the
+    fused eval scores what the plain one does."""
+    argv = COMMON + ["--test_model", "ContSep", "--num_max_mix", "3", "--num_test_mix", "3",
+                     "--save_dir", str(tmp_path), "--metric_workers", "0"]
+    res = eval_cli.main(argv + (["--fused_eval"] if fused else []))
+    _check(res, tmp_path / "random_init" / "3_speaker_0_ctx")
+    assert res["n"] == 6
+
+
 def test_eval_cli_released_checkpoint(tmp_path):
     model = Sepformer(SepformerConfig(variant="context", **TINY_MODEL), generator=torch.Generator().manual_seed(5))
     ckpt = tmp_path / "ckpts" / "released.ckpt"

@@ -86,6 +86,16 @@ def test_grads_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("L", [30, 130])
+def test_head_width_4_forward_and_grads_match_jax(L):
+    """The JAX suite's head width (d_model 16, 4 heads): forward and gradients."""
+    q, k, v = _qkv(3, (2, 2, L, 4))
+    want = np.asarray(jax_flash_mhsa(*map(jnp.asarray, (q, k, v))))
+    np.testing.assert_allclose(at.flash_mhsa(*map(_torch, (q, k, v))).numpy(), want, rtol=2e-5, atol=2e-5)
+    for got, want in zip(_port_grads(q, k, v, torch.float32), _jax_grads(q, k, v, jnp.float32)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
 def test_bf16_forward_and_grads_match_jax():
     q, k, v = _qkv(1, (2, 2, 130, 32))
     want = jax_flash_mhsa(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))

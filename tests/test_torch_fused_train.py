@@ -127,7 +127,7 @@ def test_plain_backward_passes_gradcheck():
     assert torch.autograd.gradcheck(fn, (x, *[w[k] for k in W_NAMES]), eps=1e-6, atol=1e-5)
 
 
-def _stack_tree(seed=1):
+def _stack_tree(seed=1, D=D, FFN=FFN):
     rng = np.random.default_rng(seed)
 
     def r(*s, scale=1.0):
@@ -147,12 +147,12 @@ def _stack_tree(seed=1):
 
 
 @functools.cache
-def _jax_stack_train(cd_name):
-    tree, x = _stack_tree()
+def _jax_stack_train(cd_name, d=D, h=H, ffn=FFN):
+    tree, x = _stack_tree(D=d, FFN=ffn)
     cd = jnp.float32 if cd_name == "fp32" else jnp.bfloat16
 
     def loss(tree, x):
-        y = jft.fused_stack_train(x, tree, nhead=H, chunk=1, compute_dtype=cd)
+        y = jft.fused_stack_train(x, tree, nhead=h, chunk=1, compute_dtype=cd)
         return jnp.sum(y * jnp.sin(y)), y
 
     (_, y), (g_tree, g_x) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
@@ -186,6 +186,24 @@ def test_fused_stack_train_matches_jax(cd_name):
         assert _rel_l2(y.detach().numpy(), y_jax) <= TOL_BF16
         for k in want:
             assert _rel_l2(got[k], want[k]) <= TOL_BF16, (k, _rel_l2(got[k], want[k]))
+
+
+def test_fused_stack_train_matches_jax_at_head_width_4():
+    """The JAX suite's widths (d_model 16, 4 heads of width 4, FFN 32), fp32,
+    at the bars above: the card's kernels take head width 4 too."""
+    d, h, ffn = 16, 4, 32
+    y_jax, gx_jax, g_jax = _jax_stack_train("fp32", d, h, ffn)
+    tree, x = _stack_tree(D=d, FFN=ffn)
+    stack = load_jax_params(TransformerStack(SepformerConfig(d_model=d, nhead=h, d_ffn=ffn, num_tf_layers=NL)), tree)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = tft.fused_stack_train(tx, stack, nhead=h, chunk=1, compute_dtype=torch.float32)
+    (y * torch.sin(y)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), y_jax, rtol=1e-4, atol=1e-4)
+    got = {"x": tx.grad.numpy(), **{k: p.grad.numpy() for k, p in stack.named_parameters()}}
+    want = {"x": gx_jax, **g_jax}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-3, atol=2e-3, err_msg=k)
 
 
 def test_chunked_stack_matches_chunk_one_in_fp32():

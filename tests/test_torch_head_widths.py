@@ -1,8 +1,9 @@
-"""The head widths the port's attention kernels are instantiated for (8, 16,
-32, 64; the flash pair also 48), on the CPU: the wrappers refuse any other
-width by name, every kernel source dispatches on the one list of those widths
-in ``common.cuh``, and the plain attention (the kernels' oracle on the card)
-matches the JAX package's ``_attention`` at each of them."""
+"""The head widths the port's attention kernels are instantiated for (4, 8,
+16, 32, 64; the flash pair also 48; the kernel-parts tool 8 to 64), on the
+CPU: the wrappers refuse any other width by name, every kernel source
+dispatches on the one list of those widths in ``common.cuh``, and the plain
+attention (the kernels' oracle on the card) matches the JAX package's
+``_attention`` at each of them."""
 
 import re
 
@@ -15,13 +16,14 @@ from cse_tpu.ops.fused_stack import _attention as jax_attention
 from cse_tpu_torch.ops import _build
 from cse_tpu_torch.ops import attention as fa
 from cse_tpu_torch.ops import fused_stack as fs
+from cse_tpu_torch.ops import kernel_parts as kp
 
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("hd", [4, 12, 24, 128])
+@pytest.mark.parametrize("hd", [2, 12, 24, 128])
 def test_check_head_width_names_the_widths(hd):
-    with pytest.raises(ValueError, match="head widths 8, 16, 32, 64; got"):
+    with pytest.raises(ValueError, match="head widths 4, 8, 16, 32, 64; got"):
         fs.check_head_width(hd, "attention")
 
 
@@ -30,11 +32,13 @@ def test_check_head_width_takes_the_instantiated_widths():
         fs.check_head_width(hd, "attention")
     for hd in fa.HEAD_WIDTHS:
         fs.check_head_width(hd, "flash attention", fa.HEAD_WIDTHS)
-    with pytest.raises(ValueError, match="head widths 8, 16, 32, 48, 64; got 40"):
+    with pytest.raises(ValueError, match="head widths 4, 8, 16, 32, 48, 64; got 40"):
         fs.check_head_width(40, "flash attention", fa.HEAD_WIDTHS)
+    with pytest.raises(ValueError, match="head widths 8, 16, 32, 64; got 4"):  # the tool's own widths
+        fs.check_head_width(4, "kp_attention", kp.HEAD_WIDTHS)
 
 
-WIDTH_LISTS = {"HeadWidths": fs.HEAD_WIDTHS, "FlashHeadWidths": fa.HEAD_WIDTHS}
+WIDTH_LISTS = {"HeadWidths": fs.HEAD_WIDTHS, "FlashHeadWidths": fa.HEAD_WIDTHS, "KpHeadWidths": kp.HEAD_WIDTHS}
 
 
 # every C entry point that takes a head width, with the list it dispatches on
@@ -42,8 +46,8 @@ WIDTH_ENTRIES = [("fused_stack.cu", "cse_attention", "HeadWidths"),
                  ("fused_stack.cu", "cse_attention_info", "HeadWidths"),
                  ("fused_train.cu", "cse_attention_bwd", "HeadWidths"),
                  ("fused_train.cu", "cse_attention_bwd_info", "HeadWidths"),
-                 ("kernel_parts.cu", "cse_kp_attention", "HeadWidths"),
-                 ("kernel_parts.cu", "cse_kp_attention_info", "HeadWidths"),
+                 ("kernel_parts.cu", "cse_kp_attention", "KpHeadWidths"),
+                 ("kernel_parts.cu", "cse_kp_attention_info", "KpHeadWidths"),
                  ("attention.cu", "cse_flash_fwd", "FlashHeadWidths"),
                  ("attention.cu", "cse_flash_fwd_info", "FlashHeadWidths"),
                  ("attention.cu", "cse_flash_bwd", "FlashHeadWidths"),

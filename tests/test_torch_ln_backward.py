@@ -45,7 +45,7 @@ def _reference(x, dh, scale, g):
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 32])
+@pytest.mark.parametrize("d", [256, 32, 16, 48])
 @pytest.mark.parametrize("cd", [torch.bfloat16, None])
 def test_plain_matches_jax_ln_bwd_with_the_residual_add(d, g_dtype, cd):
     x, dh, scale, g = _inputs(37, d, g_dtype)
@@ -63,7 +63,7 @@ def test_plain_matches_jax_ln_bwd_with_the_residual_add(d, g_dtype, cd):
         np.testing.assert_allclose(ocd.float().numpy(), want, rtol=2.0**-8, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [256, 32])
+@pytest.mark.parametrize("d", [256, 32, 16, 48])
 def test_plain_in_place_into_an_fp32_g_in(d):
     """out32 may be g_in itself: the residual gradient updated in place, as
     the first layer's LN1 backward calls it."""
@@ -98,19 +98,39 @@ def test_plan_covers_every_row_once(m, sms, per_sm, warps):
         assert (plan.blocks - 1) * warps < m
 
 
-@pytest.mark.parametrize("shape, g_shape", [((64, 48), (64, 48)), ((64, 288), (64, 288)), ((64, 256), (63, 256)),
+@pytest.mark.parametrize("shape, g_shape", [((64, 44), (64, 44)), ((64, 288), (64, 288)), ((64, 256), (63, 256)),
                                             ((64, 256), (64, 128))])
 def test_wrapper_width_errors(monkeypatch, shape, g_shape):
-    """The kernel takes [M, D] with D % 32 == 0 up to 256: the wrapper raises
+    """The kernel takes [M, D] with D % 8 == 0 up to 256: the wrapper raises
     the same errors as before, ahead of any launch."""
     monkeypatch.setattr(tfs, "_route", lambda *t: True)  # the kernel path's checks, on CPU tensors
     monkeypatch.setattr(tft, "_ln_bwd_launch", lambda *a: pytest.fail("reached the launch"))
     x, dh, g = torch.zeros(shape), torch.zeros(shape), torch.zeros(g_shape)
-    with pytest.raises(ValueError, match=r"D % 32 == 0, D <= 256"):
+    with pytest.raises(ValueError, match=r"D % 8 == 0, D <= 256"):
         tft.layer_norm_backward(dh, x, torch.ones(shape[1]), g, None, torch.bfloat16)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         tft.layer_norm_backward(torch.zeros(8, 32), torch.zeros(8, 32), torch.ones(32),
                                 torch.zeros(8, 32, dtype=torch.float16))
-    for d in (0, 48, 288):
-        with pytest.raises(ValueError, match="D % 32 == 0"):
+    for d in (0, 44, 288):
+        with pytest.raises(ValueError, match="D % 8 == 0"):
             tft.layer_norm_backward_info(100, d)
+
+
+class _Launched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("d", [8, 16, 48, 96])
+def test_wrapper_takes_every_d_multiple_of_8(monkeypatch, d):
+    """D % 8 == 0 up to 256 passes the wrapper's checks to the launch: the
+    narrow kernel masks its lanes past D (the JAX suite's d_model 16 among
+    them)."""
+    monkeypatch.setattr(tfs, "_route", lambda *t: True)
+
+    def launched(*a):
+        raise _Launched
+
+    monkeypatch.setattr(tft, "_ln_bwd_launch", launched)
+    x = torch.zeros(64, d)
+    with pytest.raises(_Launched):
+        tft.layer_norm_backward(x, x, torch.ones(d), x.clone(), None, torch.bfloat16)

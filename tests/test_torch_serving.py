@@ -30,24 +30,30 @@ TINY = dict(
     pe_max_len=256,
 )
 TOL = dict(rtol=2e-4, atol=2e-4)
-# (variant, add_se, ce, cue): cue is the H-ContExt cue index (None elsewhere)
+# (variant, add_se, ce, cue, speakers): cue is the H-ContExt cue index (None
+# elsewhere); the three-speaker forms are the JAX suite's num_spks=3
+# (tests/test_model_parity.py)
 CASES = [
-    ("base", False, True, None),
-    ("context", False, True, None),
-    ("contsep", False, True, None),
-    ("contsep", False, False, None),
-    ("context", True, True, 0),
-    ("context", True, True, 1),
-    ("context", True, True, 2),
+    ("base", False, True, None, 2),
+    ("context", False, True, None, 2),
+    ("contsep", False, True, None, 2),
+    ("contsep", False, False, None, 2),
+    ("context", True, True, 0, 2),
+    ("context", True, True, 1, 2),
+    ("context", True, True, 2, 2),
+    ("base", False, True, None, 3),
+    ("contsep", False, True, None, 3),
+    ("contsep", False, False, None, 3),
 ]
-IDS = ["base", "context", "contsep-ce", "contsep-bce", "hcontext-cue0", "hcontext-cue1", "hcontext-cue2"]
+IDS = ["base", "context", "contsep-ce", "contsep-bce", "hcontext-cue0", "hcontext-cue1", "hcontext-cue2",
+       "base-3spk", "contsep-ce-3spk", "contsep-bce-3spk"]
 
 
 @functools.cache
-def _jax_case(variant, add_se, ce):
+def _jax_case(variant, add_se, ce, spks=2):
     """Flax model, its params (as numpy) and the numpy inputs, from seed 0."""
     rng = np.random.default_rng(0)
-    cfg = JaxConfig(variant=variant, add_se=add_se, ce=ce, compute_dtype=jnp.float32, **TINY)
+    cfg = JaxConfig(variant=variant, add_se=add_se, ce=ce, num_spks=spks, compute_dtype=jnp.float32, **TINY)
     model = JaxSepformer(cfg)
     inputs = {
         "mix": rng.standard_normal((2, 300)).astype(np.float32),
@@ -62,8 +68,8 @@ def _jax_case(variant, add_se, ce):
 
 
 @functools.cache
-def _jax_ref(variant, add_se, ce, cue):
-    model, params, inputs = _jax_case(variant, add_se, ce)
+def _jax_ref(variant, add_se, ce, cue, spks=2):
+    model, params, inputs = _jax_case(variant, add_se, ce, spks)
     kw = _kwargs(variant, add_se, cue, inputs, jnp.asarray)
     if add_se:
         kw["cue_index"] = jnp.asarray(cue)
@@ -78,13 +84,13 @@ def _kwargs(variant, add_se, cue, inputs, conv):
     return kw
 
 
-def _port_cfg(variant, add_se, ce):
-    return SepformerConfig(variant=variant, add_se=add_se, ce=ce, **TINY)
+def _port_cfg(variant, add_se, ce, spks=2):
+    return SepformerConfig(variant=variant, add_se=add_se, ce=ce, num_spks=spks, **TINY)
 
 
-def _port_model(variant, add_se, ce):
-    _, params, _ = _jax_case(variant, add_se, ce)
-    return load_jax_params(Sepformer(_port_cfg(variant, add_se, ce)), params)
+def _port_model(variant, add_se, ce, spks=2):
+    _, params, _ = _jax_case(variant, add_se, ce, spks)
+    return load_jax_params(Sepformer(_port_cfg(variant, add_se, ce, spks)), params)
 
 
 def _check(got, want):
@@ -95,33 +101,33 @@ def _check(got, want):
         np.testing.assert_allclose(g.detach().numpy(), w, **TOL)
 
 
-@pytest.mark.parametrize("variant,add_se,ce,cue", CASES, ids=IDS)
-def test_plain_sepformer_matches_apply(variant, add_se, ce, cue):
-    _, _, inputs = _jax_case(variant, add_se, ce)
-    model = _port_model(variant, add_se, ce)
+@pytest.mark.parametrize("variant,add_se,ce,cue,spks", CASES, ids=IDS)
+def test_plain_sepformer_matches_apply(variant, add_se, ce, cue, spks):
+    _, _, inputs = _jax_case(variant, add_se, ce, spks)
+    model = _port_model(variant, add_se, ce, spks)
     with torch.no_grad():
         got = model(torch.from_numpy(inputs["mix"]),
                     **_kwargs(variant, add_se, cue, inputs, torch.from_numpy))
-    _check(got, _jax_ref(variant, add_se, ce, cue))
+    _check(got, _jax_ref(variant, add_se, ce, cue, spks))
 
 
-@pytest.mark.parametrize("variant,add_se,ce,cue", CASES, ids=IDS)
-def test_fused_forward_matches_apply(variant, add_se, ce, cue):
-    _, _, inputs = _jax_case(variant, add_se, ce)
+@pytest.mark.parametrize("variant,add_se,ce,cue,spks", CASES, ids=IDS)
+def test_fused_forward_matches_apply(variant, add_se, ce, cue, spks):
+    _, _, inputs = _jax_case(variant, add_se, ce, spks)
     got = sepformer_fused_forward(
-        _port_model(variant, add_se, ce), torch.from_numpy(inputs["mix"]),
+        _port_model(variant, add_se, ce, spks), torch.from_numpy(inputs["mix"]),
         **_kwargs(variant, add_se, cue, inputs, torch.from_numpy),
     )
-    _check(got, _jax_ref(variant, add_se, ce, cue))
+    _check(got, _jax_ref(variant, add_se, ce, cue, spks))
 
 
-@pytest.mark.parametrize("variant,add_se,ce,cue", CASES, ids=IDS)
-def test_engine_cpu_matches_apply(variant, add_se, ce, cue):
+@pytest.mark.parametrize("variant,add_se,ce,cue,spks", CASES, ids=IDS)
+def test_engine_cpu_matches_apply(variant, add_se, ce, cue, spks):
     """ServingEngine from the flax param tree itself, numpy inputs."""
-    _, params, inputs = _jax_case(variant, add_se, ce)
-    engine = ServingEngine(_port_cfg(variant, add_se, ce), params, device="cpu")
+    _, params, inputs = _jax_case(variant, add_se, ce, spks)
+    engine = ServingEngine(_port_cfg(variant, add_se, ce, spks), params, device="cpu")
     got = engine(inputs["mix"], **_kwargs(variant, add_se, cue, inputs, np.asarray))
-    _check(got, _jax_ref(variant, add_se, ce, cue))
+    _check(got, _jax_ref(variant, add_se, ce, cue, spks))
 
 
 def test_engine_per_example_cues():

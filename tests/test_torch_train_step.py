@@ -30,17 +30,21 @@ from cse_tpu_torch.train.schedules import cosine_warmup_schedule
 
 torch.set_num_threads(1)
 
-TINY = dict(num_spks=2, enc_channels=32, enc_kernel=8, enc_stride=4, d_model=32, nhead=4, d_ffn=64,
+TINY = dict(enc_channels=32, enc_kernel=8, enc_stride=4, d_model=32, nhead=4, d_ffn=64,
             num_dp_layers=1, chunk_size=16, llm_dim=24, se_dim=12, pe_max_len=256)
 B, T = 2, 400
 TOL = dict(rtol=5e-3, atol=1e-4)
-# (train variant, model variant, add_se, ce, layers)
+# (train variant, model variant, add_se, ce, layers, speakers); the
+# three-speaker forms are the JAX suite's num_spks=3 (tests/test_model_parity.py):
+# PIT over six permutations, the selector over three streams
 CASES = {
-    "context": ("context", "context", False, True, 2),
-    "contsep-ce": ("contsep", "contsep", False, True, 1),
-    "contsep-bce": ("contsep", "contsep", False, False, 1),
-    "base": ("base", "base", False, True, 1),
-    "hcontext": ("hcontext", "context", True, True, 1),
+    "context": ("context", "context", False, True, 2, 2),
+    "contsep-ce": ("contsep", "contsep", False, True, 1, 2),
+    "contsep-bce": ("contsep", "contsep", False, False, 1, 2),
+    "base": ("base", "base", False, True, 1, 2),
+    "hcontext": ("hcontext", "context", True, True, 1, 2),
+    "contsep-ce-3spk": ("contsep", "contsep", False, True, 1, 3),
+    "base-3spk": ("base", "base", False, True, 1, 3),
 }
 HCONTEXT_CUE = 0  # the cue both packages use when _sample_cue is fixed
 # Against a random gt the SI-SNR sits near -40 dB: a cancellation that
@@ -50,10 +54,10 @@ HCONTEXT_CUE = 0  # the cue both packages use when _sample_cue is fixed
 
 
 def _cfgs(case, dtype="fp32"):
-    tv, mv, add_se, ce, layers = CASES[case]
-    jcfg = JaxConfig(variant=mv, add_se=add_se, ce=ce, num_tf_layers=layers,
+    tv, mv, add_se, ce, layers, spks = CASES[case]
+    jcfg = JaxConfig(variant=mv, add_se=add_se, ce=ce, num_tf_layers=layers, num_spks=spks,
                      compute_dtype=jnp.float32 if dtype == "fp32" else jnp.bfloat16, **TINY)
-    tcfg = SepformerConfig(variant=mv, add_se=add_se, ce=ce, num_tf_layers=layers,
+    tcfg = SepformerConfig(variant=mv, add_se=add_se, ce=ce, num_tf_layers=layers, num_spks=spks,
                            compute_dtype=torch.float32 if dtype == "fp32" else torch.bfloat16, **TINY)
     return tv, ce, jcfg, tcfg
 
@@ -68,7 +72,7 @@ def _case(case):
              "ctx_feat": rng.standard_normal((B, 1, 24)).astype(np.float32)}
     kw = {}
     if tv in ("contsep", "base"):
-        batch["noises"] = rng.standard_normal((B, T, 1)).astype(np.float32)
+        batch["noises"] = rng.standard_normal((B, T, jcfg.num_spks - 1)).astype(np.float32)
     if tv == "hcontext":
         batch["se"] = rng.standard_normal((B, 1, 12)).astype(np.float32)
         kw = dict(se=jnp.asarray(batch["se"]), cue_index=jnp.asarray(0))
@@ -128,7 +132,7 @@ def test_context_fused_loss_and_grads_match_jax(fused, monkeypatch):
     assert set(metrics) == {"snr_loss"}
 
 
-@pytest.mark.parametrize("case", ["contsep-ce", "contsep-bce", "base", "hcontext"])
+@pytest.mark.parametrize("case", ["contsep-ce", "contsep-bce", "base", "hcontext", "contsep-ce-3spk", "base-3spk"])
 def test_other_variants_fused_loss_and_grads_match_jax(case, monkeypatch):
     loss, grads, metrics = _port_loss_grads(case, monkeypatch)
     _check((loss, grads), _jax_loss_grads(case, False))

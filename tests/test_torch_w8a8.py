@@ -10,6 +10,7 @@ moves that element by up to 1/127 of its row scale) and the JAX suite's
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -219,10 +220,16 @@ def test_run_stack_on_k_major_weights_matches_jax(cd):
     assert _rel_l2(got.numpy(), want) <= 1e-3
 
 
+# the widths the w8a8 engine is held at: the JAX suite's TINY (d_model 16, head
+# width 4) and --debug_tiny_model's (d_model 32, head width 8, FFN 64); the
+# paper's 256 / 1024 runs on the card (chip_smoke.py [9], [19])
+WIDTHS = {"jax-tiny": TINY, "cli-tiny": dict(TINY, enc_channels=32, d_model=32, d_ffn=64)}
+
+
 @functools.cache
-def _engine_case(variant):
+def _engine_case(variant, widths="jax-tiny"):
     rng = np.random.default_rng(4)
-    cfg = JaxConfig(variant=variant, ce=True, compute_dtype=jnp.float32, **TINY)
+    cfg = JaxConfig(variant=variant, ce=True, compute_dtype=jnp.float32, **WIDTHS[widths])
     mix = rng.standard_normal((2, 300)).astype(np.float32)
     ctx = rng.standard_normal((2, 1, 24)).astype(np.float32)
     params = jax.tree.map(np.asarray, JaxSepformer(cfg).init(jax.random.key(0), mix, ctx))
@@ -231,10 +238,10 @@ def _engine_case(variant):
     return params, mix, ctx, outs
 
 
-@pytest.mark.parametrize("variant", ["context", "contsep"])
-def test_engine_matches_jax_w8a8(variant):
-    params, mix, ctx, outs = _engine_case(variant)
-    engine = ServingEngine(SepformerConfig(variant=variant, ce=True, **TINY), params, device="cpu", quant="w8a8")
+def _engine_matches_jax(variant, widths):
+    params, mix, ctx, outs = _engine_case(variant, widths)
+    engine = ServingEngine(SepformerConfig(variant=variant, ce=True, **WIDTHS[widths]), params, device="cpu",
+                           quant="w8a8")
     got = engine(mix, ctx)
     got = list(got) if variant == "contsep" else [got]
     for g, want, exact in zip(got, outs["w8a8"], outs[None]):
@@ -242,6 +249,105 @@ def test_engine_matches_jax_w8a8(variant):
         assert np.isfinite(g).all() and g.shape == want.shape
         assert _rel_l2(g, want) <= 1e-3
         assert _rel_l2(g, exact) <= 5e-2
+
+
+@pytest.mark.parametrize("variant", ["context", "contsep"])
+def test_engine_matches_jax_w8a8(variant):
+    _engine_matches_jax(variant, "jax-tiny")
+
+
+# The whole w8a8 engine is chaotic at the size of one rounding: at cli-tiny,
+# noise of 1e-6 on the mixture moves the fp32 engine's output by ~3e-6 (rel
+# L2) and the w8a8 engine's by 2e-3 to 3e-3 (six draws), since an LN output
+# an ulp apart flips an int8 rounding by a whole step. So the engine's own
+# bar against JAX's w8a8 engine is 1e-2; each of its stacks is held at this
+# file's 1e-3 against JAX's _stack_kernel_w8a8 on the input the engine gave it.
+ENGINE_W8A8_TOL = 1e-2
+
+
+@pytest.mark.parametrize("variant", ["context", "contsep"])
+def test_engine_matches_jax_w8a8_at_cli_tiny(variant, monkeypatch):
+    """The --debug_tiny_model widths, on the chain route the card takes there:
+    every stack call of the engine against JAX's w8a8 stack on its input, the
+    outputs against JAX's w8a8 engine and its exact fp32 run."""
+    import cse_tpu_torch.serving as tserving
+
+    assert w8.stack_route(32, 64) == "chain"
+    params, mix, ctx, outs = _engine_case(variant, "cli-tiny")
+    calls, stack_call = [], tserving.fused_stack_apply
+
+    def recorded(x, w, **kw):
+        y = stack_call(x, w, **kw)
+        calls.append((x.numpy().copy(), y.numpy().copy()))
+        return y
+
+    monkeypatch.setattr(tserving, "fused_stack_apply", recorded)
+    widths = WIDTHS["cli-tiny"]
+    engine = ServingEngine(SepformerConfig(variant=variant, ce=True, **widths), params, device="cpu", quant="w8a8")
+    got = engine(mix, ctx)
+    masknet = params["params"]["masknet"]
+    trees = [masknet[f"dual_mdl_{i}"][k] for i in range(widths["num_dp_layers"]) for k in ("intra_mdl", "inter_mdl")]
+    assert len(calls) == len(trees)
+    for (x, y), tree in zip(calls, trees):
+        want = np.asarray(jax_fused_stack_apply(jnp.asarray(x), tree, nhead=widths["nhead"],
+                                                compute_dtype=jnp.float32, quant="w8a8"))
+        assert _rel_l2(y, want) <= 1e-3
+    for g, want, exact in zip(list(got) if variant == "contsep" else [got], outs["w8a8"], outs[None]):
+        g = g.numpy()
+        assert np.isfinite(g).all() and g.shape == want.shape
+        assert _rel_l2(g, want) <= ENGINE_W8A8_TOL
+        assert _rel_l2(g, exact) <= 5e-2
+
+
+# (d_model, nhead, d_ffn) of the three widths the card runs: jax-tiny, cli-tiny, the paper's
+STACK_WIDTHS = {"jax-tiny": (16, 4, 32), "cli-tiny": (32, 4, 64), "paper": (256, 8, 1024)}
+OP_KERNELS = {"ln": "layer_norm", "lnq": "layer_norm_quant", "quant": "quantize_rows", "lin": "linear_w8a8",
+              "attn": "attention", "ffn": "ffn_w8a8"}
+
+
+def _counting_plain_ops(counts):
+    """PLAIN_OPS with each call counted under the kernel it stands for."""
+    def counted(name, fn):
+        def call(*a, **k):
+            counts[OP_KERNELS[name]] = counts.get(OP_KERNELS[name], 0) + 1
+            return fn(*a, **k)
+        return call
+    ops = dict(vars(w8.PLAIN_OPS))
+    return types.SimpleNamespace(**{k: counted(k, f) if k in OP_KERNELS else f for k, f in ops.items()})
+
+
+@pytest.mark.parametrize("widths", list(STACK_WIDTHS))
+def test_launches_per_stack_follows_the_route(widths):
+    """run_stack calls each kernel as often as launches_per_stack counts for
+    the route its widths choose: the fused one (57 calls at 8 layers) at the
+    paper's widths only, the chain (89 at 8 layers) at the others."""
+    d, h, f = STACK_WIDTHS[widths]
+    route = w8.stack_route(d, f)
+    assert route == ("fused" if widths == "paper" else "chain")
+    stack = TransformerStack(SepformerConfig(d_model=d, nhead=h, d_ffn=f, num_tf_layers=2))
+    w = fs.stack_weights(stack, torch.float32, quant="w8a8")
+    counts = {}
+    got = w8.run_stack(torch.randn(2, 5, d, generator=torch.Generator().manual_seed(0)), w, h, torch.float32,
+                       _counting_plain_ops(counts))
+    assert got.shape == (2, 5, d) and torch.isfinite(got).all()
+    assert counts == fs.launches_per_stack(2, "w8a8", d, f)
+    total = sum(fs.launches_per_stack(8, "w8a8", d, f).values())
+    assert total == (57 if route == "fused" else 89)
+
+
+@pytest.mark.parametrize("d, h, f, what", [(48, 4, 96, "head widths"), (256, 8, 2048, "K <= 1024"),
+                                           (40, 5, 80, "K % 16")])
+def test_w8a8_stack_refuses_widths_no_route_takes(d, h, f, what, monkeypatch):
+    """Head width 12, an FFN wider than the int8 GEMM's K, a K % 16 != 0:
+    the kernel path raises before its first launch (the device check
+    answered as for CUDA tensors, the library refused)."""
+    monkeypatch.setattr(fs, "_route", lambda *ts: True)
+    monkeypatch.setattr(w8._build, "library", lambda: pytest.fail("no launch for a refused width"))
+    monkeypatch.setattr(fs._build, "library", lambda: pytest.fail("no launch for a refused width"))
+    stack = TransformerStack(SepformerConfig(d_model=d, nhead=h, d_ffn=f, num_tf_layers=1))
+    w = fs.stack_weights(stack, torch.bfloat16, quant="w8a8")
+    with pytest.raises(ValueError, match=what):
+        fs.fused_stack_apply(torch.zeros(1, 4, d, dtype=torch.bfloat16), w, h, torch.bfloat16, quant="w8a8")
 
 
 def test_w8a8_refuses_training_and_unknown_modes():
