@@ -189,15 +189,16 @@ Phases (any failure exits non-zero and prints no result line):
  18. data parallel and the Llama's tensor parallelism (core/mesh.py, the
      sharded train step, --mesh_data, llama_shardings; no kernel of the
      port, #3 and #4 in the step), each leg in processes of its own
-     (python3 chip_smoke.py --leg NAME DIR) with its own rendezvous on a free
-     localhost port and time limit: (a) one NCCL rank, ContExt bf16 at full
-     width, B=16: three fused steps with make_mesh(1) against three
-     unsharded steps on the same weights and batch under cuDNN's
-     deterministic algorithms (losses and parameters the same bits), #3 /
-     #4 launches a step by formula, the step timed in turns with the
-     unsharded one (four each) beside [7c], the all-reduce alone (CUDA
-     events) and its bytes a step; (b) two gloo ranks
-     sharing the card (NCCL takes one rank a card), fp32 with TF32 off on
+     (python3 chip_smoke.py --leg NAME DIR) started by tests/torch_ranks.py's
+     launcher, with its own rendezvous on a free localhost port and one
+     deadline for the group (a report of every rank if it fails): (a) one
+     NCCL rank, ContExt bf16 at full width, B=16: three fused steps with
+     make_mesh(1) against three unsharded steps on the same weights and
+     batch under cuDNN's deterministic algorithms (losses and parameters
+     the same bits), #3 / #4 launches a step by formula, the step timed in
+     turns with the unsharded one (four each) beside [7c], the all-reduce
+     alone (CUDA events) and its bytes a step; (b) two gloo ranks sharing
+     the card (NCCL takes one rank a card), fp32 with TF32 off on
      [7a]'s setup, 8 rows each of one batch of 16, rank 1 built from other
      weights: three fused steps with the same losses and parameters on both
      ranks, step 1's reduced gradients against one process's B=16
@@ -3064,37 +3065,36 @@ DP_B = 16  # [18a]'s batch and [18b]'s global batch (8 rows a rank)
 LEG_TIMEOUT = 300  # s, each leg of [18]
 
 
-def free_port() -> int:
-    import socket
+def ranks_launcher():
+    """tests/torch_ranks.py, the rank launcher the port's multi-process tests
+    use: one deadline for the whole group, every rank's output drained while
+    it runs, the first rank that exits non-zero ends the group, and a report
+    of every rank on failure. Loaded from its file: a ``tests`` package
+    elsewhere on the path cannot shadow it."""
+    import importlib.util
+    import os
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_ranks.py")
+    spec = importlib.util.spec_from_file_location("torch_ranks", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run_ranks(name, argv, n, env=None, timeout=LEG_TIMEOUT) -> list[str]:
-    """``argv`` in ``n`` processes that rendezvous on JAX's variables on a
-    free localhost port; fails the run if one exits non-zero or outlives
-    ``timeout`` (every process is killed then). Returns their outputs."""
+    """``argv`` in ``n`` processes that rendezvous on JAX's variables, through
+    ``ranks_launcher().run_group``; fails the run with its report (the
+    address, the seconds, each rank's return code or that it was killed, and
+    the tail of its output) if a rank exits non-zero or the group outlives
+    ``timeout``. Returns their outputs."""
     import os
 
-    base = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{free_port()}", JAX_NUM_PROCESSES=str(n), **(env or {}))
-    procs = [subprocess.Popen(argv, env=dict(base, JAX_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
-             for r in range(n)]
-    outs, t0 = [], time.time()
+    ranks = ranks_launcher()
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, timeout - (time.time() - t0)))[0])
-    except subprocess.TimeoutExpired:
-        fail(f"[{name}] a rank outlived {timeout} s")
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            fail(f"[{name}] rank {r} exited {p.returncode}:\n{out[-6000:]}")
-    return outs
+        return ranks.run_group(argv, n, dict(os.environ, **(env or {})), os.path.dirname(os.path.abspath(__file__)),
+                               timeout)
+    except ranks.RanksFailed as e:
+        fail(f"[{name}] {e}")
 
 
 def leg_results(name, outs) -> list[dict]:
@@ -3367,7 +3367,8 @@ def phase18(card, failures, references):
     flags = TRAINER_ARGS + ["--mesh_data", "1", "--checkpoint_dir", ck]
     log(f"[18c] python -m torch.distributed.run --nproc_per_node 1 -m cse_tpu_torch.train_ContExt {' '.join(flags)}")
     t0 = time.time()
-    proc = subprocess.run(run + ["--master_port", str(free_port()), "-m", "cse_tpu_torch.train_ContExt"] + flags,
+    port = str(ranks_launcher().free_port())
+    proc = subprocess.run(run + ["--master_port", port, "-m", "cse_tpu_torch.train_ContExt"] + flags,
                           capture_output=True, text=True, timeout=LEG_TIMEOUT,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     took = time.time() - t0
@@ -3390,7 +3391,8 @@ def phase18(card, failures, references):
     out["trainer"] = {"seconds": took, "val_sisnr": vals, "checkpoints": files, "sustained_mixtures_per_s": rate}
     log(f"[18c] python -m torch.distributed.run --nproc_per_node 1 -m cse_tpu_torch.bench --mesh_data 1")
     t0 = time.time()
-    proc = subprocess.run(run + ["--master_port", str(free_port()), "-m", "cse_tpu_torch.bench", "--mesh_data", "1"],
+    port = str(ranks_launcher().free_port())
+    proc = subprocess.run(run + ["--master_port", port, "-m", "cse_tpu_torch.bench", "--mesh_data", "1"],
                           capture_output=True, text=True, timeout=LEG_TIMEOUT,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     took = time.time() - t0

@@ -11,8 +11,8 @@ rows against the port's unsharded forward and against JAX's forward over
 ranks' outputs are the same bits; w8a8 has the unsharded bits (its row max
 and int32 sums are reduced exactly). The shards' shapes: ``o`` / ``down``
 keep their scales whole, column-sharded matrices cut theirs with the
-payload, and each rank holds the kv columns its query heads read. Each
-child waits at most 120 s.
+payload, and each rank holds the kv columns its query heads read. The four
+children run under tests/torch_ranks.py's group deadline.
 """
 
 import json

@@ -16,8 +16,8 @@ out the key-bias third of each packed qkv bias, whose gradient is rounding
 noise that Adam's first step scales to a full step
 (``ops/fused_train.py::qv_part``, the repo's gradient comparisons). The
 checkpoint contract of tests/test_multihost.py: rank 0 saves, barrier, both
-restore, and the continuation equals the uncheckpointed one exactly. Each
-child waits at most 120 s.
+restore, and the continuation equals the uncheckpointed one exactly. The two
+children run under tests/torch_ranks.py's group deadline.
 """
 
 import json
@@ -238,3 +238,16 @@ def test_rendezvous_variables(monkeypatch):
     with pytest.raises(RuntimeError, match="JAX_NUM_PROCESSES and JAX_PROCESS_ID"):
         tmesh.distributed_init_if_needed(device="cpu")
     assert not torch.distributed.is_initialized()
+
+
+def test_the_rendezvous_destroys_its_group_at_exit():
+    """A rank that joined through ``distributed_init_if_needed`` destroys its
+    process group in an exit hook: left to the interpreter's teardown, gloo's
+    threads abort a finished rank now and then (exit -6, "terminate called
+    without an active exception"), which fails a group that did its work."""
+    child = ("import atexit, json, torch, torch.distributed as dist\n"
+             "from cse_tpu_torch.core import mesh as M\n"
+             "M.distributed_init_if_needed(device='cpu'); x = torch.ones(2); dist.all_reduce(x)\n"
+             "atexit._run_exitfuncs()\n"
+             "print('LEFT', json.dumps([float(x[0]), dist.is_initialized()]), flush=True)")
+    assert [t["LEFT"] for t in tagged(launch(["-c", child], 2))] == [[2.0, False]] * 2

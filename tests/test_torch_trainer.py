@@ -128,7 +128,7 @@ def test_two_processes_train_with_mesh_data(tmp_path):
     checkpoint of step 2."""
     argv = ["-c", DP_CHILD] + [str(a) for a in BASE] + ["--tot_iters", 2, "--mesh_data", 2,
                                                         "--checkpoint_dir", tmp_path]
-    res = [t["RESULT"] for t in tagged(launch(argv, 2, timeout=120))]
+    res = [t["RESULT"] for t in tagged(launch(argv, 2))]
     assert [r["writers"] for r in res] == [[True], [False]]
     assert res[0]["saves"] == [2] and res[1]["saves"] == []
     assert res[0]["final_step"] == res[1]["final_step"] == 3
