@@ -58,6 +58,7 @@ import torch
 from cse_tpu_torch.ops import _build
 from cse_tpu_torch.ops import fused_stack as fs
 from cse_tpu_torch.ops.fused_stack import LN_EPS, wide
+from cse_tpu_torch.utils.profiling import span
 
 W_NAMES = ("qkv_w", "qkv_b", "out_w", "out_b", "ln1_s", "ln1_b",
            "ln2_s", "ln2_b", "f1_w", "f1_b", "f2_w", "f2_b")
@@ -508,9 +509,10 @@ class FusedLayers(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, *weights = ctx.saved_tensors
-        w = dict(zip(W_NAMES, weights))
-        dx, dw = layers_backward(x, gy.to(x.dtype).contiguous(), w, ctx.nhead, ctx.ops)
-        return (dx, None, None, *[dw[k].to(w[k].dtype) for k in W_NAMES])
+        with span("train.stack_backward", {"G": x.shape[0], "L": x.shape[1]}):
+            w = dict(zip(W_NAMES, weights))
+            dx, dw = layers_backward(x, gy.to(x.dtype).contiguous(), w, ctx.nhead, ctx.ops)
+            return (dx, None, None, *[dw[k].to(w[k].dtype) for k in W_NAMES])
 
 
 def fused_layers(x, weights: dict, nhead: int, ops=None):

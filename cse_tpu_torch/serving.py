@@ -30,6 +30,7 @@ from cse_tpu_torch.models.sepformer import Sepformer, SepformerConfig, add_pe, d
 from cse_tpu_torch.ops.fused_stack import check_quant_mode, fused_stack_apply, stack_weights
 from cse_tpu_torch.ops.fused_train import fused_stack_train
 from cse_tpu_torch.ops.segmentation import segment
+from cse_tpu_torch.utils.profiling import span
 
 
 def stacked_weights(model: Sepformer, quant: str | None = None) -> dict[str, dict[str, torch.Tensor]]:
@@ -49,15 +50,17 @@ def _check_quant(quant, train=False):
         raise ValueError("w8a8 stacks are inference-only: train=True takes quant=None")
 
 
-def _stack(x, cfg: SepformerConfig, stacks, key: str, module, quant=None):
+def _stack(x, cfg: SepformerConfig, stacks, block: int, view: str, module, quant=None):
     """PE + fused transformer stack. x: [G, L, D]. ``stacks`` None runs the
     differentiable training stack on ``module`` (the TransformerStack), else
-    the inference stack on ``stacks[key]`` (made for ``quant``)."""
+    the inference stack on ``stacks[f"{block}.{view}"]`` (made for ``quant``)."""
     x = add_pe(x, cfg.pe_max_len)
     cd = cfg.compute_dtype
-    if stacks is None:
-        return fused_stack_train(x, module, nhead=cfg.nhead, compute_dtype=cd).to(cd)
-    return fused_stack_apply(x, stacks[key], nhead=cfg.nhead, compute_dtype=cd, quant=quant)
+    with span("model.stack." + view, {"G": x.shape[0], "L": x.shape[1]}):
+        if stacks is not None:
+            return fused_stack_apply(x, stacks[f"{block}.{view}"], nhead=cfg.nhead, compute_dtype=cd, quant=quant)
+        y = fused_stack_train(x, module, nhead=cfg.nhead, compute_dtype=cd)
+    return y.to(cd)
 
 
 def sepformer_fused_forward(
@@ -89,7 +92,8 @@ def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks, quant=None
     """The forward's body; ``stacks`` None selects the training stacks."""
     cfg, cd = model.cfg, model.cfg.compute_dtype
     B, T = mix.shape
-    w = model.encode(mix)  # [B, L, N] in cd
+    with span("model.encode"):
+        w = model.encode(mix)  # [B, L, N] in cd
     L = w.shape[1]
     if cfg.add_se and ctx is not None:
         ctx = model.fuse_cues(ctx, se, cue_index)
@@ -107,7 +111,7 @@ def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks, quant=None
             c = dense(ctx, blk.intra_context_mapper, cd)
             c = c[:, None].expand(B, S, Tc, N).reshape(B * S, Tc, N)
             intra = torch.cat([c, intra.to(c.dtype)], dim=1)
-        intra = _stack(intra, cfg, stacks, f"{i}.intra", blk.intra_mdl, quant)
+        intra = _stack(intra, cfg, stacks, i, "intra", blk.intra_mdl, quant)
         intra = intra[:, Tc:].reshape(B, S, K, N)
         intra = blk.intra_norm(intra) + x
 
@@ -116,15 +120,18 @@ def _fused_forward(model: Sepformer, mix, ctx, se, cue_index, stacks, quant=None
             c = dense(ctx, blk.inter_context_mapper, cd)
             c = c[:, None].expand(B, K, Tc, N).reshape(B * K, Tc, N)
             inter = torch.cat([c, inter.to(c.dtype)], dim=1)
-        inter = _stack(inter, cfg, stacks, f"{i}.inter", blk.inter_mdl, quant)
+        inter = _stack(inter, cfg, stacks, i, "inter", blk.inter_mdl, quant)
         pred_head = inter[:, 0].reshape(B, K, N).mean(dim=1)
         inter = inter[:, Tc:].reshape(B, K, S, N).transpose(1, 2)
         x = blk.inter_norm(inter) + intra
 
-    masks = mask_head(mn, x, gap, B, L)
-    est = model.decode(w, masks, T)
+    with span("model.mask_head"):
+        masks = mask_head(mn, x, gap, B, L)
+    with span("model.decode"):
+        est = model.decode(w, masks, T)
     if cfg.variant == "contsep":
-        return est, model.select(pred_head)
+        with span("model.select"):
+            return est, model.select(pred_head)
     return est
 
 
@@ -166,8 +173,8 @@ class ServingEngine:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def __call__(self, mix, ctx=None, se=None, cue_index=None):
-        cue = cue_index if cue_index is None or isinstance(cue_index, int) else self._in(cue_index)
-        with torch.inference_mode():
+        with span("serve"), torch.inference_mode():
+            cue = cue_index if cue_index is None or isinstance(cue_index, int) else self._in(cue_index)
             return sepformer_fused_forward(
                 self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
                 cue_index=cue, stacks=self.stacks, quant=self.quant,

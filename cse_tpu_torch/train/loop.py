@@ -55,7 +55,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cse_tpu_torch.compat.torch_import import sepformer_from_state_dict
 from cse_tpu_torch.core.banner import announce_assets
@@ -94,7 +93,7 @@ from cse_tpu_torch.train.schedules import (
 )
 from cse_tpu_torch.train.step import TrainConfig, make_eval_step, make_train_step
 from cse_tpu_torch.utils.logging import IterTimer, MetricLogger
-from cse_tpu_torch.utils.profiling import profile_dir_from_env, trace_if
+from cse_tpu_torch.utils.profiling import profile_dir_from_env, span, trace_if
 
 
 def build_model(args, variant: str) -> tuple[Sepformer, TrainConfig]:
@@ -452,7 +451,7 @@ def train_net(args, variant: str, stats: dict | None = None):
                 last_metrics = metrics
                 # prepare batch i+1 while step i runs on the device
                 nxt = next(host_iter, None)
-                with record_function("cse/prepare_batch"):
+                with span("prepare_batch"):
                     pending = _prepare(nxt) if nxt is not None else None
             # step = optimizer updates, not microbatches (reference
             # train_ContSep.py:402-421 with --update_frequency). The counter

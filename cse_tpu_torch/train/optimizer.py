@@ -31,6 +31,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from cse_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass
 class OptState:
@@ -113,7 +115,9 @@ class AdamWAmsgrad:
 
     def _if_finite(self, params, grads, state: OptState) -> bool:
         # max |g| of each tensor: NaN or inf exactly where an element is, and never overflows
-        finite = bool(torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all())
+        finite = torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all()
+        with span("train.optimizer.read_finite"):
+            finite = bool(finite)
         state.last_finite = finite
         if not finite:
             state.notfinite_count += 1
@@ -126,7 +130,10 @@ class AdamWAmsgrad:
     def _chain(self, params, grads, state: OptState):
         b1, b2, eps = self.b1, self.b2, self.eps
         g_norm = global_norm(grads)
-        if not bool(g_norm < self.clip_norm):
+        below = g_norm < self.clip_norm
+        with span("train.optimizer.read_clip"):
+            below = bool(below)
+        if not below:
             grads = [(g / g_norm) * self.clip_norm for g in grads]
         # scale_by_amsgrad
         torch._foreach_mul_(state.mu, b1)

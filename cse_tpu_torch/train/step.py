@@ -42,6 +42,7 @@ from cse_tpu_torch.core.mesh import Mesh, broadcast_tensors
 from cse_tpu_torch.ops.losses import ctx_selection_loss, pit_si_snr_loss, si_snr
 from cse_tpu_torch.serving import sepformer_fused_forward
 from cse_tpu_torch.train.optimizer import AdamWAmsgrad, global_norm
+from cse_tpu_torch.utils.profiling import span
 
 _ALIGN = 128  # fp32 elements: a gradient's slot in the all-reduce buffer starts on 512 bytes
 
@@ -100,28 +101,31 @@ def make_loss_fn(model, cfg: TrainConfig, llm_apply: Callable | None = None, fus
         metrics: dict[str, Any] = {}
         if cfg.variant == "base":
             est = apply_fn(mixed)
-            targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
-            loss = pit_si_snr_loss(est, targets).mean()
+            with span("train.loss"):
+                targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
+                loss = pit_si_snr_loss(est, targets).mean()
             metrics["snr_loss"] = loss
             return loss, metrics
         ctx = _get_ctx(batch, llm_apply, llm_params)
         if cfg.variant == "contsep":
             est, logits = apply_fn(mixed, ctx)
-            # selection label: the stream with the highest SI-SNR against gt (no grad)
-            label = si_snr(est.detach().transpose(1, 2), gt[:, None, :]).argmax(dim=-1)
-            ctx_loss = ctx_selection_loss(logits, label, cfg.use_ce)
-            targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
-            snr_loss = pit_si_snr_loss(est, targets).mean()
-            loss = cfg.ctx_weight * ctx_loss + snr_loss
-            pred = logits.argmax(dim=-1) if cfg.use_ce else (logits[:, 0] > 0).long()
-            metrics.update(snr_loss=snr_loss, ctx_loss=ctx_loss,
-                           ctx_acc=(pred == label).float().mean())
+            with span("train.loss"):
+                # selection label: the stream with the highest SI-SNR against gt (no grad)
+                label = si_snr(est.detach().transpose(1, 2), gt[:, None, :]).argmax(dim=-1)
+                ctx_loss = ctx_selection_loss(logits, label, cfg.use_ce)
+                targets = torch.cat([gt[:, :, None], batch["noises"]], dim=-1)
+                snr_loss = pit_si_snr_loss(est, targets).mean()
+                loss = cfg.ctx_weight * ctx_loss + snr_loss
+                pred = logits.argmax(dim=-1) if cfg.use_ce else (logits[:, 0] > 0).long()
+                metrics.update(snr_loss=snr_loss, ctx_loss=ctx_loss,
+                               ctx_acc=(pred == label).float().mean())
             return loss, metrics
         kwargs = {}
         if cfg.variant == "hcontext":
             kwargs = dict(se=batch["se"], cue_index=_sample_cue(generator))
         est = apply_fn(mixed, ctx, **kwargs)
-        loss = -si_snr(est[:, :, 0], gt).mean()
+        with span("train.loss"):
+            loss = -si_snr(est[:, :, 0], gt).mean()
         metrics["snr_loss"] = loss
         return loss, metrics
 
@@ -183,9 +187,10 @@ def all_reduce_mean(params, grads, metrics: dict, rows: int, mesh: Mesh):
     flat = flat[:-2].div_(torch.full((), float(mesh.n_data), device=dev))
 
     def check():
-        if copied is not None:
-            copied.synchronize()
-        total, squares = counts.tolist()
+        with span("train.all_reduce.read_rows"):
+            if copied is not None:
+                copied.synchronize()
+            total, squares = counts.tolist()
         if squares * mesh.n_data != total * total:
             raise RuntimeError(f"the {mesh.n_data} data ranks hold unequal batches ({rows} rows here, "
                                f"{total:g} in all): the mean over ranks is not the global batch's")
@@ -225,16 +230,20 @@ def make_train_step(model, optimizer: AdamWAmsgrad, cfg: TrainConfig, fused: boo
         batch = _to_device(batch, dev)
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(batch, generator)
-        loss.backward()
+        with span("train.forward"):
+            loss, metrics = loss_fn(batch, generator)
+        with span("train.backward"):
+            loss.backward()
         grads = [p.grad for p in params]
         metrics["loss"] = loss
         check = None
         if mesh is not None:
-            grads, metrics, check = all_reduce_mean(params, grads, metrics, batch["mixed"].shape[0], mesh)
+            with span("train.all_reduce"):
+                grads, metrics, check = all_reduce_mean(params, grads, metrics, batch["mixed"].shape[0], mesh)
             step.reduced_bytes = 4 * (n_slots + len(metrics) + 2)
-        metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
-        optimizer.step(params, grads, opt_state)
+        with span("train.optimizer"):
+            metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
+            optimizer.step(params, grads, opt_state)
         if check is not None:
             check()
         return {k: v.detach() for k, v in metrics.items()}

@@ -143,28 +143,54 @@ def test_fused_path_can_be_forced_on_the_cpu(tmp_path, capsys):
     assert "train path: fused kernels (forced) on cpu" in capsys.readouterr().out
     assert stats["final_step"] == 2 and np.isfinite(stats["loss_reads"]).all()
     assert not list(tmp_path.glob("*.ckpt"))  # no eval_step boundary was reached
-    # on the CPU the window has the loop's range and no device activity
-    assert stats["profile"] == {"range_ms": {"prepare_batch": [0.0, 0.0]}}
+    # on the CPU the window has the loop's and the step's spans and no device activity: each step
+    # one forward, loss, backward, optimizer and its two host reads; the tiny model's one block
+    # (2 layers) runs its intra stack on G = B x 162 chunks of L = 50 + 1 context token and its
+    # inter stack on G = B x 50 of L = 162 + 1, and the fused backward once a layer and stack
+    per_step = {"prepare_batch": 1, "train.forward": 1, "model.encode": 1, "model.stack.intra[G=324,L=51]": 1,
+                "model.stack.inter[G=100,L=163]": 1, "model.mask_head": 1, "model.decode": 1, "train.loss": 1,
+                "train.backward": 1, "train.stack_backward[G=324,L=51]": 2, "train.stack_backward[G=100,L=163]": 2,
+                "train.optimizer": 1, "train.optimizer.read_finite": 1, "train.optimizer.read_clip": 1}
+    assert stats["profile"] == {"range_ms": {k: [0.0] * (2 * n) for k, n in per_step.items()}}
 
 
 def test_device_activity_reads_busy_share_and_longest_gap():
+    """Busy time is the union of the device intervals (two streams overlap in
+    1500-2000); a range's device time is the work launched while it was open
+    on any thread, matched to its launch by correlation id: by the runtime
+    call's id (from the loop's thread and from autograd's), else through the
+    operator a kernel is linked to."""
     from types import SimpleNamespace as NS
 
     from torch.autograd import DeviceType
 
     from cse_tpu_torch.utils.profiling import device_activity
 
-    def ev(dev, a, b, name="k", note=False, dev_us=0.0):
-        return NS(device_type=dev, time_range=NS(start=a, end=b), name=name, is_user_annotation=note,
-                  device_time_total=dev_us)
+    def ev(dev, a, b, name="k", note=False, id=0, linked=0, kind=None, thread=1):
+        return NS(device_type=dev, time_range=NS(start=a, end=b), name=name, is_user_annotation=note, id=id,
+                  linked_correlation_id=linked, activity_type=kind, thread=thread)
 
-    events = [ev(DeviceType.CUDA, 3000.0, 4000.0), ev(DeviceType.CUDA, 0.0, 1000.0),
-              ev(DeviceType.CUDA, 1500.0, 2000.0), ev(DeviceType.CUDA, 0.0, 4000.0, "cse/prepare_batch", note=True),
-              ev(DeviceType.CPU, 0.0, 10.0, "cse/prepare_batch", note=True, dev_us=2500.0),
-              ev(DeviceType.CPU, 0.0, 10.0, "aten::add")]
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [ev(cpu, 0.0, 10.0, "cse/prepare_batch", note=True, id=1, kind="user_annotation"),
+              ev(cpu, 1.0, 2.0, "aten::copy_", id=2, kind="cpu_op"),
+              ev(cpu, 1.5, 1.8, "cudaMemcpyAsync", id=900, linked=2, kind="cuda_runtime"),
+              ev(cuda, 0.0, 1000.0, "Memcpy HtoD", id=900, linked=2, kind="gpu_memcpy"),
+              ev(cpu, 20.0, 90.0, "cse/train.backward", note=True, id=3, kind="user_annotation"),
+              ev(cpu, 30.0, 31.0, "cudaLaunchKernel", id=901, kind="cuda_runtime", thread=7),
+              ev(cuda, 1500.0, 2000.0, id=901, kind="kernel"),
+              ev(cpu, 40.0, 41.0, "aten::mul", id=4, kind="cpu_op", thread=7),
+              ev(cuda, 1200.0, 1800.0, id=555, linked=4, kind="kernel"),
+              ev(cpu, 95.0, 96.0, "cudaLaunchKernel", id=902, kind="cuda_runtime"),
+              ev(cuda, 3000.0, 4000.0, id=902, kind="kernel"),
+              ev(cuda, 0.0, 4000.0, "cse/prepare_batch", note=True, kind="gpu_user_annotation"),
+              ev(cpu, 0.0, 10.0, "aten::add", id=5, kind="cpu_op")]
     got = device_activity(NS(events=lambda: events))
-    assert got == {"wall_ms": 4.0, "kernel_ms": 2.5, "busy_share": 0.625, "longest_idle_gap_ms": 1.0,
-                   "range_ms": {"prepare_batch": [2.5]}}
+    assert got == {"wall_ms": 4.0, "kernel_ms": 2.8, "busy_share": 0.7, "longest_idle_gap_ms": 1.0,
+                   "range_ms": {"prepare_batch": [1.0], "train.backward": [0.8]}}
+    # torch 2.11's events carry neither the kind nor the link: runtime calls are known by name
+    bare = [NS(**{k: v for k, v in vars(e).items() if k not in ("activity_type", "linked_correlation_id")})
+            for e in events]
+    assert device_activity(NS(events=lambda: bare))["range_ms"] == {"prepare_batch": [1.0], "train.backward": [0.5]}
 
 
 def _first_batches(args, jargs):
