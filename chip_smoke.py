@@ -69,14 +69,16 @@ Phases (any failure exits non-zero and prints no result line):
      instantiation of either must have no local memory);
   9. w8a8 serving: (a) the row quantizer (bit-exact), the int8 GEMM's three
      epilogues, layer_norm_quant and ffn_w8a8 (the bits of the kernel chains
-     they replace; ffn_w8a8 also against its plain version) and the whole
+     they replace; ffn_w8a8 also against its plain version, and at the w8a8
+     serving cell's six stack shapes too) and the whole
      w8a8 stack against their plain versions; (b)
      ServingEngine(quant="w8a8"), bf16, B=16, T=125000, against the plain fp32
      Sepformer: launches (228 a forward), median forward time, realtime
      factor; (c) kernel times beside the plain versions, torch._int_mm or
      SDPA, and the bounds, the int8 GEMM's time before its redesign, and
      layer_norm_quant and ffn_w8a8 beside the chains they replace, timed in
-     the same run;
+     the same run (ffn_w8a8 also at the serving cell's shapes: 10 mixtures
+     of 2, 9.5 and 15.5 s, intra and inter);
  10. the kernel-parts dev tool: (a) its LayerNorm and attention kernels in
      every mode (bf16 also on the multi-pass route, at L=300; the LayerNorm
      also for the same bits on a repeat) and the whole
@@ -308,6 +310,21 @@ HBM_BYTES_S = 3.35e12
 
 INTRA = (2016, 251)  # B*S sequences of K + 1 tokens at B=16, T=125000
 INTER = (4000, 127)  # B*K sequences of S + 1 tokens
+# the w8a8 serving cell's stacks (perfbench contsep3.serve_w8a8): 10 mixtures a request, at its shortest,
+# middle and longest lengths (seconds at 8 kHz)
+CELL_BATCH, CELL_SECONDS = 10, (2.0, 9.5, 15.5)
+
+
+def cell_shapes() -> list[tuple[str, tuple[int, int]]]:
+    """(name, (G, L)) of the intra and inter stacks at CELL_SECONDS."""
+    from cse_tpu_torch.ops.buckets import frames_for_samples
+    from cse_tpu_torch.ops.segmentation import segment_shapes
+
+    out = []
+    for sec in CELL_SECONDS:
+        S = segment_shapes(frames_for_samples(int(sec * 8000)), 250)[1]
+        out += [(f"{sec:g}s intra", (CELL_BATCH * S, 251)), (f"{sec:g}s inter", (CELL_BATCH * 250, S + 1))]
+    return out
 # the multi-pass kernels' times before the one-pass redesign, printed beside the new ones
 # (PERF.md section 6, rows 5 and 7b; NVIDIA H100 80GB HBM3, 700 W)
 FLASH_FWD_EARLIER_MS = {"intra": 4.238, "inter": 1.626}
@@ -1304,25 +1321,7 @@ def phase9_kernels(gen, failures, H, F_, NL):
             if diff:
                 failures.append(f"layer_norm_quant {name}")
         del x, q, sa, cq, csa, pq, psa
-        hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
-        (w1, s1), (w2, s2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
-                              for k, n in ((D, F_), (F_, D)))
-        w1, w2, s1, s2 = fs.k_major(w1)[0], fs.k_major(w2)[0], s1[0], s2[0]  # as stack_weights keeps them
-        b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (F_, D))
-        res = torch.randn(M, D, device="cuda", generator=gen)
-        got = w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, res.clone())
-        fq, fsa = w8.quantize_rows(w8.linear_w8a8(hq, sa, w1, s1, b1, "relu"))
-        diff = int((got != w8.linear_w8a8(fq, fsa, w2, s2, b2, "residual", res.clone())).sum())
-        del fq, fsa
-        mx, rmax, _ = errs(got, w8.ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, res))
-        ok = diff == 0 and rmax <= TOL_W8A8_GEMM
-        log(f"  ffn_w8a8 {name} [{M},{D}]x[{D},{F_}]x[{F_},{D}]: {diff} elements differ from linear_w8a8 + "
-            f"quantize_rows + linear_w8a8; vs plain max_abs {mx:.3e} max_rel {rmax:.3e}  {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"ffn_w8a8 {name}")
-        err["ffn_w8a8"] = max(err["ffn_w8a8"], mx)
-        del hq, sa, w1, w2, got, res
-        torch.cuda.empty_cache()
+        err["ffn_w8a8"] = max(err["ffn_w8a8"], ffn_w8a8_check(gen, name, M, F_, failures))
         qkv = 2 * torch.randn(M, 3 * D, device="cuda", generator=gen)
         err["attention[w8a8]"] = max(err["attention[w8a8]"], check(
             f"attention bf16 operands, fp32 out {name}", fs.attention(qkv, L, H, torch.float32, operand_dtype=cd),
@@ -1346,9 +1345,39 @@ def phase9_kernels(gen, failures, H, F_, NL):
             err["fused_stack_w8a8"] = max(err["fused_stack_w8a8"], e)
             del w, xs, got, want
             torch.cuda.empty_cache()
+    for name, (G, L) in cell_shapes():
+        err["ffn_w8a8"] = max(err["ffn_w8a8"], ffn_w8a8_check(gen, name, G * L, F_, failures))
     if failures:
         fail(f"w8a8 kernel checks failed: {failures}")
     return err
+
+
+def ffn_w8a8_check(gen, name, M, F_, failures) -> float:
+    """ffn_w8a8 at M rows: the bits of linear_w8a8 (relu) + quantize_rows + linear_w8a8 (residual), and
+    max_rel <= TOL_W8A8_GEMM against its plain version; the max_abs of the latter."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    D = 256
+    hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
+    (w1, s1), (w2, s2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
+                          for k, n in ((D, F_), (F_, D)))
+    w1, w2, s1, s2 = fs.k_major(w1)[0], fs.k_major(w2)[0], s1[0], s2[0]  # as stack_weights keeps them
+    b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (F_, D))
+    res = torch.randn(M, D, device="cuda", generator=gen)
+    got = w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, res.clone())
+    fq, fsa = w8.quantize_rows(w8.linear_w8a8(hq, sa, w1, s1, b1, "relu"))
+    diff = int((got != w8.linear_w8a8(fq, fsa, w2, s2, b2, "residual", res.clone())).sum())
+    del fq, fsa
+    mx, rmax, _ = errs(got, w8.ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, res))
+    ok = diff == 0 and rmax <= TOL_W8A8_GEMM
+    log(f"  ffn_w8a8 {name} [{M},{D}]x[{D},{F_}]x[{F_},{D}]: {diff} elements differ from linear_w8a8 + "
+        f"quantize_rows + linear_w8a8; vs plain max_abs {mx:.3e} max_rel {rmax:.3e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"ffn_w8a8 {name}")
+    del hq, sa, w1, w2, got, res
+    torch.cuda.empty_cache()
+    return mx
 
 
 def phase9_serve(gen, card, failures):
@@ -1428,26 +1457,13 @@ def phase9_times(gen, card, H, F_, NL):
             launch=w8.kernel_info("layer_norm_quant"), **bound_of(M * D * 5 + M * 4 + 2 * D * 4, 0))
         del h
         # 2f, beside the three launches it replaces (FFN1 relu, the [M, 1024] quantizer, FFN2), timed in this run
-        hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
-        (w1, sw1), (w2, sw2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
-                                for k, n in ((D, F_), (F_, D)))
-        ffn = (hq, sa, fs.k_major(w1)[0], sw1[0], torch.zeros(F_, device="cuda"), fs.k_major(w2)[0], sw2[0],
-               torch.zeros(D, device="cuda"), torch.zeros(M, D, device="cuda"))
-
-        def chain():
-            fq, fsa = w8.quantize_rows(w8.linear_w8a8(*ffn[:5], "relu"))
-            w8.linear_w8a8(fq, fsa, *ffn[5:8], "residual", ffn[8])
-        t["ffn_w8a8"] = dict(ms=time_ms(lambda: w8.ffn_w8a8(*ffn)), plain_ms=time_ms(lambda: w8.ffn_w8a8_plain(*ffn), reps=3),
-                             library_ms=None, before_ms=time_ms(chain), launch=w8.kernel_info("ffn_w8a8"),
-                             **bound_of(M * (D + 4 + 8 * D) + 2 * D * F_ + 4 * (2 * F_ + 2 * D), 4 * M * D * F_,
-                                        PEAK_INT8))
+        t["ffn_w8a8"] = ffn_w8a8_times(gen, M, F_)
         log(f"  {name} layer_norm_quant {t['layer_norm_quant']['ms']:.4f} ms (before: layer_norm + quantize_rows "
             f"{t['layer_norm_quant']['before_ms']:.4f} ms); ffn_w8a8 {t['ffn_w8a8']['ms']:.4f} ms (before: "
             f"linear_w8a8 + quantize_rows + linear_w8a8 {t['ffn_w8a8']['before_ms']:.4f} ms), this run  [{card}]")
         for k in ("layer_norm_quant", "ffn_w8a8"):
             log(f"  {name} {k} launch: {t[k]['launch']['registers']} registers and {t[k]['launch']['local_bytes']} B "
                 f"local memory a thread, {t[k]['launch']['blocks_per_sm']} blocks per SM")
-        del hq, sa, w1, w2, ffn
         ops_, lib_ = [], []
         for K, N, epi in shapes:
             hq, sa = w8.quantize_rows(torch.randn(M, K, device="cuda", generator=gen))
@@ -1495,7 +1511,36 @@ def phase9_times(gen, card, H, F_, NL):
             lib = "none" if x["library_ms"] is None else f"{x['library_ms']:.4f} ms"
             log(f"  {name} G={G} L={L} {kname:<19s} kernel {x['ms']:.4f} ms  plain {x['plain_ms']:.4f} ms  "
                 f"library {lib}  bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+    for name, (G, L) in cell_shapes():  # 2f at the serving cell's shapes, beside the chain it replaces
+        times[name] = {"ffn_w8a8": ffn_w8a8_times(gen, G * L, F_)}
+        x = times[name]["ffn_w8a8"]
+        log(f"  {name} G={G} L={L} ffn_w8a8 kernel {x['ms']:.4f} ms (linear_w8a8 + quantize_rows + linear_w8a8 "
+            f"{x['before_ms']:.4f} ms, this run)  bound {x['bound_ms']:.4f} ms ({x['bound_by']})  [{card}]")
     return times
+
+
+def ffn_w8a8_times(gen, M, F_) -> dict:
+    """ffn_w8a8's time at M rows, the chain it replaces (FFN1 relu, the [M, F] quantizer, FFN2) in the same
+    run, and its bound (bytes read once and written once, or its products at the int8 peak)."""
+    from cse_tpu_torch.ops import fused_stack as fs
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    D = 256
+    hq, sa = w8.quantize_rows(torch.randn(M, D, device="cuda", generator=gen))
+    (w1, sw1), (w2, sw2) = (fs.quantize_stacked(torch.randn(1, k, n, device="cuda", generator=gen))
+                            for k, n in ((D, F_), (F_, D)))
+    ffn = (hq, sa, fs.k_major(w1)[0], sw1[0], torch.zeros(F_, device="cuda"), fs.k_major(w2)[0], sw2[0],
+           torch.zeros(D, device="cuda"), torch.zeros(M, D, device="cuda"))
+
+    def chain():
+        fq, fsa = w8.quantize_rows(w8.linear_w8a8(*ffn[:5], "relu"))
+        w8.linear_w8a8(fq, fsa, *ffn[5:8], "residual", ffn[8])
+    out = dict(ms=time_ms(lambda: w8.ffn_w8a8(*ffn)), plain_ms=time_ms(lambda: w8.ffn_w8a8_plain(*ffn), reps=3),
+               library_ms=None, before_ms=time_ms(chain), launch=w8.kernel_info("ffn_w8a8"),
+               **bound_of(M * (D + 4 + 8 * D) + 2 * D * F_ + 4 * (2 * F_ + 2 * D), 4 * M * D * F_, PEAK_INT8))
+    del ffn, hq, sa, w1, w2
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- 10. the kernel-parts tool
@@ -4084,7 +4129,8 @@ def main() -> int:
          "_ln (:148, :152) and _qdot's row quantizer (:122-123) in one pass, fp32 [M, 256] -> int8 + row scales; "
          "one launch; 'before_ms': layer_norm (fp32) + quantize_rows in this run; launches per w8a8 forward"),
         ("ffn_w8a8", SOURCE_W8A8, REPLACES_W8A8,
-         "ffn_w8a8_kernel (wgmma s8 + TMA, persistent, warp-specialised; the int8 hidden in shared memory)", wtimes,
+         "ffn_w8a8_kernel (wgmma s8 + TMA, persistent, warp-specialised; hq in registers, half-tile pipeline a "
+         "warpgroup; the int8 hidden in shared memory)", wtimes,
          w8_serve["launches"], w8_err,
          "FFN1, ReLU, the hidden's quantizer and FFN2 into the residual (:153-154); one launch; 'before_ms': "
          "linear_w8a8 (relu) + quantize_rows [M, 1024] + linear_w8a8 (residual) in this run; launches per w8a8 "

@@ -560,6 +560,29 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
+// d[64 x 64] (+)= A[64 x 32] . B[32 x 64], int8, A's fragment in registers:
+// four 32-bit registers a thread of four int8 each, rows 16 (t / 32) +
+// (t % 32) / 4 and + 8 (a[0], a[1]) at k 4 (t % 4) .. + 3, the same at k 16 +
+// 4 (t % 4) .. + 3 (a[2], a[3]), the order ldmatrix_x4 gives them, unchanged
+// until the products retire; B's 64 K-major rows from shared memory as
+// wgmma_m64n128k32_s8 reads them. Thread t holds d[4 j + e] at row 16 (t / 32)
+// + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const unsigned (&a)[4], uint64_t db,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 
 // byte offset of element (r, c) of a wgmma kernel's epilogue tile: fp32 as
 // four 32-column boxes, bf16 as two 64-column boxes, each [128 rows][128

@@ -37,8 +37,10 @@
 //       memory: the FFN1 tiles are computed twice (the row max first, then
 //       the int8 payload into shared memory, FFN2's A operand). (b)'s
 //       epilogues and (a)'s quantizer, step for step: the same bits as the
-//       three launches it replaces. Bound by bytes (2308 a row) against
-//       1.5x the int8 work; its design below.
+//       three launches it replaces. Bound by its epilogues on the CUDA
+//       cores (against 1.5x the int8 work on the tensor cores and 2308
+//       bytes a row), so each warpgroup runs an epilogue while its next
+//       products are on the tensor cores; its design below.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (0 = launched).
@@ -431,66 +433,91 @@ cudaError_t launch_layer_norm_quant(const float* x, const float* g, const float*
 
 // ---------------------------------------------------------------- (d) the int8 FFN
 // FFN1, its ReLU, the hidden's row quantizer and FFN2 with the residual in
-// one kernel, at the model's widths (D = 256, F = 1024). A work unit is a
-// panel of 128 rows; consumer warpgroup c owns rows 64 c .. 64 c + 63 of
-// it, so each row's max is reduced inside one warp (the quad that holds the
-// row). Persistent: one block of 384 threads per SM walks the panels
-// (blockIdx.x, + gridDim.x, ...).
-//   - warp 0 loads by TMA: the panel's hq (128 x 256 int8, 32 KB) once into
-//     shared memory, where both FFN1 passes read it; W1's and W2's K-major
-//     16 KB chunks (128 output channels x 128 k) from L2 through a three-slot
-//     ring, in the consumers' order: per panel 2 x 8 FFN1 tiles of 2 chunks,
-//     then FFN2's two 128-column halves in 8 k-chunks each, each block
-//     starting at its own tile and k-chunk (blockIdx.x % 8), so that the
-//     SMs spread their reads over W rather than all asking L2 for one
-//     chunk at once. The next panel's hq is
-//     loaded as soon as pass 2 has freed the buffer, while this panel's
-//     FFN2 runs, and its residual rows are prefetched into L2
-//     (cp.async.bulk.prefetch) at the same time;
-//   - pass 1 (tiles 0-7): wgmma m64n128k32 s8 over K = 256, then the
-//     epilogue in registers: y = relu(float(acc) * sa * s1 + b1), rounded
-//     step by step as (b)'s EPI_RELU (float(acc) by small_int_to_float: the
-//     epilogues, not the products, bound the kernel, and the conversion
-//     instructions issue at a quarter rate), and each row's running max |y|;
-//     nothing is stored. Then sa2 = max(rowmax, 1e-12) / 127, as (a) takes
-//     it;
+// one kernel, at the model's widths (D = 256, F = 1024). Persistent: one
+// block of 384 threads per SM walks panels of 128 rows (blockIdx.x, +
+// gridDim.x, ...); consumer warpgroup c takes rows 64 c .. 64 c + 63 of each
+// panel as its own unit (its hq rows, its hidden, its residual, at its own
+// pace), and each row's max is reduced inside one warp (the quad that holds
+// the row).
+//
+// What bounds it: the epilogues on the CUDA cores. Per unit the tensor cores
+// run 1.5x the int8 work of the two products (FFN1 twice, below); the CUDA
+// cores run the FFN1 dequantise-and-max, the dequantise-and-quantise (some
+// 16 instructions an element) and the residual epilogue, more than twice as
+// long; the 2308 bytes a row (hq and sa read, r read and written) take less
+// than either. A schedule that waits on each tile's products before its
+// epilogue adds the two up (PERF.md: products alone 0.39 of 1.24 ms at M =
+// 506,016), so this one keeps products in flight behind the epilogues:
+//   - warp 0 loads by TMA, in the consumers' order, through one ring of five
+//     16 KB slots that both warpgroups read (a slot goes back when all eight
+//     consumer warps have released it): per panel hq's two 128-byte
+//     k-chunks, then for each of 2 x 8 FFN1 tiles (128 output channels) its
+//     two 64-channel halves, each with both k-chunks of W1, then FFN2's two
+//     128-column halves in 8 k-chunks of W2 each; each block starts at its
+//     own tile and k-chunk (blockIdx.x % 8) and k-chunk order of W1, so that
+//     the SMs spread their reads over W rather than all asking L2 for one
+//     chunk at once. W2 is prefetched into L2 at the start, and each
+//     panel's residual rows (cp.async.bulk.prefetch) as its hq is loaded;
+//   - a warpgroup takes its 64 hq rows out of the ring into registers
+//     (ldmatrix, 32 a thread) and releases the slots at once: FFN1 reads its
+//     A operand from registers for all 16 tiles, which leaves shared memory
+//     room for five slots;
+//   - FFN1 runs as a pipeline of half tiles (wgmma m64n64k32 s8 over K =
+//     256, one commit group each, 32 accumulator registers): a half's
+//     epilogue runs while the warpgroup's next half is on the tensor cores,
+//     and a half's fill goes back as soon as that half retires. The
+//     pipeline drains every two tiles: the compiler follows the groups in
+//     flight through straight code only (around a loop it serialises every
+//     wgmma), and four or eight tiles of straight code ran slower on the H100;
+//   - pass 1 (tiles 0-7): y = relu(float(acc) * sa * s1 + b1), rounded step
+//     by step as (b)'s EPI_RELU (float(acc) by small_int_to_float: the
+//     conversion instructions issue at a quarter rate), and each row's
+//     running max |y|; nothing is stored. Then sa2 = max(rowmax, 1e-12) /
+//     127, as (a) takes it;
 //   - pass 2 (tiles 8-15): the same tiles again (integer sums are exact, so
 //     y repeats pass 1's), each y rounded to int8 as (a) rounds it (a true
-//     division only near a rounding tie: quant_int), and stored into the
-//     warpgroup's 64 x 1024 int8 buffer in shared memory, K-major with TMA's
-//     128-byte swizzle: FFN2's A operand;
-//   - FFN2: wgmma m64n128k32 s8 over K = 1024, one 128-column half at a
-//     time (64 accumulator registers), then r = (r + float(acc) * sa2 * s2) + b2
-//     as (b)'s EPI_RESIDUAL, read and written from registers in 32-byte runs
-//     of each row (the rows were prefetched into L2);
-//   - setmaxnreg hands the producer warpgroup's registers to the consumers.
+//     division only near a rounding tie: quant_int, run only on the column
+//     pairs that met one), and stored into the warpgroup's 64 x 1024 int8
+//     buffer in shared memory, K-major with TMA's 128-byte swizzle: FFN2's A
+//     operand;
+//   - FFN2: one 128-column half at a time (64 accumulator registers), a
+//     commit group per k-chunk, kept in flight (a k-chunk's fill goes back
+//     once the next one is issued and it has retired). The half's residual
+//     rows are read into registers before its products, so their latency
+//     passes under them; then r = (r + float(acc) * sa2 * s2) + b2 as (b)'s
+//     EPI_RESIDUAL, written in 8-byte runs of each row;
 //   - s1, b1, s2 and b2 are copied into shared memory once: read from L1 or
-//     L2 at each use, their latency bound the epilogues (L1 is what the
-//     227 KB of shared memory leave of the SM's 256 KB).
-// Shared memory: hq 32 KB + hidden 128 KB + ring 48 KB + vectors 10 KB; one
-// block per SM.
-// The recomputed FFN1 costs 1.5x the int8 work of the two products; the
-// 2308 bytes a row (hq and sa read, r read and written) bound it on an H100.
+//     L2 at each use, their latency bound the epilogues;
+//   - setmaxnreg hands the producer warpgroup's registers to the consumers.
+// Shared memory: hidden 128 KB + ring 80 KB + vectors 10 KB; one block per
+// SM.
 namespace ffn {
 constexpr int D = 256, F = 1024;
-constexpr int BM = 128;                           // rows a unit
-constexpr int CHUNK = 128 * 128;                  // 16 KB: 128 rows (or output channels) x 128 k
-constexpr int HALF = 64 * 128;                    // 8 KB: a warpgroup's 64 rows of a chunk
-constexpr int KCH = F / 128;                      // FFN1 column tiles = FFN2 k-chunks
-constexpr int W_SLOTS = 3;
-constexpr int TILES = 2 * KCH;                    // FFN1 tiles a unit: two passes
-constexpr int FILLS = 2 * TILES + 2 * KCH;        // W chunks a unit
-constexpr int VEC = 2 * F + 2 * D;                // s1, b1, s2, b2 (fp32)
-// shared memory: hq (2 chunks) | hidden (2 warpgroups x KCH halves) | W slots | s1 b1 s2 b2 | barriers
-constexpr int OFF_A2 = 2 * CHUNK, OFF_W = OFF_A2 + 2 * KCH * HALF, OFF_VEC = OFF_W + W_SLOTS * CHUNK;
-constexpr int OFF_BAR = OFF_VEC + VEC * 4;
-constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (2 + 2 * W_SLOTS);
+constexpr int BM = 128;                         // rows a panel: a unit of 64 a warpgroup
+constexpr int CHUNK = 128 * 128;                // 16 KB: 128 rows (or output channels) x 128 k
+constexpr int HALF = 64 * 128;                  // 8 KB: a warpgroup's 64 rows of a chunk
+constexpr int KCH = F / 128;                    // FFN1 column tiles = FFN2 k-chunks
+constexpr int W_SLOTS = 5;
+constexpr int TILES = 2 * KCH;                  // FFN1 tiles a unit: two passes
+constexpr int GROUP = 2;                        // FFN1 tiles a stretch of the half-tile pipeline
+constexpr int STEPS = KCH;                      // FFN2 steps a 128-column half: one k-chunk each
+constexpr int FILLS = 2 + 2 * TILES + 2 * KCH;  // ring fills a panel: hq, W1, W2
+constexpr int VEC = 2 * F + 2 * D;              // s1, b1, s2, b2 (fp32)
+// shared memory: hidden (2 warpgroups x KCH halves) | ring slots | s1 b1 s2 b2 | barriers
+constexpr int OFF_W = 2 * KCH * HALF, OFF_VEC = OFF_W + W_SLOTS * CHUNK, OFF_BAR = OFF_VEC + VEC * 4;
+constexpr size_t SMEM = 1024 + OFF_BAR + 8 * 2 * W_SLOTS;
 bool smem_ready = false;
 }  // namespace ffn
 
 // `bytes` (a multiple of 16, 16-byte aligned) of global memory into L2
 __device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(p)), "r"(bytes)
+               : "memory");
+}
+// the box of `map` at (c0, c1) into L2
+__device__ __forceinline__ void tma_prefetch_2d(const CUtensorMap* map, int c0, int c1) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1)
                : "memory");
 }
 // the 128 threads of one warpgroup (named barrier id > 0)
@@ -504,15 +531,12 @@ ffn_w8a8_kernel(const __grid_constant__ CUtensorMap tmH, const __grid_constant__
   using namespace ffn;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* Hs = smem;
-  unsigned char* A2 = smem + OFF_A2;
+  unsigned char* A2 = smem;
   unsigned char* Ws = smem + OFF_W;
   float* vec = reinterpret_cast<float*>(smem + OFF_VEC);
   const float *vs1 = vec, *vb1 = vec + F, *vs2 = vec + 2 * F, *vb2 = vec + 2 * F + D;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
-  const TmaRing<1> hring{bars};            // the unit's hq
-  const TmaRing<W_SLOTS> wring{bars + 2};  // W1 and W2 chunks
-  const int units = (M + BM - 1) / BM;
+  const TmaRing<W_SLOTS> ring{reinterpret_cast<uint64_t*>(smem + OFF_BAR)};  // hq, W1 and W2 chunks
+  const int units = (M + BM - 1) / BM;  // panels
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the block's turn in W: FFN1 column tiles and FFN2 k-chunks from o on, FFN1's two k-chunks in order p, so
   // that the SMs read different chunks at any time; integer sums and a row max do not depend on the order
@@ -520,8 +544,7 @@ ffn_w8a8_kernel(const __grid_constant__ CUtensorMap tmH, const __grid_constant__
   for (int i = threadIdx.x; i < VEC; i += WS_THREADS)  // the epilogues' vectors, once: every unit reads them
     vec[i] = i < F ? s1[i] : i < 2 * F ? b1[i - F] : i < 2 * F + D ? s2[i - 2 * F] : b2[i - 2 * F - D];
   if (threadIdx.x == 0) {
-    hring.init(8);  // one release per consumer warp
-    wring.init(8);
+    ring.init(8);  // one release per consumer warp
     fence_barrier_init();
   }
   __syncthreads();
@@ -529,170 +552,218 @@ ffn_w8a8_kernel(const __grid_constant__ CUtensorMap tmH, const __grid_constant__
   if (warp < 4) {  // ---- producer warpgroup: warp 0 loads
     ws_producer_regs();
     if (warp == 0 && lane == 0) {
-      auto load_h = [&](int ui, int u) {  // fill ui of hq: unit u's rows, and its residual rows into L2
-        const long long row0 = (long long)u * BM;
+      for (int i = 0; i < 2 * KCH; ++i)  // W2 into L2 now, long before the first FFN2 asks for it
+        tma_prefetch_2d(&tmW2, (i % KCH) * 128, (i / KCH) * 128);
+      int fi = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const long long row0 = (long long)u * BM;  // the panel's residual rows into L2
         const unsigned bytes = (unsigned)(M - row0 < BM ? M - row0 : BM) * D * 4;
         for (unsigned off = 0; off < bytes; off += 16384)
           prefetch_l2(r + row0 * D + off / 4, bytes - off < 16384u ? bytes - off : 16384u);
-        uint64_t* full = hring.fill(ui, 2 * CHUNK);
-        tma_load_2d(Hs, &tmH, 0, u * BM, full);
-        tma_load_2d(Hs + CHUNK, &tmH, 128, u * BM, full);
-      };
-      if ((int)blockIdx.x < units) load_h(0, blockIdx.x);
-      int wi = 0;
-      for (int u = blockIdx.x, ui = 0; u < units; u += gridDim.x, ++ui) {
-        for (int i = 0; i < 2 * TILES; ++i, ++wi)  // FFN1 tile i / 2: columns ((i / 2 + o) % 8) 128 .., k-chunk i % 2 ^ p
-          tma_load_2d(Ws + (wi % W_SLOTS) * CHUNK, &tmW1, ((i & 1) ^ p) * 128, (((i >> 1) + o) % KCH) * 128,
-                      wring.fill(wi, CHUNK));
-        for (int i = 0; i < 2 * KCH; ++i, ++wi) {  // FFN2 column half i / 8, k-chunk (i % 8 + o) % 8
-          if (i == 2 && u + (int)gridDim.x < units) load_h(ui + 1, u + gridDim.x);  // waits for pass 2 to free hq
-          tma_load_2d(Ws + (wi % W_SLOTS) * CHUNK, &tmW2, ((i % KCH + o) % KCH) * 128, (i / KCH) * 128,
-                      wring.fill(wi, CHUNK));
+        for (int kc = 0; kc < 2; ++kc, ++fi)  // hq's k-chunks in W1's order
+          tma_load_2d(Ws + (fi % W_SLOTS) * CHUNK, &tmH, (kc ^ p) * 128, u * BM, ring.fill(fi, CHUNK));
+        for (int i = 0; i < 2 * TILES; ++i, ++fi) {  // FFN1 tile i / 2, its 64-column half i % 2: both k-chunks
+          uint64_t* bar = ring.fill(fi, CHUNK);
+          for (int kc = 0; kc < 2; ++kc)
+            tma_load_2d(Ws + (fi % W_SLOTS) * CHUNK + kc * HALF, &tmW1, (kc ^ p) * 128,
+                        (((i >> 1) + o) % KCH) * 128 + (i & 1) * 64, bar);
         }
+        for (int i = 0; i < 2 * KCH; ++i, ++fi)  // FFN2 column half i / 8, k-chunk (i % 8 + o) % 8
+          tma_load_2d(Ws + (fi % W_SLOTS) * CHUNK, &tmW2, ((i % KCH + o) % KCH) * 128, (i / KCH) * 128,
+                      ring.fill(fi, CHUNK));
       }
     }
     return;
   }
 
-  // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each unit
+  // ---- consumers: warpgroup c owns rows 64 c .. 64 c + 63 of each panel
   ws_consumer_regs();
   const int c = (warp >> 2) - 1;
   const int g = lane >> 2, qd = lane & 3;
   const int rl = (warp & 3) * 16 + g;  // the thread's rows among the warpgroup's 64: rl, rl + 8
-  const unsigned char* hA = Hs + c * HALF;
   unsigned char* A2c = A2 + c * KCH * HALF;
-  int wbase = 0;
-  for (int u = blockIdx.x, ui = 0; u < units; u += gridDim.x, ++ui, wbase += FILLS) {
+
+  for (int u = blockIdx.x, fi = 0; u < units; u += gridDim.x, fi += FILLS) {
     const int gr = u * BM + c * 64 + rl;  // the thread's first row of the matrix
     const float ar[2] = {gr < M ? sa[gr] : 0.f, gr + 8 < M ? sa[gr + 8] : 0.f};
     float mx[2] = {0.f, 0.f}, sa2[2] = {0.f, 0.f}, rc[2] = {0.f, 0.f};
-    hring.wait(ui);
+    // the unit's hq rows as FFN1's A fragments, k-chunk kc (in W1's order), k32 step s
+    unsigned ha[2][4][4];
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      ring.wait(fi + kc);
+      const int m = lane >> 3, row = c * 64 + (warp & 3) * 16 + (m & 1) * 8 + (lane & 7);
+      const unsigned char* h = Ws + ((fi + kc) % W_SLOTS) * CHUNK + row * 128;
+#pragma unroll
+      for (int s = 0; s < 4; ++s)  // 128-byte swizzle: 16-byte chunk (2 s + m / 2) ^ (row % 8)
+        ldmatrix_x4(ha[kc][s], reinterpret_cast<const bf16*>(h + (((2 * s + (m >> 1)) ^ (lane & 7)) << 4)));
+    }
+    __syncwarp();
+    if (lane == 0) {
+      ring.release(fi);
+      ring.release(fi + 1);
+    }
 
-    // FFN1 tile t (columns ((t + o) % 8) 128 ..) into acc, committed as one group
-    auto issue = [&](int(&acc)[64], int t) {
-      const int w0 = wbase + 2 * t;
-      wring.wait(w0);
-      wring.wait(w0 + 1);
+    // FFN1 tile t's products for its 64-column half hb into acc (32 registers), one commit group, from the
+    // half's own fill (its 64 output channels, both k-chunks)
+    auto issue = [&](int(&acc)[32], int t, int hb) {
+      const int w = fi + 2 + 2 * t + hb;
+      ring.wait(w);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 2; ++kc)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k32_s8(acc, desc_k_major(hA + (kc ^ p) * CHUNK, kk),
-                              desc_k_major(Ws + ((w0 + kc) % W_SLOTS) * CHUNK, kk), kc | kk);
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64k32_s8_rs(acc, ha[kc][s], desc_k_major(Ws + (w % W_SLOTS) * CHUNK + kc * HALF, s), kc | s);
       wgmma_commit();
     };
-    // tile t's products have retired: its W slots go back (and hq after the last tile)
-    auto retire = [&](int(&acc)[64], int t) {
-      fence_regs(acc);
-      if (lane == 0) {
-        wring.release(wbase + 2 * t);
-        wring.release(wbase + 2 * t + 1);
-        if (t == TILES - 1) hring.release(ui);
-      }
-    };
-    // pass 1 (t < 8): each row's running max |y|; pass 2: y as int8 into the hidden buffer, half a tile's
-    // integers by quant_fast before its stores, and quant_int only in a second loop, run where the first met
-    // a near tie (a branch, or a store before a load, inside the loop would serialise it)
-#pragma unroll 1
-    for (int t = 0; t < TILES; ++t) {
-      int acc1[64];
-      issue(acc1, t);
-      wgmma_wait0();
-      retire(acc1, t);
+    // the epilogue of tile t's half hb (column pairs j = 8 hb .. 8 hb + 7; acc[4 (j % 8) + e]). Pass 1 (t < 8):
+    // each row's running max |y|. Pass 2: y as int8 into the hidden buffer, the half's integers by quant_fast
+    // before its stores, and quant_int only in a second loop, on the column pairs where the first met a near
+    // tie (a branch, or a store before a load, inside the first loop would serialise it)
+    auto epilogue = [&](int(&acc)[32], int t, int hb, bool pass2) {
       const int ct = (t + o) % KCH;
-      const float* s1t = vs1 + ct * 128 + 2 * qd;
-      const float* b1t = vb1 + ct * 128 + 2 * qd;
-      if (t < KCH) {
+      const float* s1t = vs1 + ct * 128 + 64 * hb + 2 * qd;
+      const float* b1t = vb1 + ct * 128 + 64 * hb + 2 * qd;
+      if (!pass2) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (j % 8 == 0) compiler_fence();
+        for (int j = 0; j < 8; ++j) {
           const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
           const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
 #pragma unroll
           for (int h = 0; h < 2; ++h)  // max relu(y) = max(0, max y): mx starts at 0
-            mx[h] = fmaxf(mx[h], fmaxf(lin_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x),
-                                       lin_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y)));
+            mx[h] = fmaxf(mx[h], fmaxf(lin_epi(acc[4 * j + 2 * h], ar[h], sc.x, bb.x),
+                                       lin_epi(acc[4 * j + 2 * h + 1], ar[h], sc.y, bb.y)));
         }
-        if (t == KCH - 1) {  // pass 1 done: the quad that shares a row holds all its columns
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
-            sa2[h] = __fdiv_rn(fmaxf(mx[h], 1e-12f), 127.0f);
-            rc[h] = __frcp_rn(sa2[h]);
-          }
-        }
-      } else {
-        unsigned char* dst = A2c + ct * HALF;
-        auto put = [&](int j, unsigned pk) {  // K-major, 128-byte swizzle: 16-byte chunk (col / 16) ^ (row % 8)
-          const int col = 8 * j + 2 * qd;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = rl + 8 * h;
-            *reinterpret_cast<unsigned short*>(dst + row * 128 + (((col >> 4) ^ (row & 7)) << 4) + (col & 15)) =
-                (unsigned short)(pk >> (16 * h));
-          }
-        };
-        bool near = false;
-#pragma unroll
-        for (int j0 = 0; j0 < 16; j0 += 8) {  // half a tile at a time: its loads, its integers, then its stores
-          compiler_fence();
-          unsigned pk[8];  // column pair j0 + i: row rl's two int8 in the low half, row rl + 8's in the high
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int j = j0 + i;
-            const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
-            const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
-            pk[i] = 0u;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int q0 = quant_fast(relu_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x), rc[h], near);
-              const int q1 = quant_fast(relu_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y), rc[h], near);
-              pk[i] |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 8; ++i) put(j0 + i, pk[i]);
-        }
-        if (near) {  // rare: the tile's integers again, each by quant_int
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
-            const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
-            unsigned pk = 0u;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int q0 = quant_int(relu_epi(acc1[4 * j + 2 * h], ar[h], sc.x, bb.x), sa2[h], rc[h]);
-              const int q1 = quant_int(relu_epi(acc1[4 * j + 2 * h + 1], ar[h], sc.y, bb.y), sa2[h], rc[h]);
-              pk |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
-            }
-            put(j, pk);
-          }
-        }
+        return;
       }
+      unsigned char* dst = A2c + ct * HALF;
+      auto put = [&](int j, unsigned pk) {  // K-major, 128-byte swizzle: 16-byte chunk (col / 16) ^ (row % 8)
+        const int col = 64 * hb + 8 * j + 2 * qd;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rl + 8 * h;
+          *reinterpret_cast<unsigned short*>(dst + row * 128 + (((col >> 4) ^ (row & 7)) << 4) + (col & 15)) =
+              (unsigned short)(pk >> (16 * h));
+        }
+      };
+      unsigned nears = 0u, pk[8];  // bit j: column pair j met a near tie; pk[j]: its int8, row rl low, rl + 8 high
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
+        const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
+        bool near = false;
+        pk[j] = 0u;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q0 = quant_fast(relu_epi(acc[4 * j + 2 * h], ar[h], sc.x, bb.x), rc[h], near);
+          const int q1 = quant_fast(relu_epi(acc[4 * j + 2 * h + 1], ar[h], sc.y, bb.y), rc[h], near);
+          pk[j] |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
+        }
+        if (near) nears |= 1u << j;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) put(j, pk[j]);
+      // rare: those pairs' integers again, each by quant_int, one pair at a time, its four accumulators picked
+      // out by selects (one call site of the division's slow path, not 32: those would hold the fast loop's
+      // registers hostage); the accumulators made opaque first, so nothing of the fast loop is kept for it
+      fence_regs(acc);
+      compiler_fence();
+#pragma unroll 1
+      for (unsigned m = nears; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        int a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = acc[e];
+#pragma unroll
+          for (int jj = 1; jj < 8; ++jj) a[e] = j == jj ? acc[4 * jj + e] : a[e];
+        }
+        const float2 sc = *reinterpret_cast<const float2*>(s1t + 8 * j);
+        const float2 bb = *reinterpret_cast<const float2*>(b1t + 8 * j);
+        unsigned q = 0u;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q0 = quant_int(relu_epi(a[2 * h], ar[h], sc.x, bb.x), sa2[h], rc[h]);
+          const int q1 = quant_int(relu_epi(a[2 * h + 1], ar[h], sc.y, bb.y), sa2[h], rc[h]);
+          q |= ((unsigned)(q0 & 0xff) | ((unsigned)(q1 & 0xff) << 8)) << (16 * h);
+        }
+        put(j, q);
+      }
+    };
+    // the pipeline, GROUP tiles at a time: each half's epilogue runs while the warpgroup's next half is on
+    // the tensor cores, and every group has retired by the end of the stretch
+    auto release = [&](int t, int hb) {  // half hb of tile t has retired: its fill goes back
+      if (lane == 0) ring.release(fi + 2 + 2 * t + hb);
+    };
+    int acc_a[32], acc_b[32];
+    auto tile_group = [&](int t, bool pass2) {  // tiles t .. t + GROUP - 1
+      issue(acc_a, t, 0);
+      issue(acc_b, t, 1);
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        wgmma_wait1();
+        fence_regs(acc_a);
+        release(t + i, 0);
+        epilogue(acc_a, t + i, 0, pass2);
+        if (i + 1 < GROUP) {
+          issue(acc_a, t + i + 1, 0);
+          wgmma_wait1();
+        } else {
+          wgmma_wait0();
+        }
+        fence_regs(acc_b);
+        release(t + i, 1);
+        epilogue(acc_b, t + i, 1, pass2);
+        if (i + 1 < GROUP) issue(acc_b, t + i + 1, 1);
+      }
+    };
+#pragma unroll 1
+    for (int t = 0; t < KCH; t += GROUP) tile_group(t, false);  // pass 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // pass 1 done: the quad that shares a row holds all its columns
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      sa2[h] = __fdiv_rn(fmaxf(mx[h], 1e-12f), 127.0f);
+      rc[h] = __frcp_rn(sa2[h]);
     }
+#pragma unroll 1
+    for (int t = KCH; t < TILES; t += GROUP) tile_group(t, true);  // pass 2
     fence_proxy_async();  // the hidden's generic stores -> visible to wgmma
     warpgroup_sync(1 + c);
 
     // FFN2, one 128-column half at a time (64 accumulator registers, not 128)
 #pragma unroll 1
     for (int nh = 0; nh < 2; ++nh) {
+      // the half's residual, read now: in flight while the products run
+      float2 x[2][16];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          x[h][j] = gr + 8 * h < M ? *reinterpret_cast<const float2*>(r + (long long)(gr + 8 * h) * D + nh * 128 +
+                                                                      8 * j + 2 * qd)
+                                   : make_float2(0.f, 0.f);
       int acc[64];
+      const int w2 = fi + 2 + 2 * TILES + nh * KCH;
 #pragma unroll 1
-      for (int kc = 0; kc < KCH; ++kc) {
-        const int w0 = wbase + 2 * TILES + nh * KCH + kc;
-        wring.wait(w0);
+      for (int st = 0; st < STEPS; ++st) {
+        const int w = w2 + st;
+        ring.wait(w);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k32_s8(acc, desc_k_major(A2c + (kc + o) % KCH * HALF, kk),
-                              desc_k_major(Ws + (w0 % W_SLOTS) * CHUNK, kk), kc | kk);
+          wgmma_m64n128k32_s8(acc, desc_k_major(A2c + (st + o) % KCH * HALF, kk),
+                              desc_k_major(Ws + (w % W_SLOTS) * CHUNK, kk), st | kk);
         wgmma_commit();
-        wgmma_wait0();
-        fence_regs(acc);
-        if (lane == 0) wring.release(w0);
+        if (st > 0) {  // the k-chunk before has retired: its fill goes back
+          wgmma_wait1();
+          if (lane == 0) ring.release(w - 1);
+        }
       }
+      wgmma_wait0();
+      fence_regs(acc);
+      if (lane == 0) ring.release(w2 + STEPS - 1);
       // (b)'s EPI_RESIDUAL: r = (r + y) + b2, y = float(acc) * sa2 * s2
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -700,21 +771,14 @@ ffn_w8a8_kernel(const __grid_constant__ CUtensorMap tmH, const __grid_constant__
         float* rr = r + (long long)(gr + 8 * h) * D + nh * 128 + 2 * qd;
         const float *s2h = vs2 + nh * 128 + 2 * qd, *b2h = vb2 + nh * 128 + 2 * qd;
 #pragma unroll
-        for (int j0 = 0; j0 < 16; j0 += 8) {  // eight 8-byte loads in flight a thread
-          compiler_fence();
-          float2 x[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) x[j] = *reinterpret_cast<const float2*>(rr + 8 * (j0 + j));
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int e = 4 * (j0 + j) + 2 * h;
-            const float2 sc = *reinterpret_cast<const float2*>(s2h + 8 * (j0 + j));
-            const float2 bb = *reinterpret_cast<const float2*>(b2h + 8 * (j0 + j));
-            const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e]), sa2[h]), sc.x);
-            const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e + 1]), sa2[h]), sc.y);
-            __stcs(reinterpret_cast<float2*>(rr + 8 * (j0 + j)),
-                   make_float2(__fadd_rn(__fadd_rn(x[j].x, y0), bb.x), __fadd_rn(__fadd_rn(x[j].y, y1), bb.y)));
-          }
+        for (int j = 0; j < 16; ++j) {
+          const int e = 4 * j + 2 * h;
+          const float2 sc = *reinterpret_cast<const float2*>(s2h + 8 * j);
+          const float2 bb = *reinterpret_cast<const float2*>(b2h + 8 * j);
+          const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e]), sa2[h]), sc.x);
+          const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[e + 1]), sa2[h]), sc.y);
+          __stcs(reinterpret_cast<float2*>(rr + 8 * j), make_float2(__fadd_rn(__fadd_rn(x[h][j].x, y0), bb.x),
+                                                                     __fadd_rn(__fadd_rn(x[h][j].y, y1), bb.y)));
         }
       }
     }
@@ -729,7 +793,7 @@ cudaError_t launch_ffn_w8a8(const int8_t* hq, const float* sa, const int8_t* w1t
   if (e != cudaSuccess) return e;
   const CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap th, t1, t2;
-  if (!tensor_map(&th, U8, hq, 1, D, M, 128, BM) || !tensor_map(&t1, U8, w1t, 1, D, F, 128, 128) ||
+  if (!tensor_map(&th, U8, hq, 1, D, M, 128, BM) || !tensor_map(&t1, U8, w1t, 1, D, F, 128, 64) ||
       !tensor_map(&t2, U8, w2t, 1, F, D, 128, 128))
     return cudaErrorInvalidValue;
   const int blocks = min((M + BM - 1) / BM, sm_count());

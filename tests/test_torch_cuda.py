@@ -633,11 +633,16 @@ def test_w8a8_stack_routes_by_width(gen, dhf):
     _w8a8_stack_case(gen, *dhf)
 
 
-@pytest.mark.parametrize("m", [1, 127, 128, 129, 1000, 4000 * 127, 2016 * 251])
+# ragged row counts around the kernel's units (64 rows a warpgroup, 128 a panel): one row, a unit less or more
+# one, two panels, fewer panels than SMs (5000: 40), the serving cell's shortest intra stack (45,180 = 352 panels
+# and a last one whose second unit has 60 rows), a last panel with a short second unit (700 panels + 100 rows),
+# and the paper's inter and intra stacks
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 128, 129, 1000, 5000, 45180, 128 * 700 + 100, 4000 * 127,
+                               2016 * 251])
 def test_ffn_w8a8_matches_the_kernel_chain_and_plain(gen, m):
     """The one-kernel FFN gives the bits of linear_w8a8 (relu), quantize_rows
     and linear_w8a8 (residual) in turn, and holds the int8 GEMM's bar
-    (max_rel <= 1e-6) against its plain version; ragged panels of 128 rows
+    (max_rel <= 1e-6) against its plain version; ragged units and panels
     included. A repeat gives the same bits."""
     from cse_tpu_torch.ops import fused_stack_w8a8 as w8
 
@@ -654,6 +659,38 @@ def test_ffn_w8a8_matches_the_kernel_chain_and_plain(gen, m):
     assert torch.equal(got, w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, r.clone()))
     want = w8.ffn_w8a8_plain(hq, sa, w1, s1, b1, w2, s2, b2, r.clone())
     assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_ffn_w8a8_rounding_ties_take_the_true_division(gen):
+    """Every 7th row's hidden lies exactly on the quantizer's rounding ties:
+    hq = 1 at k 0 and 1, W1's first two rows 127 at column 0 and 0 or an odd
+    value elsewhere, sa = s1 = 1 and b1 = 0, so y = acc, the row max 254 and
+    sa2 = 2, and y / sa2 = j + 0.5. The kernel's second loop (quant_int, a
+    true division rounded half to even) gives the chain's bits."""
+    from cse_tpu_torch.ops import fused_stack_w8a8 as w8
+
+    m = 1000
+    hq = torch.randint(-127, 128, (m, 256), device="cuda", generator=gen, dtype=torch.int8)
+    ties = torch.arange(0, m, 7, device="cuda")
+    hq[ties] = 0
+    hq[ties, :2] = 1
+    w1 = torch.randint(-127, 128, (256, 1024), device="cuda", generator=gen, dtype=torch.int8)
+    w1[0] = (torch.arange(1024, device="cuda") % 63 * 2 + 1).to(torch.int8)  # odd, 1 .. 125
+    w1[1] = 0
+    w1[:2, 0] = 127
+    w1 = fs.k_major(w1)
+    w2 = fs.k_major(torch.randint(-127, 128, (1024, 256), device="cuda", generator=gen, dtype=torch.int8))
+    sa, s1, b1 = torch.ones(m, device="cuda"), torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda")
+    s2 = (torch.rand(1, 256, device="cuda", generator=gen) + 0.1) / 1000
+    b2 = 0.1 * torch.randn(256, device="cuda", generator=gen)
+    r = torch.randn(m, 256, device="cuda", generator=gen)
+    f = w8.linear_w8a8(hq, sa, w1, s1, b1, "relu")
+    half = f[ties] / 2
+    assert torch.equal(f[ties].amax(dim=1), torch.full((len(ties),), 254.0, device="cuda"))
+    assert int((half - half.floor() == 0.5).sum()) >= len(ties) * 1000  # ties indeed
+    fq, fsa = w8.quantize_rows(f)
+    got = w8.ffn_w8a8(hq, sa, w1, s1, b1, w2, s2, b2, r.clone())
+    assert torch.equal(got, w8.linear_w8a8(fq, fsa, w2, s2, b2, "residual", r.clone()))
 
 
 def test_w8a8_kernels_spill_nothing(gen):
