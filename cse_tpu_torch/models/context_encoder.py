@@ -9,6 +9,9 @@ tokenized dialog history (``train_ContSep.py:379-380``,
 * :class:`cse_tpu_torch.models.llama.LlamaContextEncoder`, the real one,
   which :func:`build_context_encoder` returns for a directory that holds
   Llama weights (``config.json`` + ``*.safetensors``);
+* :class:`cse_tpu_torch.models.deepseek_v2.DeepseekV2ContextEncoder`, which
+  it returns instead where that ``config.json`` says ``"model_type":
+  "deepseek_v2"``;
 * :class:`HashProjectionEncoder` is the deterministic, parameter-free
   stand-in: fixed random-feature token embeddings, masked causal-mean
   readout. It exercises the identical conditioning plumbing (shapes, dtypes)
@@ -23,6 +26,7 @@ packages compute the same function on the same tables.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -87,6 +91,12 @@ def llama_weights_available(path: str) -> bool:
     return os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json"))
 
 
+def checkout_model_type(path: str) -> str | None:
+    """``model_type`` of ``path/config.json`` (None when it names none)."""
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f).get("model_type")
+
+
 def build_context_encoder(
     llama_path: str,
     ctx_length: int = 1,
@@ -97,11 +107,20 @@ def build_context_encoder(
     device=None,
     mesh=None,
 ):
-    """Return the encoder: the Llama encoder when ``llama_path`` holds Llama
-    weights (bf16, ``quant`` None, "int8" or "w8a8", on ``device``: the card
-    unless ``device="cpu"``; tensor-parallel over ``mesh``'s model axis,
-    ``models/llama.py::llama_shardings``), else the stub."""
+    """Return the encoder for the checkout ``llama_path``: DeepSeek-V2 where
+    its ``config.json`` has ``model_type`` ``deepseek_v2`` (bf16 on
+    ``device``, whole on each rank: no ``quant``, no model axis), the Llama encoder for
+    any other checkout (bf16, ``quant`` None, "int8" or "w8a8", on
+    ``device``: the card unless ``device="cpu"``; tensor-parallel over
+    ``mesh``'s model axis, ``models/llama.py::llama_shardings``), else the
+    stub."""
     if not force_stub and llama_weights_available(llama_path):
+        if checkout_model_type(llama_path) == "deepseek_v2":
+            if quant is not None or (mesh is not None and mesh.n_model > 1):
+                raise ValueError("the deepseek_v2 encoder runs bf16, whole on each rank: no quant, no model axis")
+            from cse_tpu_torch.models.deepseek_v2 import DeepseekV2ContextEncoder
+
+            return DeepseekV2ContextEncoder(llama_path, ctx_length=ctx_length, device=device)
         from cse_tpu_torch.models.llama import LlamaContextEncoder
 
         return LlamaContextEncoder(llama_path, ctx_length=ctx_length, quant=quant, device=device, mesh=mesh)

@@ -10,11 +10,16 @@ differentiable: each stack runs through
 :func:`cse_tpu_torch.ops.fused_train.fused_stack_train` (the training
 kernels) and gradients reach the model's parameters. With ``quant="w8a8"``
 (inference only) the stacks' projections run int8 (``_stack_kernel_w8a8``).
+With a ``context_encoder`` (``models/context_encoder.py``'s contract: ids,
+mask -> [B, 1, dim]) one call goes from the dialog history's token ids to the
+streams: the encoder's prefill, then the same fused forward.
 
 Usage:
     engine = ServingEngine(cfg, params_or_model)   # device defaults to cuda
     engine = ServingEngine(cfg, params_or_model, quant="w8a8")
     est = engine(mix, ctx)                          # same outputs as Sepformer
+    engine = ServingEngine(cfg, model, quant="w8a8", context_encoder=enc)
+    est = engine(mix, ids=ids, mask=mask)           # enc(ids, mask), then as above
     est = sepformer_fused_forward(model, mix, ctx, train=True)  # a graph
 """
 
@@ -143,10 +148,13 @@ class ServingEngine:
     :func:`cse_tpu_torch.compat.jax_params.load_jax_params`. ``device``
     defaults to ``cuda`` and raises when CUDA is absent; the stacked kernel
     weights are made once here. ``quant="w8a8"`` quantizes the stacks'
-    projections to int8 (``_stack_kernel_w8a8``).
+    projections to int8 (``_stack_kernel_w8a8``). ``context_encoder`` (on
+    the same device) lets a call take the history's ``ids`` and ``mask``
+    in place of ``ctx``.
     """
 
-    def __init__(self, cfg: SepformerConfig, params_or_model, device=None, quant: str | None = None):
+    def __init__(self, cfg: SepformerConfig, params_or_model, device=None, quant: str | None = None,
+                 context_encoder=None):
         _check_quant(quant)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -164,6 +172,7 @@ class ServingEngine:
             raise TypeError(f"expected a Sepformer or a param mapping, got {type(params_or_model)}")
         self.model = model.to(self.device).eval()
         self.stacks = stacked_weights(self.model, quant)
+        self.context_encoder = context_encoder
 
     def _in(self, a):
         if a is None:
@@ -172,10 +181,18 @@ class ServingEngine:
             return a.to(self.device)
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def __call__(self, mix, ctx=None, se=None, cue_index=None):
+    def __call__(self, mix, ctx=None, se=None, cue_index=None, ids=None, mask=None):
+        """The model's outputs for ``mix`` conditioned on ``ctx``, or on the
+        context encoder's vectors of ``ids`` / ``mask`` [B, T] (left-padded
+        histories)."""
         with span("serve"), torch.inference_mode():
+            if ids is not None:
+                if self.context_encoder is None or ctx is not None:
+                    raise ValueError("ids take the engine's context_encoder, in place of ctx")
+                ctx = self.context_encoder(self._in(ids), self._in(mask))
+            ctx = self._in(ctx)
             cue = cue_index if cue_index is None or isinstance(cue_index, int) else self._in(cue_index)
             return sepformer_fused_forward(
-                self.model, self._in(mix), ctx=self._in(ctx), se=self._in(se),
+                self.model, self._in(mix), ctx=ctx, se=self._in(se),
                 cue_index=cue, stacks=self.stacks, quant=self.quant,
             )

@@ -10,7 +10,8 @@ trace is written to ``<logdir>/trace_steps_<start>_<stop>.json`` (Chrome
 trace format), with the spans beside the device work on the profiler's
 clock. With ``summary`` (a dict) the window's device activity
 (:func:`device_activity`) is written into it when the window closes, with or
-without a ``logdir``.
+without a ``logdir``. :class:`DeviceCounters` keeps counts where they are
+made, on the device, for a reader after the work.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import os
 
+import torch
 from torch.autograd import DeviceType, profiler as _profiler
 
 _ACTIVE = {}
@@ -38,6 +40,30 @@ def span(name: str, args: dict | None = None):
     if args:
         name += "[" + ",".join(f"{k}={v}" for k, v in args.items()) + "]"
     return _profiler.record_function(RANGE_PREFIX + name)
+
+
+class DeviceCounters:
+    """Named counts: device tensors summed in place where the work makes
+    them (no host read on the path that counts). ``read`` copies them to
+    the host, after the work they count."""
+
+    def __init__(self):
+        self._dev: dict = {}
+
+    def add(self, name: str, value):
+        """Add a device tensor (any integer shape) to the count ``name``.
+        The count is an ordinary tensor even when made under
+        ``inference_mode``, so that calls inside and outside it both add."""
+        t = self._dev.get(name)
+        if t is None:
+            with torch.inference_mode(False):
+                self._dev[name] = value.detach().to(dtype=torch.int64).clone()
+        else:
+            t.add_(value)
+
+    def read(self) -> dict:
+        """Every count as Python numbers (ints, or lists for vectors)."""
+        return {k: v.tolist() for k, v in self._dev.items()}
 
 
 def _is_launch_call(e) -> bool:
