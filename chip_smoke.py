@@ -3761,6 +3761,80 @@ def phase19(gen, card, failures):
     return out
 
 
+# ---------------------------------------------------------------- 20. the MLA prefill kernel (K16a)
+
+
+def mla_work(first: list[int], T: int, H: int, widths) -> dict:
+    """The least work of one MLA attention call: the real causal pairs'
+    products (each row's real tokens n, n (n + 1) / 2 pairs a head, 2
+    operations a width of q.k and p.v) and q, kv, k_pe and o read or written
+    once, bf16."""
+    dn, dr, dv = widths
+    pairs = sum((T - f) * (T - f + 1) // 2 for f in first)
+    B = len(first)
+    nbytes = 2 * (B * T * H * (dn + dr) + B * T * H * (dn + dv) + B * T * dr + B * T * H * dv)
+    return {"flops": 2.0 * pairs * H * (dn + dr + dv), "bytes": nbytes}
+
+
+def phase20(gen, card, failures, B=10, T=2048, H=16):
+    """The MLA prefill kernel (``ops/mla.py``, ``csrc/mla.cu``) at the
+    history cell's shape, T 2048 with 24% (each row's first 492 tokens) and
+    0% left padding: against its plain twin on real rows (bf16 rel L2 1e-2;
+    pad rows exactly 0), then timed beside its bound, the twin and, as
+    ``library_ms`` only, SDPA (``is_causal`` without padding, the fp32
+    bias as its mask with it; the port never calls it)."""
+    from cse_tpu_torch.models.deepseek_v2 import DeepseekV2Config, softmax_scale
+    from cse_tpu_torch.ops import mla as M
+
+    widths = (128, 64, 128)
+    dn, dr, dv = widths
+    scale = softmax_scale(DeepseekV2Config())  # DeepSeek-V2-Lite's
+    info = M.mla_attention_info(widths)
+    log(f"[20] MLA prefill kernel at B={B} T={T} H={H} {widths}: launch {info}")
+    if info["local_bytes"]:
+        failures.append(f"mla_prefill_bf16_kernel uses local memory: {info}")
+    out = {"launch": info, "card": card}
+    for name, pad in (("pad24", round(0.24 * T)), ("pad0", 0)):
+        q = torch.randn(B, T, H * (dn + dr), device="cuda", generator=gen).to(torch.bfloat16)
+        kv = torch.randn(B, T, H * (dn + dv), device="cuda", generator=gen).to(torch.bfloat16)
+        k_pe = torch.randn(B, T, dr, device="cuda", generator=gen).to(torch.bfloat16)
+        first = torch.full((B,), pad, dtype=torch.int32, device="cuda")
+        mask = M.mask_of_first(first, T)
+        bias = M.attention_bias(mask)
+        got = M.mla_attention(q, kv, k_pe, first, scale, widths)
+        twin = M.mla_attention_plain(q, kv, k_pe, bias, scale, widths)
+        err = float((got[mask].float() - twin[mask].float()).norm() / twin[mask].float().norm())
+        pads_zero = bool((got[~mask] == 0).all())
+        if err > TOL_BF16 or not pads_zero or not torch.isfinite(got).all():
+            failures.append(f"mla_prefill {name}: rel L2 {err:.3e} (bar {TOL_BF16}), pad rows zero {pads_zero}")
+        del twin
+        work = mla_work([pad] * B, T, H, widths)
+        ms = statistics.median(cuda_ms(lambda: M.mla_attention(q, kv, k_pe, first, scale, widths), n=20))
+        plain_ms = statistics.median(cuda_ms(lambda: M.mla_attention_plain(q, kv, k_pe, bias, scale, widths), n=5))
+        q4 = q.view(B, T, H, dn + dr).transpose(1, 2).contiguous()
+        k4 = torch.cat([kv.view(B, T, H, dn + dv)[..., :dn], k_pe[:, :, None].expand(B, T, H, dr)], -1)
+        k4 = k4.transpose(1, 2).contiguous()
+        v4 = kv.view(B, T, H, dn + dv)[..., dn:].transpose(1, 2).contiguous()
+        if pad:
+            mb = bias.to(torch.bfloat16)
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mb, scale=scale)  # noqa: E731
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, scale=scale)  # noqa: E731
+        library_ms = statistics.median(cuda_ms(sdpa, n=10))
+        run, skipped = M.tile_counts(first, T)
+        res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "rel_l2_vs_plain": err,
+               **bound_of(work["bytes"], work["flops"]), "tflops": work["flops"] / ms / 1e9,
+               "tiles_skipped_share": float(skipped) / float(run + skipped)}
+        res["roofline"] = res["bound_ms"] / ms
+        out[name] = res
+        log(f"  {name}: kernel {ms:.4f} ms ({res['tflops']:.0f} TFLOP/s, {100 * res['roofline']:.1f}% of its "
+            f"{res['bound_by']} bound {res['bound_ms']:.4f} ms), plain {plain_ms:.3f} ms, SDPA {library_ms:.4f} ms, "
+            f"rel L2 {err:.2e}, tiles skipped {100 * res['tiles_skipped_share']:.1f}%")
+        del q, kv, k_pe, bias, q4, k4, v4
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -3797,6 +3871,11 @@ def main() -> int:
         log(f"  {kname} (wgmma + TMA), ptxas: {gemm}")
         if not gemm or any(g["spill_bytes"] or g["warnings"] for g in gemm.values()):
             fail(f"{kname} spills, is serialised or is missing from the ptxas report: {gemm}")
+
+    mla_ptxas = ptxas_of(report.getvalue(), "mla_prefill_bf16_kernel")
+    log(f"  mla_prefill_bf16_kernel (wgmma + TMA), ptxas by instantiation: {mla_ptxas}")
+    if len(mla_ptxas) != 2 or any(g["spill_bytes"] or g["warnings"] for g in mla_ptxas.values()):
+        fail(f"mla_prefill_bf16_kernel spills, is serialised or is missing from the ptxas report: {mla_ptxas}")
 
     ln_ptxas = {k: ptxas_of(report.getvalue(), k) for k in ("layer_norm_bwd", "kp_ln_staged_kernel",
                                                             "layer_norm_quant_kernel")}
@@ -4058,6 +4137,7 @@ def main() -> int:
                                   "[14] default": benches["default"]["value"]})
     log(f"  [18] took {time.time() - t0:.1f} s")
     widths = phase19(gen, card, failures)
+    mla_times = phase20(gen, card, failures)
 
     serve_parts = {"layer_norm": ("_ln (:33), one launch", "layer_norm_kernel"),
                    "linear": ("the four projections (:92-110), one layer's 4 launches", GEMM_SYMBOL),
@@ -4214,7 +4294,7 @@ def main() -> int:
                       "flash_train_step": flash_bench, "flash_times": ftimes, "w8a8_serving": w8_serve,
                       "w8a8_times": wtimes, "kernel_parts": parts, "trainer": trainer, "tiny_trainer": tiny,
                       "eval": evals, "bench": benches, "llama": llama, "hcontext": hcontext,
-                      "cascaded": cascaded, "data_parallel": dp, "every_width": widths}),
+                      "cascaded": cascaded, "data_parallel": dp, "every_width": widths, "mla_prefill": mla_times}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,9 +38,12 @@ Departures from the published code, each on purpose:
   the weighted sum of the routed experts' outputs run in fp32. The softmax
   scale multiplies the scores after they are cast to fp32 (the published
   code scales the bf16 product).
-* Causal masking and key padding are one finite additive bias of ``-1e30``
-  (``llama.py``'s): a pad query, whose keys are all masked, still gets a
-  finite softmax row.
+* The attention after the projections is ``ops/mla.py``: on the card the
+  hand-written ``mla_prefill_bf16_kernel`` (fp32 scores kept on chip, the
+  masked tiles skipped, each row's first real token given as an index),
+  where a pad query, whose keys are all masked, gets 0; on the CPU its plain
+  twin, which masks with one finite additive bias of ``-1e30``
+  (``llama.py``'s), so a pad query gets a finite softmax row there too.
 * **Positions count from each row's first real token** (``cumsum(mask) -
   1``), not over the padded width, so a left-padded history gets the same
   vector as the history alone, whatever request it is batched in.
@@ -49,12 +52,15 @@ The weights are a dict of frozen tensors in the checkout's ``[out, in]``
 layout (:func:`params_from_state_dict`), the experts stacked per layer as
 ``[E, out, in]``. Everything runs on the card unless the caller asks for the
 CPU. The spans (``utils/profiling.py::span``) are ``cse/ctx.encode`` around
-the whole prefill, ``cse/ctx.embed`` (lookup, positions, bias, rope tables),
+the whole prefill, ``cse/ctx.embed`` (lookup, positions, the mask as a bias or
+each row's first real token, rope tables),
 ``cse/ctx.mla[B=..,T=..]``, ``cse/ctx.dense_mlp`` and ``cse/ctx.moe.route``
 / ``.experts`` / ``.shared`` (each with ``[B=..,T=..]``). With ``counters``
 (:class:`cse_tpu_torch.utils.profiling.DeviceCounters`) the forward counts,
-on the device, the real and the padded tokens and each MoE layer's tokens
-per expert (``expert_tokens.<layer>``). The
+on the device, the real and the padded tokens, each MoE layer's tokens
+per expert (``expert_tokens.<layer>``) and, where the attention kernel
+runs, the (query tile, key tile) pairs of every head and layer that it
+computes and skips (``mla.tiles_run``, ``mla.tiles_skipped``). The
 prefill reads nothing back to the host (the experts' offsets stay on the
 device; ``torch.bincount`` would read its input's maximum); a profile shows
 any read as an ``aten::_local_scalar_dense`` or a blocking CUDA call inside
@@ -75,9 +81,9 @@ import torch.nn.functional as F
 
 from cse_tpu_torch.compat.safetensors_io import SafetensorsFile
 from cse_tpu_torch.core.device import resolve_device
+from cse_tpu_torch.ops.mla import attention_bias, first_real, mla_attention, mla_attention_plain, tile_counts
 from cse_tpu_torch.utils.profiling import DeviceCounters, span
 
-MASK_BIAS = -1e30
 SWIGLU = ("gate_proj", "up_proj", "down_proj")
 
 
@@ -221,42 +227,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention_bias(mask: torch.Tensor) -> torch.Tensor:
-    """The additive fp32 bias [B, 1, T, T]: 0 where a query may read a key
-    (causal, key not padding), ``MASK_BIAS`` elsewhere."""
-    T = mask.shape[1]
-    causal = torch.ones(T, T, dtype=torch.bool, device=mask.device).tril()
-    keep = mask.bool()[:, None, None, :] & causal
-    return torch.where(keep, 0.0, MASK_BIAS).float()
-
-
 # ---------------------------------------------------------------- layers
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    """w * x / rms(x), the statistics and the scaling in fp32, rounded to x's
+    dtype before w; the mean of squares from one fp32 read of x (no fp32
+    copy of x is kept)."""
+    var = torch.linalg.vector_norm(x, dim=-1, keepdim=True, dtype=torch.float32).square_().div_(x.shape[-1])
+    return w * (x * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def mla(h: torch.Tensor, lp: dict, cfg: DeepseekV2Config, cos, sin, bias) -> torch.Tensor:
-    """Latent attention of the normed h [B, T, D] -> [B, T, D]."""
+def mla(h: torch.Tensor, lp: dict, cfg: DeepseekV2Config, cos, sin, bias=None, first=None) -> torch.Tensor:
+    """Latent attention of the normed h [B, T, D] -> [B, T, D]: on the card
+    the kernel under ``first`` (each row's first real token, int32 [B]), on
+    the CPU the plain twin under ``bias`` (:func:`attention_bias`)."""
     B, T, _ = h.shape
     H, dn, dr, dv, r = (cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
                         cfg.kv_lora_rank)
-    q = F.linear(h, lp["q"]).view(B, T, H, dn + dr).transpose(1, 2)
-    q_nope, q_pe = q.split([dn, dr], dim=-1)
+    q = F.linear(h, lp["q"])
+    q_pe = q.view(B, T, H, dn + dr)[..., dn:].transpose(1, 2)
+    q_pe.copy_(apply_rope(q_pe, cos, sin))  # in place: q stays q_proj's [B, T, H (dn + dr)]
     latent, k_pe = F.linear(h, lp["kv_a"]).split([r, dr], dim=-1)
-    kv = F.linear(rms_norm(latent, lp["kv_ln"], cfg.rms_norm_eps), lp["kv_b"]).view(B, T, H, dn + dv).transpose(1, 2)
-    k_nope, v = kv.split([dn, dv], dim=-1)
-    k_pe = apply_rope(k_pe.view(B, 1, T, dr), cos, sin)
-    q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
-    k = torch.cat([k_nope, k_pe.expand(B, H, T, dr)], dim=-1)
-    # bias + scale x scores in one fp32 pass (the bf16 product is promoted before the scale)
-    s = torch.add(bias, torch.matmul(q, k.transpose(-1, -2)), alpha=softmax_scale(cfg))
-    p = torch.softmax(s, dim=-1).to(h.dtype)
-    del s
-    o = torch.matmul(p, v).transpose(1, 2).reshape(B, T, H * dv)
+    kv = F.linear(rms_norm(latent, lp["kv_ln"], cfg.rms_norm_eps), lp["kv_b"])
+    k_pe = apply_rope(k_pe.view(B, 1, T, dr), cos, sin).view(B, T, dr)
+    widths = (dn, dr, dv)
+    if h.is_cuda:
+        o = mla_attention(q, kv, k_pe, first, softmax_scale(cfg), widths)
+    else:
+        o = mla_attention_plain(q, kv, k_pe, bias, softmax_scale(cfg), widths)
     return F.linear(o, lp["o"])
 
 
@@ -322,15 +321,23 @@ def deepseek_v2_forward(params: dict, ids: torch.Tensor, mask: torch.Tensor, cfg
         with span("ctx.embed"):
             x = embed[ids.long()]
             cos, sin = rope_tables(positions(mask), cfg, x.dtype)
-            bias = attention_bias(mask)
+            # the card's kernel takes each row's first real token; the CPU's plain twin the bias
+            on_card = dev.type == "cuda"
+            first = first_real(mask) if on_card else None
+            bias = None if on_card else attention_bias(mask)
             if counters is not None:
                 real = mask.bool().sum()
                 counters.add("tokens_real", real)
                 counters.add("tokens_padded", B * T - real)
+                if on_card:
+                    run, skipped = tile_counts(first, T)
+                    per = cfg.num_attention_heads * cfg.num_hidden_layers
+                    counters.add("mla.tiles_run", run * per)
+                    counters.add("mla.tiles_skipped", skipped * per)
         eps = cfg.rms_norm_eps
         for i, lp in enumerate(params["layers"]):
             with span("ctx.mla", {"B": B, "T": T}):
-                x = x + mla(rms_norm(x, lp["input_ln"], eps), lp, cfg, cos, sin, bias)
+                x = x + mla(rms_norm(x, lp["input_ln"], eps), lp, cfg, cos, sin, bias, first)
             h = rms_norm(x, lp["post_ln"], eps)
             if "router" in lp:
                 x = x + moe(h, lp, cfg, i, counters, routes)

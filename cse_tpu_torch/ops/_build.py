@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_stack.cu", "fused_train.cu", "attention.cu", "fused_stack_w8a8.cu", "kernel_parts.cu")
+SOURCES = ("fused_stack.cu", "fused_train.cu", "attention.cu", "fused_stack_w8a8.cu", "kernel_parts.cu", "mla.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
@@ -59,6 +59,9 @@ SIGNATURES = {
     "cse_kp_layer_norm_info": (I, I, I, P),
     "cse_kp_attention": (P, P, I, P, I, I, I, I, I, I, F, P),
     "cse_kp_attention_info": (I, I, I, P),
+    # mla.cu
+    "cse_mla_prefill": (P, P, P, P, P, I, I, I, I, I, I, F, P),
+    "cse_mla_prefill_info": (I, I, I, P),
 }
 
 

@@ -35,10 +35,41 @@ W8A8_INFO_ENTRIES = {("fused_stack_w8a8.cu", "cse_w8a8_kernel_info"): ("KERNEL_I
                                                                        ("layer_norm_quant", "ffn_w8a8"))}
 
 
+# the MLA prefill kernel's attributes: {entry: its Python reader's key list in ops/mla.py}
+MLA_INFO_ENTRIES = {("mla.cu", "cse_mla_prefill_info"): "INFO_KEYS"}
+
+
 def test_route_entries_are_every_info_entry():
     found = {(src, e) for src in _build.SOURCES for e in re.findall(r"^int (cse_\w+_info)\(",
                                                                     (_build.CSRC / src).read_text(), flags=re.M)}
-    assert found == set(ROUTE_ENTRIES) | set(LN_INFO_ENTRIES) | set(W8A8_INFO_ENTRIES)
+    assert found == set(ROUTE_ENTRIES) | set(LN_INFO_ENTRIES) | set(W8A8_INFO_ENTRIES) | set(MLA_INFO_ENTRIES)
+
+
+@pytest.mark.parametrize("src, entry", sorted(MLA_INFO_ENTRIES))
+def test_mla_info_entry_matches_its_reader(src, entry, monkeypatch):
+    """The MLA ``*_info`` entry writes as many ints as ``mla_attention_info``
+    names, takes the widths the wrapper passes, and a failed query raises."""
+    from cse_tpu_torch.ops import mla
+
+    keys = getattr(mla, MLA_INFO_ENTRIES[(src, entry)])
+    comment = re.search(rf"((?://[^\n]*\n)+)int {entry}\(", (_build.CSRC / src).read_text()).group(1)
+    assert f"info[{len(keys)}]" in comment
+    seen = []
+
+    def fake(err):
+        def call(dn, dr, dv, out):
+            seen.append((dn, dr, dv))
+            for i in range(len(keys)):
+                out[i] = 10 + i
+            return err
+        return type("Lib", (), {entry: staticmethod(call)})()
+
+    monkeypatch.setattr(_build, "library", lambda: fake(0))
+    assert mla.mla_attention_info() == {k: 10 + i for i, k in enumerate(keys)}
+    assert seen == [mla.WIDTHS[0]]
+    monkeypatch.setattr(_build, "library", lambda: fake(1))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        mla.mla_attention_info(mla.WIDTHS[1])
 
 
 @pytest.mark.parametrize("src, entry", sorted(W8A8_INFO_ENTRIES))
